@@ -1,0 +1,145 @@
+"""Game environment protocol.
+
+The port's copy of ``handyrl_tpu/envs/base.py``: the same 17 methods of the
+HandyRL contract (handyrl/environment.py:41-145).  Game logic is pure
+numpy/python; ``net()`` returns a torch module from
+``handyrl_tpu_torch.models``, loaded lazily.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+
+class BaseEnvironment:
+    """Abstract game interface.
+
+    Shapes of the game loop (see runtime/generation.py):
+        reset() -> while not terminal(): turns()/observers() -> observation(p)
+        -> legal_actions(p) -> step({player: action}) -> reward() ... outcome()
+
+    Network-battle / replica synchronisation uses ``diff_info``/``update``:
+    a master env emits a per-player delta after every transition, replica
+    envs apply it and must stay consistent (legal-action sets identical).
+    """
+
+    def __init__(self, args: Dict[str, Any] | None = None):
+        self.args: Dict[str, Any] = dict(args or {})
+
+    def __str__(self) -> str:
+        return ""
+
+    # -- core transitions ---------------------------------------------------
+
+    def reset(self, args: Dict[str, Any] | None = None):
+        """Start a new game. Return a truthy value on unrecoverable error."""
+        raise NotImplementedError()
+
+    def play(self, action: int, player: int | None = None):
+        """Apply a single player's action (turn-based games)."""
+        raise NotImplementedError()
+
+    def step(self, actions: Dict[int, int | None]):
+        """Apply a joint action dict. Default: sequentially play non-None actions."""
+        for player, action in actions.items():
+            if action is not None:
+                self.play(action, player)
+
+    # -- whose move ---------------------------------------------------------
+
+    def turn(self) -> int:
+        """Turn player (single-actor games)."""
+        return 0
+
+    def turns(self) -> List[int]:
+        """Players who act this step (simultaneous games override)."""
+        return [self.turn()]
+
+    def observers(self) -> List[int]:
+        """Non-acting players who should still observe (e.g. to feed RNNs)."""
+        return []
+
+    # -- termination & rewards ---------------------------------------------
+
+    def terminal(self) -> bool:
+        raise NotImplementedError()
+
+    def reward(self) -> Dict[int, float]:
+        """Immediate rewards after the last step ({} if none)."""
+        return {}
+
+    def outcome(self) -> Dict[int, float]:
+        """Final outcome per player at a terminal state."""
+        raise NotImplementedError()
+
+    # -- actions & players --------------------------------------------------
+
+    def legal_actions(self, player: int | None = None) -> List[int]:
+        raise NotImplementedError()
+
+    def players(self) -> List[int]:
+        return [0]
+
+    def observation(self, player: int | None = None):
+        """Numpy feature pytree for ``player``'s point of view."""
+        raise NotImplementedError()
+
+    # -- string codecs (used by match records & network battles) -----------
+
+    def action2str(self, a: int, player: int | None = None) -> str:
+        return str(a)
+
+    def str2action(self, s: str, player: int | None = None) -> int:
+        return int(s)
+
+    # -- replica synchronisation (network battle mode) ----------------------
+
+    def diff_info(self, player: int | None = None):
+        return ""
+
+    def update(self, info, reset: bool):
+        raise NotImplementedError()
+
+    # -- model factory ------------------------------------------------------
+
+    def net(self):
+        """Return the torch module for this game (policy/value net).
+
+        Honors ``env_args['net'] == 'transformer'`` for every environment:
+        the generic KV-cache memory family (models/transformer.py) sized by
+        ``transformer_spec()``, with ``env_args['net_args']`` merged over
+        the spec — so configs can scale the family (d_model, n_layers,
+        n_heads, memory_len, mlp_ratio) without a new env subclass.
+        Environments implement ``default_net()`` for their bespoke
+        architecture.
+        """
+        if self.args.get("net") == "transformer":
+            from ..models import TransformerNet
+
+            spec = dict(self.transformer_spec())
+            spec.update(self.args.get("net_args") or {})
+            spec.setdefault("input_size", self.observation_size())
+            return TransformerNet(**spec)
+        return self.default_net()
+
+    def observation_size(self) -> int:
+        """Flattened size of one observation (the transformer's encoder
+        input), read from the environment's current state."""
+        import numpy as np
+
+        from ..utils import tree_leaves
+
+        obs = self.observation(self.players()[0])
+        return sum(int(np.asarray(leaf).size) for leaf in tree_leaves(obs))
+
+    def default_net(self):
+        """The environment's bespoke policy/value module."""
+        raise NotImplementedError()
+
+    def transformer_spec(self) -> Dict[str, Any]:
+        """Constructor kwargs for the generic TransformerNet family."""
+        return {"num_actions": self.action_size()}
+
+    def action_size(self) -> int:
+        """Total policy-head size (maximum action index + 1)."""
+        raise NotImplementedError()
