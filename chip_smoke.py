@@ -6,18 +6,28 @@
 
 Phases, each of which fails the run when it fails:
 
-1. device: the card's name and power limit; build every kernel with nvcc
-   and print ptxas's registers / shared memory.
-2. kernels vs their plain versions on the card, at the training shape and a
-   small ragged one, fp32 and bf16.
+1. device: the card's name and power limit; build every kernel source with
+   nvcc, one process per source, all at once, and print ptxas's registers /
+   shared memory / spills for each kernel.
+2. kernels vs their plain versions on the card, fp32, bf16 and fp16: the
+   masked kernel at the training shape and small ragged ones (head dims
+   16 and 24), the plain flash kernel, causal and full, at the JAX
+   package's flash-bench shape, the transformer's width at T1024 and a
+   small ragged one, and causal in bf16 at phase 4's long shape (T8192).
 3. kernel timing (CUDA events) beside its bound, the plain version and one
    PyTorch library call computing the same function.
-4. acting: Geister self-play with the full-width memory transformer
+4. the ``ops.flash_attention`` entry point, forward and backward: the
+   gradients of ``(flash_attention(q, k, v) ** 2).sum()`` held against
+   autograd through the plain version, ms per forward+backward, one call
+   under the profiler, and one long sequence (T8192) with its peak memory.
+5. acting: Geister self-play with the full-width memory transformer
    (d_model 1536, 16 heads, 8 layers, memory 32) in step mode on the card.
-5. training: the Trainer at batch 16 x window 512 in bf16 on those episodes,
+6. training: the Trainer at batch 16 x window 512 in bf16 on those episodes,
    through the masked flash kernel (launch count checked), its loss held
    against the einsum path on one batch.
 
+Phases 4 and 5-6 are the two paths through the port's kernels: each starts
+with every launch count at 0, and its kernel's count is read at its end.
 The last two lines are a JSON ``kernels`` record and the verdict
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or of handyrl_tpu is
 imported.  Weights are random, made from a seed.
@@ -30,6 +40,7 @@ import random
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -44,6 +55,14 @@ TRAIN_ARGS = {
 TRAIN_STEPS = 4          # the first one is warm-up, left out of the rates
 EPISODES = 4
 SEED = 0
+
+# what each kernel replaces, and its source (the kernels line)
+KERNELS = {
+    "masked_flash_attention": ("handyrl_tpu_torch/csrc/flash_attention.cu",
+                               "handyrl_tpu/ops/flash_attention.py:240"),
+    "flash_attention": ("handyrl_tpu_torch/csrc/flash_attention.cu",
+                        "handyrl_tpu/ops/flash_attention.py:67"),
+}
 
 # (memory bytes/s, dense bf16 FLOP/s, fp32 FLOP/s without tensor cores) by
 # nvidia-smi name; NVIDIA's data sheets, dense rates
@@ -71,6 +90,16 @@ def peaks_for(name):
     return PEAKS[2][1:]
 
 
+def tolerance(dtype):
+    """Kernel vs plain version, absolute, on O(1) outputs.  fp32: the
+    kernel's FMA sums run in another order than the einsum's; bf16 (8 bits
+    of mantissa) and fp16 (11): inputs and output rounded to the type,
+    against the fp32 plain version of the same rounded inputs."""
+    import torch
+
+    return {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-3}[dtype]
+
+
 def cuda_ms(fn, warmup=3, iters=20):
     import torch
 
@@ -85,13 +114,19 @@ def cuda_ms(fn, warmup=3, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def qkv(B, T, H, D, dtype, g):
+    import torch
+
+    return [torch.randn(B, T, H, D, device="cuda", generator=g).to(dtype) for _ in range(3)]
+
+
 def attention_inputs(rows, T, H, D, dtype, seed, observed=0.7):
     """q, k, v ~ N(0, 1); key masks ~70% observed up to a per-row episode
     end, then unobserved padding — the shape of the training windows."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn(rows, T, H, D, device="cuda", generator=g).to(dtype) for _ in range(3))
+    q, k, v = qkv(rows, T, H, D, dtype, g)
     ends = torch.randint(T // 4, T + 1, (rows, 1), device="cuda", generator=g)
     t = torch.arange(T, device="cuda")[None]
     key_mask = ((torch.rand(rows, T, device="cuda", generator=g) < observed) & (t < ends)).float()
@@ -114,7 +149,7 @@ def visible(key_mask, window):
 def phase_device(results):
     import torch
 
-    from handyrl_tpu_torch.ops.flash_attention import MASKED_FLASH
+    from handyrl_tpu_torch.ops.flash_attention import FLASH, MASKED_FLASH
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -123,50 +158,93 @@ def phase_device(results):
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     print(smi.stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    sources = {kernel.source: kernel for kernel in (MASKED_FLASH, FLASH)}
     t0 = time.perf_counter()
-    MASKED_FLASH.build()
-    print(f"[build] {MASKED_FLASH.source.name} in {time.perf_counter() - t0:.1f} s")
-    for line in MASKED_FLASH.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("[ptxas]", line.strip())
-    smem = MASKED_FLASH.library().masked_flash_smem_bytes
-    print("[smem] dynamic shared memory per block, by head dim: "
-          + ", ".join(f"D={d}: {smem(d)} B" for d in (16, 32, 64, 96, 128)))
+    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source, all at once
+        list(pool.map(lambda kernel: kernel.build(), sources.values()))
+    print(f"[build] {', '.join(source.name for source in sources)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for kernel in sources.values():
+        for line in kernel.build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[ptxas] {kernel.source.name}: {line.strip()}")
+    smem = FLASH.library().flash_smem_bytes
+    for masked, name in ((1, "masked"), (0, "plain")):
+        print(f"[smem] {name} kernel: dynamic shared memory per block, by head dim: "
+              + ", ".join(f"D={d}: {smem(d, masked)} B" for d in (16, 32, 64, 96, 128)))
 
 
 def phase_kernel_check(results):
     import torch
 
-    from handyrl_tpu_torch.ops.flash_attention import masked_attention_reference, masked_flash_kernel
+    from handyrl_tpu_torch.ops.flash_attention import (
+        flash_kernel, full_attention_reference, masked_attention_reference, masked_flash_kernel,
+    )
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
-    # fp32: the kernel's FMA sums run in another order than the einsum's
-    # (1e-4 absolute on O(1) outputs); bf16: inputs and output rounded to
-    # bf16 (8 bits of mantissa) against the fp32 plain version of the same
-    # rounded inputs
-    tolerance = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-    worst = {}
-    for shape in ((32, 512, 16, 96), (3, 100, 2, 16)):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full fp32
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    worst, seed = {}, 0
+    for shape in ((32, 512, 16, 96), (3, 100, 2, 16), (3, 100, 2, 24)):
         for window in (32, 1 << 30):
-            for dtype in (torch.float32, torch.bfloat16):
-                q, k, v, km, sl = attention_inputs(*shape, dtype, seed=len(worst) + 1)
+            for dtype in dtypes:
+                seed += 1
+                q, k, v, km, sl = attention_inputs(*shape, dtype, seed=seed)
                 out = masked_flash_kernel(q, k, v, km, sl, window)
                 ref = masked_attention_reference(q.float(), k.float(), v.float(), km, sl, window)
                 torch.cuda.synchronize()
-                check(torch.isfinite(out.float()).all().item(), f"non-finite kernel output {shape}")
-                err = (out.float() - ref).abs().max().item()
-                tag = f"{shape} window={window} {str(dtype)[6:]}"
-                worst[tag] = err
-                print(f"[kernel] {tag}: max_abs_err {err:.3e} (tolerance {tolerance[dtype]:g})")
-                check(err <= tolerance[dtype], f"kernel disagrees with plain version at {tag}")
-    results["max_abs_err"] = worst[f"{(32, 512, 16, 96)} window=32 bfloat16"]
+                tag = f"masked {shape} window={window} {str(dtype)[6:]}"
+                worst[tag] = check_close(out, ref, dtype, tag)
+    results["masked_flash_attention"]["max_abs_err"] = worst[
+        f"masked {(32, 512, 16, 96)} window=32 bfloat16"]
+
+    for shape in ((16, 1024, 16, 96), (8, 1024, 4, 64), (3, 100, 2, 24)):
+        for causal in (True, False):
+            for dtype in dtypes:
+                seed += 1
+                q, k, v = qkv(*shape, dtype, torch.Generator(device="cuda").manual_seed(seed))
+                out = flash_kernel(q, k, v, causal)
+                ref = full_attention_reference(q.float(), k.float(), v.float(), causal)
+                torch.cuda.synchronize()
+                tag = f"flash {shape} {'causal' if causal else 'full'} {str(dtype)[6:]}"
+                worst[tag] = check_close(out, ref, dtype, tag)
+    results["flash_attention"]["max_abs_err"] = worst[f"flash {(16, 1024, 16, 96)} causal bfloat16"]
+
+    # phase 4's long shape, where a query tile walks up to 128 key tiles; the
+    # plain version's fp32 score slabs are 8.6 GB each, ~26 GB at its peak
+    shape = (2, 8192, 16, 96)
+    q, k, v = qkv(*shape, torch.bfloat16, torch.Generator(device="cuda").manual_seed(seed + 1))
+    out = flash_kernel(q, k, v, True)
+    ref = full_attention_reference(q.float(), k.float(), v.float(), True)
+    torch.cuda.synchronize()
+    check_close(out, ref, torch.bfloat16, f"flash {shape} causal bfloat16")
+    del q, k, v, out, ref
+    torch.cuda.empty_cache()
+
+
+def check_close(out, ref, dtype, tag):
+    check(out.shape == ref.shape and out.dtype == dtype, f"wrong shape or dtype at {tag}")
+    check(torch_finite(out), f"non-finite kernel output at {tag}")
+    err = (out.float() - ref).abs().max().item()
+    print(f"[kernel] {tag}: max_abs_err {err:.3e} (tolerance {tolerance(dtype):g})")
+    check(err <= tolerance(dtype), f"kernel disagrees with its plain version at {tag}")
+    return err
+
+
+def torch_finite(x):
+    import torch
+
+    return bool(torch.isfinite(x.float()).all().item())
 
 
 def phase_kernel_timing(results, device_name):
     import torch
     import torch.nn.functional as F
 
-    from handyrl_tpu_torch.ops.flash_attention import masked_attention_reference, masked_flash_kernel
+    from handyrl_tpu_torch.ops.flash_attention import (
+        flash_kernel, full_attention_reference, masked_attention_reference, masked_flash_kernel,
+    )
+
+    bw, bf16_peak, fp32_peak = peaks_for(device_name)
 
     rows, T, H, D = 32, 512, 16, 96
     window = NET_ARGS["memory_len"]
@@ -183,18 +261,100 @@ def phase_kernel_timing(results, device_name):
     lib_err = (F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias).transpose(1, 2).float()
                - masked_flash_kernel(q, k, v, km, sl, window).float()).abs().max().item()
 
-    bw, bf16_peak, _ = peaks_for(device_name)
     nbytes = 4 * q.numel() * q.element_size() + km.numel() * 4 + sl.numel() * 4
     flops = 4 * D * H * int(valid.sum())   # q.k and p.v over the pairs the data lets through
     bytes_ms, ops_ms = nbytes / bw * 1e3, flops / bf16_peak * 1e3
-    results.update(
+    masked = results["masked_flash_attention"]
+    masked.update(
         ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
     )
     print(f"[timing] masked_flash_attention ({rows}, {T}, {H}, {D}) bf16 window {window}: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms "
-          f"(sdpa vs kernel max_abs_err {lib_err:.3e}); bound {results['bound_ms']:.4f} ms by "
-          f"{results['bound_by']} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP of valid pairs)")
+          f"(sdpa vs kernel max_abs_err {lib_err:.3e}); bound {masked['bound_ms']:.4f} ms by "
+          f"{masked['bound_by']} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP of valid pairs)")
+
+    # the plain flash kernel, causal: the first shape's numbers go to the
+    # kernels line
+    for n, (shape, dtype) in enumerate((((16, 1024, 16, 96), torch.bfloat16),
+                                        ((8, 1024, 4, 64), torch.float32))):
+        B, T, H, D = shape
+        q, k, v = qkv(*shape, dtype, torch.Generator(device="cuda").manual_seed(31 + n))
+        ms = cuda_ms(lambda: flash_kernel(q, k, v, True))
+        plain_ms = cuda_ms(lambda: full_attention_reference(q, k, v, True))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+        lib_err = (F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2).float()
+                   - flash_kernel(q, k, v, True).float()).abs().max().item()
+        nbytes = 4 * q.numel() * q.element_size()          # q, k, v read once, out written once
+        flops = 4 * B * H * D * (T * (T + 1) // 2)         # q.k and p.v over the causal pairs
+        peak = fp32_peak if dtype == torch.float32 else bf16_peak
+        bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+        timing = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        )
+        if n == 0:
+            results["flash_attention"].update(timing)
+        print(f"[timing] flash_attention {shape} {str(dtype)[6:]} causal: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (sdpa vs kernel max_abs_err "
+              f"{lib_err:.3e}); bound {timing['bound_ms']:.4f} ms by {timing['bound_by']} "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at "
+              f"{peak / 1e12:.0f} TFLOP/s)")
+
+
+def phase_flash_op(results):
+    """The ops.flash_attention entry point as its users call it: forward
+    through the kernel, backward through the chunked recompute."""
+    import torch
+
+    from handyrl_tpu_torch.ops import flash_attention, full_attention_reference
+    from handyrl_tpu_torch.ops.flash_attention import FLASH
+
+    def grads(fn, q, k, v):
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        (fn(*xs, True) ** 2).sum().backward()
+        return [x.grad for x in xs]
+
+    shape = (8, 1024, 4, 64)
+    q, k, v = qkv(*shape, torch.float32, torch.Generator(device="cuda").manual_seed(41))
+    launches = FLASH.launches
+    got = grads(flash_attention, q, k, v)
+    torch.cuda.synchronize()
+    check(FLASH.launches == launches + 1, f"flash_attention launched the kernel "
+          f"{FLASH.launches - launches} times in one forward+backward, expected 1")
+    want = grads(full_attention_reference, q, k, v)
+    # fp32 sums over 1,024 keys, taken in another order
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    check(all(torch_finite(g) for g in got), "non-finite gradients")
+    print(f"[flash op] {shape} fp32 causal: d(out^2)/dq,dk,dv vs autograd through the plain "
+          f"version: max_abs_err {err:.3e} (tolerance 1e-3)")
+    check(err <= 1e-3, "flash_attention gradients disagree with the plain version's")
+    launches = FLASH.launches
+    ms = cuda_ms(lambda: grads(flash_attention, q, k, v), warmup=2, iters=10)
+    check(FLASH.launches == launches + 12, "one launch per call of flash_attention expected")
+    print(f"[flash op] {shape} fp32 causal: {ms:.3f} ms per forward+backward")
+    profile_call(f"flash_attention forward+backward {shape} fp32 causal",
+                 lambda: grads(flash_attention, q, k, v))
+
+    # the regime the op exists for: the plain version's fp32 scores alone
+    # would take 2 * 16 * 8192^2 * 4 B = 8.6 GB here
+    shape = (2, 8192, 16, 96)
+    q, k, v = qkv(*shape, torch.bfloat16, torch.Generator(device="cuda").manual_seed(42))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    last = {}
+
+    def step():
+        last["grads"] = grads(flash_attention, q, k, v)
+
+    ms = cuda_ms(step, warmup=1, iters=3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(g.shape == shape and g.dtype == torch.bfloat16 and torch_finite(g)
+              for g in last["grads"]), "bad gradients at T8192")
+    print(f"[flash op] {shape} bf16 causal: {ms:.2f} ms per forward+backward, "
+          f"peak memory {peak_gb:.2f} GB; kernel launches in this phase {FLASH.launches}")
+    results["flash_attention"]["launches"] = FLASH.launches
 
 
 def phase_acting(results):
@@ -261,8 +421,8 @@ def phase_training(results, env_args, module, episodes):
           f"{[round(m['total'], 3) for m in history]}; first step {times[0]:.3f} s, then "
           f"{1 / steady:.3f} updates/s, {B * 2 * T / steady:.0f} tokens/s; "
           f"peak memory {peak_gb:.2f} GB; kernel launches {launches} (8 per step)")
-    results["launches"] = launches
-    profile_step(trainer)
+    results["masked_flash_attention"]["launches"] = launches
+    profile_call("one train step", lambda: trainer.train_epoch(1))
 
     # the path's output against its reference: the same batch through the
     # einsum attention (no kernel), forward only
@@ -287,16 +447,16 @@ def phase_training(results, env_args, module, episodes):
         check(err <= 5e-2 * scale, f"training forward disagrees with the einsum path on {key}")
 
 
-def profile_step(trainer, top=12):
-    """One more train step under torch.profiler: the device-busy share of
-    the step's wall time and the kernels that took the most device time."""
+def profile_call(label, fn, top=12):
+    """One more call of fn under torch.profiler: the device-busy share of
+    its wall time and the kernels that took the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_epoch(1)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events are kernels and copies, plus the ranges of
@@ -308,7 +468,7 @@ def profile_step(trainer, top=12):
     if device_ms == 0:
         print("[profile] the profiler saw no device time: not measured")
         return
-    print(f"[profile] one train step: wall {wall_ms:.1f} ms, kernels {device_ms:.1f} ms "
+    print(f"[profile] {label}: wall {wall_ms:.1f} ms, kernels {device_ms:.1f} ms "
           f"({device_ms / wall_ms:.1%} busy), {sum(e.count for e in events)} kernel launches")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[profile] {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x  {e.key[:90]}")
@@ -324,37 +484,34 @@ def main(argv):
         print("chip_smoke: the handyrl_tpu_torch package is not beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from handyrl_tpu_torch.ops.flash_attention import MASKED_FLASH
+    from handyrl_tpu_torch.ops.flash_attention import FLASH, MASKED_FLASH
+
+    def reset_launches():
+        FLASH.launches = MASKED_FLASH.launches = 0
 
     device_name = torch.cuda.get_device_name(0)
-    results = {}
+    results = {name: {"launches": 0} for name in KERNELS}
     try:
         phase_device(results)
         phase_kernel_check(results)
         phase_kernel_timing(results, device_name)
-        results.setdefault("launches", 0)
         if "--kernels-only" not in argv:
-            # the main path, acting then training, counts every kernel launch
-            MASKED_FLASH.launches = 0
+            # the two paths through the kernels, each counted from 0
+            reset_launches()
+            phase_flash_op(results)
+            reset_launches()
             env_args, module, episodes = phase_acting(results)
             phase_training(results, env_args, module, episodes)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    kernel = {
-        "name": "masked_flash_attention",
-        "route": "cuda",
-        "source": "handyrl_tpu_torch/csrc/masked_flash_attention.cu",
-        "replaces": "handyrl_tpu/ops/flash_attention.py:240",
-        "launches": results["launches"],
-        "max_abs_err": results["max_abs_err"],
-        "ms": results["ms"],
-        "plain_ms": results["plain_ms"],
-        "bound_ms": results["bound_ms"],
-        "bound_by": results["bound_by"],
-        "library_ms": results["library_ms"],
-    }
-    print(json.dumps({"kernels": [kernel]}))
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         **{key: results[name][key] for key in keys}}
+        for name, (source, replaces) in KERNELS.items()
+    ]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0

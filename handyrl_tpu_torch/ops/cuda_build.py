@@ -37,6 +37,7 @@ def find_nvcc() -> str:
 
 class CudaKernel:
     """One ``csrc/*.cu`` source, its C entry point, and a launch counter.
+    Several entry points of one source share its library.
 
     ``launches`` counts calls of the C entry point that reached the card;
     the wrapper that launches the kernel adds to it, and nothing else does.

@@ -1,22 +1,32 @@
-"""Masked flash attention: the transformer's seq-mode training attention.
+"""Flash attention: the hand-written CUDA kernels of the ops layer.
 
-Counterpart of ``masked_flash_attention`` in
-``handyrl_tpu/ops/flash_attention.py``.  One semantics, two executions:
+Counterpart of ``handyrl_tpu/ops/flash_attention.py``, with its two entry
+points, each one semantics with two executions:
 
-* ``masked_attention_reference`` — the plain PyTorch version, the exact
-  counterpart of the JAX package's einsum reference: per-key observation
-  masks, an ALiBi bias over observed-step ages, ring-window eviction (keys
-  older than ``window`` observed steps are invisible) and self always
-  visible.  The CPU path and the tests use it.
-* the hand-written CUDA kernel ``csrc/masked_flash_attention.cu``, which
-  computes the same function in O(T * tile) memory.  A CUDA tensor always
-  goes to the kernel; only a CPU tensor takes the plain version.
+* ``masked_flash_attention`` — the transformer's seq-mode training
+  attention: per-key observation masks, an ALiBi bias over observed-step
+  ages, ring-window eviction (keys older than ``window`` observed steps are
+  invisible) and self always visible.  Plain version
+  ``masked_attention_reference``, the exact counterpart of the JAX
+  package's einsum reference; C entry ``masked_flash_forward``.
+* ``flash_attention`` — plain causal or full attention over contiguous,
+  fully observed sequences.  Plain version ``full_attention_reference``
+  (``ops/ring_attention.py``); C entry ``flash_forward``.
 
-The gradient is the JAX package's chunked-recompute backward
-(``_masked_bwd``) in plain PyTorch, with the same chunk size: one query
-chunk at a time, softmax-vjp over a (rows, H, chunk, T) slab.
+Both kernels are instances of one template in ``csrc/flash_attention.cu``,
+one library with two entry points, each with its own launch counter.
 
-Layout: (rows, T, H, D), like the rest of the ops layer.
+A CUDA tensor always goes to the kernel; only a CPU tensor takes the plain
+version.  The kernels run O(T * tile) memory, widen any float input to fp32
+on load, and take head dims up to 128: the wrappers zero-pad q, k and v to
+the next instantiated head dim (16/32/64/96/128), scale by the true D and
+drop the padded output columns, which is exact.
+
+The gradients are the JAX package's chunked-recompute backwards (``_bwd``
+and ``_masked_bwd``) in plain PyTorch, with the same chunk sizes: one query
+chunk at a time, softmax-vjp over a (B, H, chunk, T) slab.
+
+Layout: (B, T, H, D), like the rest of the ops layer.
 """
 
 from __future__ import annotations
@@ -24,19 +34,44 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from .cuda_build import CudaKernel
-
-NEG_INF = -1e30
+from .ring_attention import NEG_INF, full_attention_reference
 
 MASKED_FLASH = CudaKernel(
-    "masked_flash_attention.cu",
+    "flash_attention.cu",
     "masked_flash_forward",
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 )
+FLASH = CudaKernel(
+    "flash_attention.cu",
+    "flash_forward",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+)
 _KERNEL_HEAD_DIMS = (16, 32, 64, 96, 128)
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def kernel_head_dim(D: int) -> int:
+    """The head dim a kernel runs width-D heads at: the smallest
+    instantiated one that holds D."""
+    for d in _KERNEL_HEAD_DIMS:
+        if D <= d:
+            return d
+    raise ValueError(f"the kernels take head dims up to {_KERNEL_HEAD_DIMS[-1]}, got {D}")
+
+
+def pad_head_dim(x, Dp: int):
+    """x zero-padded along its last dim to Dp.  Zero columns add nothing to
+    q.k, and the output's padded columns are dropped, so padding is exact."""
+    return x if x.shape[-1] == Dp else F.pad(x, (0, Dp - x.shape[-1]))
+
+
+def _unpad(out, D: int):
+    return out if out.shape[-1] == D else out[..., :D].contiguous()
 
 
 def _masked_scores(q_c, k, c_q, counts, key_mask, slopes, window, q0, scale):
@@ -72,51 +107,114 @@ def masked_attention_reference(q, k, v, key_mask, slopes, window: int = 1 << 30)
     return torch.einsum("bhqk,bkhd->bqhd", attn, v)
 
 
-def _check_kernel_inputs(q, k, v, key_mask, slopes):
+def _check_placement(device, **tensors):
+    for name, x in tensors.items():
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, q on {device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_qkv(q, k, v):
     if q.dim() != 4:
-        raise ValueError(f"q must be (rows, T, H, D), got shape {tuple(q.shape)}")
-    rows, T, H, D = q.shape
+        raise ValueError(f"q must be (B, T, H, D), got shape {tuple(q.shape)}")
+    B, T, H, D = q.shape
     for name, x in (("k", k), ("v", v)):
         if x.shape != q.shape or x.dtype != q.dtype:
             raise ValueError(f"{name} must match q's shape and dtype")
     if q.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
-    if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {_KERNEL_HEAD_DIMS}, got {D}")
+        raise TypeError(f"the kernels take float32, bfloat16 or float16, got {q.dtype}")
+    kernel_head_dim(D)
+    _check_placement(q.device, q=q, k=k, v=v)
+    if B * H >= 2 ** 31:
+        raise ValueError("B * H exceeds the kernel's grid")
+
+
+def _check_kernel_inputs(q, k, v, key_mask, slopes):
+    _check_qkv(q, k, v)
+    rows, T, H, _ = q.shape
     if key_mask.shape != (rows, T) or key_mask.dtype != torch.float32:
         raise ValueError("key_mask must be (rows, T) float32")
     if slopes.shape != (H,) or slopes.dtype != torch.float32:
         raise ValueError("slopes must be (H,) float32")
-    for name, x in (("q", q), ("k", k), ("v", v), ("key_mask", key_mask), ("slopes", slopes)):
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if rows * H >= 2 ** 31:
-        raise ValueError("rows * H exceeds the kernel's grid")
+    _check_placement(q.device, key_mask=key_mask, slopes=slopes)
+
+
+def _need_cuda(q):
+    if q.device.type != "cuda":
+        raise ValueError(f"the kernel runs on CUDA tensors, got {q.device}")
 
 
 def masked_flash_kernel(q, k, v, key_mask, slopes, window: int = 1 << 30):
-    """Launch the CUDA kernel on CUDA tensors; raises on anything it does
-    not take, and when the launch fails."""
-    if q.device.type != "cuda":
-        raise ValueError(f"the kernel runs on CUDA tensors, got {q.device}")
+    """Launch the masked CUDA kernel on CUDA tensors; raises on anything it
+    does not take, and when the launch fails."""
+    _need_cuda(q)
     _check_kernel_inputs(q, k, v, key_mask, slopes)
     rows, T, H, D = q.shape
+    Dp = kernel_head_dim(D)
+    q, k, v = (pad_head_dim(x, Dp) for x in (q, k, v))
     fn = MASKED_FLASH.fn()
     counts = torch.cumsum(key_mask, dim=1)
     out = torch.empty_like(q)
     s_row, s_t, s_h, _ = q.stride()
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), counts.data_ptr(),
-        slopes.data_ptr(), out.data_ptr(), rows, T, H, D, s_row, s_t, s_h,
+        slopes.data_ptr(), out.data_ptr(), rows, T, H, Dp, s_row, s_t, s_h,
         float(window), 1.0 / D ** 0.5, _KERNEL_DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"masked_flash_forward launch failed with CUDA error {rc}")
     MASKED_FLASH.launches += 1
-    return out
+    return _unpad(out, D)
+
+
+def flash_kernel(q, k, v, causal: bool = True):
+    """Launch the plain flash CUDA kernel on CUDA tensors; raises on
+    anything it does not take, and when the launch fails."""
+    _need_cuda(q)
+    _check_qkv(q, k, v)
+    B, T, H, D = q.shape
+    Dp = kernel_head_dim(D)
+    q, k, v = (pad_head_dim(x, Dp) for x in (q, k, v))
+    fn = FLASH.fn()
+    out = torch.empty_like(q)
+    s_b, s_t, s_h, _ = q.stride()
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H, Dp, s_b, s_t, s_h,
+        1.0 / D ** 0.5, int(bool(causal)), _KERNEL_DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_forward launch failed with CUDA error {rc}")
+    FLASH.launches += 1
+    return _unpad(out, D)
+
+
+def _recompute_backward(q, k, v, g, C, scores):
+    """The chunked-recompute backward of both ops (JAX ``_bwd`` and
+    ``_masked_bwd``), fp32 throughout: one query chunk of C rows at a time,
+    softmax-vjp over its (B, H, C, T) score slab, dK/dV summed over chunks.
+    ``scores(q_c, k, q0, scale)`` gives a chunk's fp32 scores and the
+    validity that multiplies p, or None where p is not masked."""
+    T = q.shape[1]
+    scale = 1.0 / q.shape[-1] ** 0.5
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for q0 in range(0, T, C):
+        q_c, g_c = qf[:, q0:q0 + C], gf[:, q0:q0 + C]
+        s, valid = scores(q_c, kf, q0, scale)
+        p = torch.softmax(s, dim=-1)
+        if valid is not None:
+            p = p * valid[:, None]
+        dp = torch.einsum("bqhd,bkhd->bhqk", g_c, vf)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        dq[:, q0:q0 + C] = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds, q_c) * scale
+        dv += torch.einsum("bhqk,bqhd->bkhd", p, g_c)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _forward(q, k, v, key_mask, slopes, window):
@@ -126,29 +224,18 @@ def _forward(q, k, v, key_mask, slopes, window):
 
 
 def _backward(q, k, v, key_mask, slopes, window, blk_q, g):
-    """Chunked-recompute backward (JAX ``_masked_bwd``), fp32 throughout."""
-    rows, T, H, D = q.shape
-    scale = 1.0 / D ** 0.5
+    """JAX ``_masked_bwd``: the chunk shrinks to a divisor of T."""
+    T = q.shape[1]
     C = min(blk_q, T)
     while T % C:
         C -= 1
-    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
     counts = torch.cumsum(key_mask, dim=1)
-    dq = torch.empty_like(qf)
-    dk = torch.zeros_like(kf)
-    dv = torch.zeros_like(vf)
-    for q0 in range(0, T, C):
-        q_c, g_c = qf[:, q0:q0 + C], gf[:, q0:q0 + C]
-        s, valid = _masked_scores(
-            q_c, kf, counts[:, q0:q0 + C], counts, key_mask, slopes, window, q0, scale
-        )
-        p = torch.softmax(s, dim=-1) * valid[:, None]
-        dp = torch.einsum("bqhd,bkhd->bhqk", g_c, vf)
-        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-        dq[:, q0:q0 + C] = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
-        dk += torch.einsum("bhqk,bqhd->bkhd", ds, q_c) * scale
-        dv += torch.einsum("bhqk,bqhd->bkhd", p, g_c)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+    def scores(q_c, kf, q0, scale):
+        c_q = counts[:, q0:q0 + q_c.shape[1]]
+        return _masked_scores(q_c, kf, c_q, counts, key_mask, slopes, window, q0, scale)
+
+    return _recompute_backward(q, k, v, g, C, scores)
 
 
 class _MaskedFlashAttention(torch.autograd.Function):
@@ -171,7 +258,55 @@ def masked_flash_attention(q, k, v, key_mask, slopes, window: int = 1 << 30, blk
     kernel (the plain version for CPU tensors).
 
     q/k/v: (rows, T, H, D); key_mask: (rows, T) 1.0 = observed; slopes:
-    (H,).  ``blk_q`` is the query chunk of the recompute backward."""
+    (H,), in any layout.  ``blk_q`` is the query chunk of the recompute
+    backward."""
+    q, k, v = (x.contiguous() for x in (q, k, v))
     key_mask = key_mask.float().contiguous()
     slopes = slopes.float().contiguous()
     return _MaskedFlashAttention.apply(q, k, v, key_mask, slopes, window, blk_q)
+
+
+def _causal_scores(causal):
+    """JAX ``_bwd``'s scores: plain, NEG_INF above the diagonal if causal;
+    p is not masked."""
+
+    def scores(q_c, kf, q0, scale):
+        s = torch.einsum("bqhd,bkhd->bhqk", q_c, kf) * scale
+        if causal:
+            qpos = q0 + torch.arange(q_c.shape[1], device=q_c.device)
+            kpos = torch.arange(kf.shape[1], device=kf.device)
+            s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+        return s, None
+
+    return scores
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, blk_q):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.blk_q = causal, blk_q
+        if q.device.type == "cpu":
+            return full_attention_reference(q, k, v, causal)
+        return flash_kernel(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = _recompute_backward(q, k, v, g, ctx.blk_q, _causal_scores(ctx.causal))
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, blk_q: int = 128, blk_k: int = 128):
+    """Causal (or full) attention over (B, T, H, D) through the CUDA kernel
+    (the plain version for CPU tensors); q, k, v in any layout.
+
+    ``blk_q`` and ``blk_k`` are clamped to T and must divide it, as the JAX
+    kernel's tiles must; the CUDA kernel tiles as it likes, and ``blk_q`` is
+    the query chunk of the recompute backward."""
+    T = q.shape[1]
+    blk_q, blk_k = min(blk_q, T), min(blk_k, T)
+    if T % blk_q or T % blk_k:
+        raise ValueError(f"sequence length {T} must divide into tiles {blk_q}/{blk_k}")
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    return _FlashAttention.apply(q, k, v, causal, blk_q)

@@ -9,6 +9,8 @@ summation order), gradients 1e-4 (the chunked recompute backward sums T
 terms per key).
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,8 @@ from handyrl_tpu.ops.flash_attention import (
     masked_attention_reference as jax_reference,
     masked_flash_attention as jax_flash,
 )
-from handyrl_tpu_torch.ops import flash_attention as port
+# the module: the ops package exports the function under the same name
+port = importlib.import_module("handyrl_tpu_torch.ops.flash_attention")
 
 CASES = [
     (128, 1 << 30, 1.0),   # tile-aligned, no eviction, fully observed

@@ -4,11 +4,12 @@
   optax or handyrl_tpu (checked on the source, by AST).
 * Entry points run on the card unless the caller asks for the CPU; with no
   card they raise.
-* The kernel wrapper takes the plain version only for CPU tensors; for
-  anything else it launches the kernel or raises.
+* The kernel wrappers take the plain version only for CPU tensors; for
+  anything else they launch the kernel or raise.
 """
 
 import ast
+import importlib
 from pathlib import Path
 
 import pytest
@@ -17,9 +18,11 @@ import torch
 from handyrl_tpu_torch.envs import make_env
 from handyrl_tpu_torch.models import InferenceModel
 from handyrl_tpu_torch.ops import cuda_build
-from handyrl_tpu_torch.ops import flash_attention as fa
 from handyrl_tpu_torch.parallel import TrainContext
 from handyrl_tpu_torch.runtime import Trainer
+
+# the module: the ops package exports the function under the same name
+fa = importlib.import_module("handyrl_tpu_torch.ops.flash_attention")
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "handyrl_tpu"}
@@ -70,14 +73,79 @@ def test_kernel_wrapper_never_takes_the_plain_version_off_the_cpu():
                                torch.ones(1, 4), torch.ones(1))
 
 
-def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+def test_flash_wrapper_never_takes_the_plain_version_off_the_cpu():
+    q = torch.zeros(1, 4, 1, 16, device="meta")
+    launches = fa.FLASH.launches
+    for causal in (True, False):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fa.flash_attention(q, q, q, causal)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fa.flash_kernel(*(torch.zeros(1, 4, 1, 16),) * 3, causal)
+    assert fa.FLASH.launches == launches
+
+
+@pytest.mark.parametrize("kernel", ["MASKED_FLASH", "FLASH"])
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path, kernel):
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(cuda_build.os.path, "exists", lambda path: False)
-    kernel = cuda_build.CudaKernel(fa.MASKED_FLASH.source.name, "masked_flash_forward", [])
+    shipped = getattr(fa, kernel)
+    kernel = cuda_build.CudaKernel(shipped.source.name, shipped.symbol, [])
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernel.fn()
     assert kernel.launches == 0 and not list(tmp_path.iterdir())
+
+
+def _strided_views(layout, shape=(2, 8, 2, 16)):
+    """q, k, v that are views in a layout the kernels do not read directly:
+    unbound from a fused qkv projection, or transposed."""
+    B, T, H, D = shape
+    x = torch.randn(B, T, 3, H, D, generator=torch.Generator().manual_seed(0))
+    if layout == "unbound_qkv":
+        return x.unbind(2)
+    return [y.transpose(1, 2).contiguous().transpose(1, 2) for y in x.unbind(2)]
+
+
+@pytest.mark.parametrize("layout", ["unbound_qkv", "transposed"])
+@pytest.mark.parametrize("op", ["flash_attention", "masked_flash_attention"])
+def test_public_wrappers_take_any_layout(monkeypatch, op, layout):
+    """The JAX ops take q, k, v in any layout; the public wrappers hand the
+    kernel path contiguous copies (the raw launches refuse strided ones)."""
+    q, k, v = _strided_views(layout)
+    assert not any(x.is_contiguous() for x in (q, k, v))
+    extra = (torch.ones(2, 8), torch.ones(2)) if op == "masked_flash_attention" else ()
+    fn = getattr(fa, op)
+    want = fn(*(x.contiguous() for x in (q, k, v)), *extra)
+    fn_class = fa._MaskedFlashAttention if extra else fa._FlashAttention
+    handed = []
+    apply = fn_class.apply
+    monkeypatch.setattr(fn_class, "apply", lambda *a: handed.extend(a[:3]) or apply(*a))
+    got = fn(q, k, v, *extra)
+    assert len(handed) == 3 and all(x.is_contiguous() for x in handed)
+    assert torch.equal(got, want)
+
+
+def test_both_kernels_share_one_source():
+    assert fa.MASKED_FLASH.source == fa.FLASH.source
+    assert fa.FLASH.source.name == "flash_attention.cu" and fa.FLASH.source.exists()
+    assert fa.MASKED_FLASH.symbol != fa.FLASH.symbol
+
+
+def test_head_dim_padding_round_trips_exactly():
+    x = torch.randn(2, 8, 2, 24, generator=torch.Generator().manual_seed(0))
+    assert [fa.kernel_head_dim(d) for d in (1, 16, 17, 24, 64, 65, 96, 100, 128)] == [
+        16, 16, 32, 32, 64, 96, 96, 128, 128]
+    padded = fa.pad_head_dim(x, fa.kernel_head_dim(24))
+    assert padded.shape == (2, 8, 2, 32) and padded.is_contiguous()
+    assert torch.equal(padded[..., :24], x) and not padded[..., 24:].any()
+    assert fa.pad_head_dim(x, 24) is x
+    assert torch.equal(fa._unpad(padded, 24), x) and fa._unpad(padded, 24).is_contiguous()
+    with pytest.raises(ValueError, match="up to 128"):
+        fa.kernel_head_dim(129)
+    # what the JAX kernel takes, the port's kernels take: any D <= 128, fp16
+    fa._check_kernel_inputs(*_qkv((2, 8, 2, 24)), torch.ones(2, 8), torch.ones(2))
+    fa._check_kernel_inputs(*_qkv(dtype=torch.float16), torch.ones(2, 8), torch.ones(2))
+    fa._check_qkv(*_qkv((2, 8, 2, 24), dtype=torch.float16))
 
 
 def _qkv(shape=(2, 8, 2, 16), dtype=torch.float32):
@@ -87,8 +155,8 @@ def _qkv(shape=(2, 8, 2, 16), dtype=torch.float32):
 @pytest.mark.parametrize(
     "case,exc",
     [
-        (lambda: (*_qkv(dtype=torch.float16), torch.ones(2, 8), torch.ones(2)), TypeError),
-        (lambda: (*_qkv((2, 8, 2, 24)), torch.ones(2, 8), torch.ones(2)), ValueError),
+        (lambda: (*_qkv(dtype=torch.float64), torch.ones(2, 8), torch.ones(2)), TypeError),
+        (lambda: (*_qkv((2, 8, 2, 160)), torch.ones(2, 8), torch.ones(2)), ValueError),
         (lambda: (*_qkv(), torch.ones(2, 7), torch.ones(2)), ValueError),
         (lambda: (*_qkv(), torch.ones(2, 8), torch.ones(3)), ValueError),
         (lambda: (*_qkv(), torch.ones(2, 8, dtype=torch.float64), torch.ones(2)), ValueError),
@@ -96,8 +164,26 @@ def _qkv(shape=(2, 8, 2, 16), dtype=torch.float32):
                   torch.ones(2, 8), torch.ones(2)), ValueError),
         (lambda: (torch.zeros(2, 8, 32), *_qkv()[1:], torch.ones(2, 8), torch.ones(2)), ValueError),
     ],
-    ids=["fp16", "head_dim_24", "mask_shape", "slopes_shape", "mask_dtype", "strided_q", "rank3"],
+    ids=["fp64", "head_dim_160", "mask_shape", "slopes_shape", "mask_dtype", "strided_q", "rank3"],
 )
 def test_kernel_input_checks(case, exc):
     with pytest.raises(exc):
         fa._check_kernel_inputs(*case())
+
+
+@pytest.mark.parametrize(
+    "case,exc",
+    [
+        (lambda: _qkv(dtype=torch.float64), TypeError),
+        (lambda: _qkv((2, 8, 2, 160)), ValueError),
+        (lambda: (_qkv()[0], torch.zeros(2, 8, 2, 32), _qkv()[2]), ValueError),
+        (lambda: (*_qkv()[:2], torch.zeros(2, 8, 2, 16, dtype=torch.bfloat16)), ValueError),
+        (lambda: (_qkv()[0].transpose(1, 2).contiguous().transpose(1, 2), *_qkv()[1:]), ValueError),
+        (lambda: (torch.zeros(2, 8, 32), *_qkv()[1:]), ValueError),
+        (lambda: (*_qkv()[:2], torch.zeros(2, 8, 2, 16, device="meta")), ValueError),
+    ],
+    ids=["fp64", "head_dim_160", "k_shape", "v_dtype", "strided_q", "rank3", "v_device"],
+)
+def test_flash_kernel_input_checks(case, exc):
+    with pytest.raises(exc):
+        fa._check_qkv(*case())
