@@ -3,19 +3,25 @@
 
     python3 chip_smoke.py                 # every phase, about a minute on an H100
     python3 chip_smoke.py --kernels-only  # phases 1-3: build, check and time the kernels
+    python3 chip_smoke.py --parent DIR    # also: DIR's kernels against these (see phase_parent)
 
 Phases, each of which fails the run when it fails:
 
 1. device: the card's name and power limit; build every kernel source with
    nvcc, one process per source, all at once, and print ptxas's registers /
-   shared memory / spills for each kernel.
+   shared memory / spills for each kernel; a spill in any instance fails.
 2. kernels vs their plain versions on the card, fp32, bf16 and fp16: the
    masked kernel at the training shape and small ragged ones (head dims
    16 and 24), the plain flash kernel, causal and full, at the JAX
    package's flash-bench shape, the transformer's width at T1024 and a
-   small ragged one, and causal in bf16 at phase 4's long shape (T8192).
+   small ragged one; both kernels' bf16/fp16 (wgmma) bodies at every
+   instantiated head dim, at T100 and T1024, masked with window 32 and
+   without; both raw launches on misaligned views; causal in bf16 at
+   phase 4's long shape (T8192).
 3. kernel timing (CUDA events) beside its bound, the plain version and one
-   PyTorch library call computing the same function.
+   PyTorch library call computing the same function, with the achieved
+   TFLOP/s and the share of the bound.  With ``--parent DIR``, another
+   checkout's kernels against these in turns (``phase_parent``).
 4. the ``ops.flash_attention`` entry point, forward and backward: the
    gradients of ``(flash_attention(q, k, v) ** 2).sum()`` held against
    autograd through the plain version, ms per forward+backward, one call
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import json
 import random
+import re
 import subprocess
 import sys
 import time
@@ -52,6 +59,7 @@ TRAIN_ARGS = {
     "batch_size": 16, "forward_steps": 512, "burn_in_steps": 0, "observation": True,
     "compute_dtype": "bfloat16", "seq_attention": "auto", "flash_min_t": 128,
 }
+HEAD_DIMS = (16, 32, 64, 96, 128)   # the kernels' instantiated head dims
 TRAIN_STEPS = 4          # the first one is warm-up, left out of the rates
 EPISODES = 4
 SEED = 0
@@ -164,14 +172,18 @@ def phase_device(results):
         list(pool.map(lambda kernel: kernel.build(), sources.values()))
     print(f"[build] {', '.join(source.name for source in sources)} in "
           f"{time.perf_counter() - t0:.1f} s")
+    spills = []
     for kernel in sources.values():
         for line in kernel.build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[ptxas] {kernel.source.name}: {line.strip()}")
+            spills += [line.strip() for n in re.findall(r"(\d+) bytes spill", line) if int(n)]
+    check(not spills, f"ptxas reports spills: {spills}")
     smem = FLASH.library().flash_smem_bytes
-    for masked, name in ((1, "masked"), (0, "plain")):
-        print(f"[smem] {name} kernel: dynamic shared memory per block, by head dim: "
-              + ", ".join(f"D={d}: {smem(d, masked)} B" for d in (16, 32, 64, 96, 128)))
+    for dtype, body in ((0, "fp32 FMA"), (1, "bf16/fp16 wgmma")):
+        for masked, name in ((1, "masked"), (0, "plain")):
+            print(f"[smem] {name} kernel, {body} body: dynamic shared memory per block, by head "
+                  "dim: " + ", ".join(f"D={d}: {smem(d, masked, dtype)} B" for d in HEAD_DIMS))
 
 
 def phase_kernel_check(results):
@@ -201,13 +213,43 @@ def phase_kernel_check(results):
         for causal in (True, False):
             for dtype in dtypes:
                 seed += 1
-                q, k, v = qkv(*shape, dtype, torch.Generator(device="cuda").manual_seed(seed))
-                out = flash_kernel(q, k, v, causal)
-                ref = full_attention_reference(q.float(), k.float(), v.float(), causal)
-                torch.cuda.synchronize()
-                tag = f"flash {shape} {'causal' if causal else 'full'} {str(dtype)[6:]}"
-                worst[tag] = check_close(out, ref, dtype, tag)
+                check_flash(shape, causal, dtype, seed, worst)
     results["flash_attention"]["max_abs_err"] = worst[f"flash {(16, 1024, 16, 96)} causal bfloat16"]
+
+    # the tensor-core body at every instantiated head dim, at a ragged T and
+    # at T1024 (window 32 there: all but the diagonal and window tiles skipped)
+    for D in HEAD_DIMS:
+        for T in (100, 1024):
+            for dtype in (torch.bfloat16, torch.float16):
+                for window in (32, 1 << 30):
+                    seed += 1
+                    q, k, v, km, sl = attention_inputs(2, T, 2, D, dtype, seed=seed)
+                    out = masked_flash_kernel(q, k, v, km, sl, window)
+                    ref = masked_attention_reference(q.float(), k.float(), v.float(), km, sl,
+                                                     window)
+                    torch.cuda.synchronize()
+                    tag = f"masked {(2, T, 2, D)} window={window} {str(dtype)[6:]}"
+                    worst[tag] = check_close(out, ref, dtype, tag)
+                for causal in (True, False):
+                    seed += 1
+                    check_flash((2, T, 2, D), causal, dtype, seed, worst)
+
+    # views that start 2 bytes past a 16-byte boundary reach TMA as aligned copies
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    flat = torch.randn(3 * 2 * 100 * 2 * 96 + 1, device="cuda", generator=g).to(torch.bfloat16)
+    q, k, v = flat[1:].view(3, 2, 100, 2, 96).unbind(0)
+    q, k, v = (x.view(2, 100, 2, 96) for x in (q, k, v))
+    check(q.data_ptr() % 16 != 0 and q.is_contiguous(), "the view is meant to be misaligned")
+    km = torch.ones(2, 100, device="cuda")
+    sl = torch.tensor([0.5, 0.25], device="cuda")
+    for tag, out, ref in (
+        ("masked misaligned view bfloat16", masked_flash_kernel(q, k, v, km, sl, 32),
+         masked_attention_reference(q.float(), k.float(), v.float(), km, sl, 32)),
+        ("flash misaligned view bfloat16", flash_kernel(q, k, v, True),
+         full_attention_reference(q.float(), k.float(), v.float(), True)),
+    ):
+        torch.cuda.synchronize()
+        check_close(out, ref, torch.bfloat16, tag)
 
     # phase 4's long shape, where a query tile walks up to 128 key tiles; the
     # plain version's fp32 score slabs are 8.6 GB each, ~26 GB at its peak
@@ -219,6 +261,19 @@ def phase_kernel_check(results):
     check_close(out, ref, torch.bfloat16, f"flash {shape} causal bfloat16")
     del q, k, v, out, ref
     torch.cuda.empty_cache()
+
+
+def check_flash(shape, causal, dtype, seed, worst):
+    import torch
+
+    from handyrl_tpu_torch.ops.flash_attention import flash_kernel, full_attention_reference
+
+    q, k, v = qkv(*shape, dtype, torch.Generator(device="cuda").manual_seed(seed))
+    out = flash_kernel(q, k, v, causal)
+    ref = full_attention_reference(q.float(), k.float(), v.float(), causal)
+    torch.cuda.synchronize()
+    tag = f"flash {shape} {'causal' if causal else 'full'} {str(dtype)[6:]}"
+    worst[tag] = check_close(out, ref, dtype, tag)
 
 
 def check_close(out, ref, dtype, tag):
@@ -272,7 +327,8 @@ def phase_kernel_timing(results, device_name):
     print(f"[timing] masked_flash_attention ({rows}, {T}, {H}, {D}) bf16 window {window}: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms "
           f"(sdpa vs kernel max_abs_err {lib_err:.3e}); bound {masked['bound_ms']:.4f} ms by "
-          f"{masked['bound_by']} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP of valid pairs)")
+          f"{masked['bound_by']} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP of valid pairs); "
+          + achieved(flops, nbytes, ms, masked["bound_ms"]))
 
     # the plain flash kernel, causal: the first shape's numbers go to the
     # kernels line
@@ -300,7 +356,72 @@ def phase_kernel_timing(results, device_name):
               f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (sdpa vs kernel max_abs_err "
               f"{lib_err:.3e}); bound {timing['bound_ms']:.4f} ms by {timing['bound_by']} "
               f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at "
-              f"{peak / 1e12:.0f} TFLOP/s)")
+              f"{peak / 1e12:.0f} TFLOP/s); " + achieved(flops, nbytes, ms, timing["bound_ms"]))
+
+
+def achieved(flops, nbytes, ms, bound_ms):
+    """The kernel's rates over the work its inputs need, and its share of
+    the bound (bound time over kernel time)."""
+    return (f"achieved {flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s, "
+            f"{bound_ms / ms:.1%} of the bound")
+
+
+def phase_parent(parent_root, device_name):
+    """--parent DIR: the kernels built from another checkout's source (DIR,
+    e.g. an unpacked ``git archive`` of the parent commit) beside this one's,
+    in one process on one card: the fp32 outputs compared bit for bit, and
+    both timed in turns (parent, this, this, parent) at phase 3's shapes."""
+    import importlib
+
+    import torch
+
+    fa = importlib.import_module("handyrl_tpu_torch.ops.flash_attention")
+    from handyrl_tpu_torch.ops.cuda_build import CudaKernel
+
+    source = Path(parent_root).resolve() / "handyrl_tpu_torch" / "csrc" / "flash_attention.cu"
+    check(source.exists(), f"no kernel source at {source}")
+    ours = (fa.MASKED_FLASH, fa.FLASH)
+    theirs = tuple(CudaKernel(str(source), k.symbol, k.argtypes) for k in ours)
+    t0 = time.perf_counter()
+    theirs[0].build()
+    print(f"[parent] built {source} in {time.perf_counter() - t0:.1f} s")
+
+    def run(kernels, fn):
+        fa.MASKED_FLASH, fa.FLASH = kernels
+        try:
+            return fn()
+        finally:
+            fa.MASKED_FLASH, fa.FLASH = ours
+
+    def g(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    mq, mk, mv, km, sl = attention_inputs(32, 512, 16, 96, torch.float32, seed=51)
+    fq, fk, fv = qkv(8, 1024, 4, 64, torch.float32, g(52))
+    for tag, fn in (
+        ("masked (32, 512, 16, 96) fp32 window 32",
+         lambda: fa.masked_flash_kernel(mq, mk, mv, km, sl, NET_ARGS["memory_len"])),
+        ("flash (8, 1024, 4, 64) fp32 causal", lambda: fa.flash_kernel(fq, fk, fv, True)),
+        ("flash (8, 1024, 4, 64) fp32 full", lambda: fa.flash_kernel(fq, fk, fv, False)),
+    ):
+        same = torch.equal(run(theirs, fn), run(ours, fn))
+        print(f"[parent] {tag}: outputs {'bit for bit the same' if same else 'DIFFER'}")
+        check(same, f"fp32 outputs moved against the parent at {tag}")
+
+    mq, mk, mv = (x.to(torch.bfloat16) for x in (mq, mk, mv))
+    bq, bk, bv = qkv(16, 1024, 16, 96, torch.bfloat16, g(53))
+    hq, hk, hv = (x.to(torch.bfloat16) for x in (fq, fk, fv))
+    for tag, fn in (
+        ("masked_flash_attention (32, 512, 16, 96) bf16 window 32",
+         lambda: fa.masked_flash_kernel(mq, mk, mv, km, sl, NET_ARGS["memory_len"])),
+        ("flash_attention (16, 1024, 16, 96) bf16 causal", lambda: fa.flash_kernel(bq, bk, bv)),
+        ("flash_attention (8, 1024, 4, 64) bf16 causal", lambda: fa.flash_kernel(hq, hk, hv)),
+        ("flash_attention (8, 1024, 4, 64) fp32 causal", lambda: fa.flash_kernel(fq, fk, fv)),
+    ):
+        turns = [run(kernels, lambda: cuda_ms(fn)) for kernels in (theirs, ours, ours, theirs)]
+        print(f"[parent] {tag} on {device_name}: parent {turns[0]:.4f} / {turns[3]:.4f} ms, "
+              f"this {turns[1]:.4f} / {turns[2]:.4f} ms: "
+              f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}x")
 
 
 def phase_flash_op(results):
@@ -470,8 +591,12 @@ def profile_call(label, fn, top=12):
         return
     print(f"[profile] {label}: wall {wall_ms:.1f} ms, kernels {device_ms:.1f} ms "
           f"({device_ms / wall_ms:.1%} busy), {sum(e.count for e in events)} kernel launches")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"[profile] {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x  {e.key[:90]}")
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    # the top ones, and the port's own kernels wherever they rank
+    for rank, e in enumerate(ranked, 1):
+        if rank <= top or "wgmma_kernel" in e.key or "fma_kernel" in e.key:
+            print(f"[profile] {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x  "
+                  f"#{rank} {e.key[:90]}")
 
 
 def main(argv):
@@ -495,6 +620,8 @@ def main(argv):
         phase_device(results)
         phase_kernel_check(results)
         phase_kernel_timing(results, device_name)
+        if "--parent" in argv:
+            phase_parent(argv[argv.index("--parent") + 1], device_name)
         if "--kernels-only" not in argv:
             # the two paths through the kernels, each counted from 0
             reset_launches()

@@ -17,10 +17,13 @@ Both kernels are instances of one template in ``csrc/flash_attention.cu``,
 one library with two entry points, each with its own launch counter.
 
 A CUDA tensor always goes to the kernel; only a CPU tensor takes the plain
-version.  The kernels run O(T * tile) memory, widen any float input to fp32
-on load, and take head dims up to 128: the wrappers zero-pad q, k and v to
-the next instantiated head dim (16/32/64/96/128), scale by the true D and
-drop the padded output columns, which is exact.
+version.  The kernels run O(T * tile) memory and take head dims up to 128:
+the wrappers zero-pad q, k and v to the next instantiated head dim
+(16/32/64/96/128), scale by the true D and drop the padded output columns,
+which is exact.  bf16 and fp16 run on the tensor cores with fp32 sums, their
+operands brought in by TMA, which needs a 16-byte aligned base: a view that
+starts elsewhere reaches the kernel as an aligned copy (``kernel_operand``).
+fp32 runs on FMA in full fp32.
 
 The gradients are the JAX package's chunked-recompute backwards (``_bwd``
 and ``_masked_bwd``) in plain PyTorch, with the same chunk sizes: one query
@@ -68,6 +71,16 @@ def pad_head_dim(x, Dp: int):
     """x zero-padded along its last dim to Dp.  Zero columns add nothing to
     q.k, and the output's padded columns are dropped, so padding is exact."""
     return x if x.shape[-1] == Dp else F.pad(x, (0, Dp - x.shape[-1]))
+
+
+def kernel_operand(x, Dp: int):
+    """x as the kernels read it: zero-padded along its last dim to Dp, and
+    starting on a 16-byte boundary.  A contiguous view with a storage offset
+    (``x[1:]``) may start anywhere; it is copied, never read misaligned.
+    With Dp a multiple of 8, every stride of a contiguous x is a whole number
+    of 16 bytes, as TMA needs."""
+    x = pad_head_dim(x, Dp)
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _unpad(out, D: int):
@@ -152,7 +165,7 @@ def masked_flash_kernel(q, k, v, key_mask, slopes, window: int = 1 << 30):
     _check_kernel_inputs(q, k, v, key_mask, slopes)
     rows, T, H, D = q.shape
     Dp = kernel_head_dim(D)
-    q, k, v = (pad_head_dim(x, Dp) for x in (q, k, v))
+    q, k, v = (kernel_operand(x, Dp) for x in (q, k, v))
     fn = MASKED_FLASH.fn()
     counts = torch.cumsum(key_mask, dim=1)
     out = torch.empty_like(q)
@@ -176,7 +189,7 @@ def flash_kernel(q, k, v, causal: bool = True):
     _check_qkv(q, k, v)
     B, T, H, D = q.shape
     Dp = kernel_head_dim(D)
-    q, k, v = (pad_head_dim(x, Dp) for x in (q, k, v))
+    q, k, v = (kernel_operand(x, Dp) for x in (q, k, v))
     fn = FLASH.fn()
     out = torch.empty_like(q)
     s_b, s_t, s_h, _ = q.stride()

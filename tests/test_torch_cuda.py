@@ -30,13 +30,20 @@ def _inputs(rows, T, H, D, dtype, observed=0.7, seed=0):
     return q, k, v, key_mask, slopes
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("T,window", [(100, 16), (256, 1 << 30)])
-def test_kernel_matches_plain_version(dtype, tol, T, window):
-    """fp32: another summation order (1e-4); bf16: bf16 inputs and output
-    against the fp32 plain version of the same inputs (2e-2)."""
+HEAD_DIMS = (16, 32, 64, 96, 128)   # the kernels' instantiated head dims
+TOLERANCES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2), (torch.float16, 2e-3)]
+
+
+@pytest.mark.parametrize("dtype,tol", TOLERANCES)
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("T,window", [(100, 16), (256, 1 << 30), (1024, 32), (1024, 1 << 30)])
+def test_kernel_matches_plain_version(dtype, tol, D, T, window):
+    """fp32 (FMA): another summation order (1e-4); bf16 and fp16 (wgmma):
+    inputs, probabilities and output rounded to the type, against the fp32
+    plain version of the same inputs (2e-2, 2e-3).  Every head dim is its
+    own shared-memory layout, at a ragged T and at T1024."""
     _need_card()
-    q, k, v, km, sl = _inputs(3, T, 2, 96, dtype)
+    q, k, v, km, sl = _inputs(2, T, 2, D, dtype)
     launches = fa.MASKED_FLASH.launches
     out = fa.masked_flash_attention(q, k, v, km, sl, window=window)
     torch.cuda.synchronize()
@@ -70,10 +77,10 @@ def test_kernel_rejects_what_it_does_not_take():
         fa.flash_kernel(q, k, v)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2),
-                                       (torch.float16, 2e-3)])
+@pytest.mark.parametrize("dtype,tol", TOLERANCES)
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("shape", [(3, 100, 2, 24), (2, 256, 2, 64)])
+@pytest.mark.parametrize("shape", [(3, 100, 2, 24), (2, 256, 2, 64)]
+                         + [(2, T, 2, D) for D in HEAD_DIMS for T in (100, 1024)])
 def test_flash_kernel_matches_plain_version(dtype, tol, causal, shape):
     """The plain flash kernel through ``flash_attention`` against
     ``full_attention_reference`` on the same inputs widened to fp32."""
@@ -113,3 +120,28 @@ def test_public_wrappers_take_strided_views(op, layout):
     torch.cuda.synchronize()
     assert counter.launches == launches + 1
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", TOLERANCES)
+@pytest.mark.parametrize("op", ["flash_kernel", "masked_flash_kernel"])
+def test_raw_launches_take_a_misaligned_view(op, dtype, tol):
+    """Contiguous views that start one element past an aligned allocation
+    (TMA needs 16-byte aligned bases) reach the kernel as aligned copies."""
+    _need_card()
+    g = torch.Generator(device="cpu").manual_seed(3)
+    flat = torch.randn(3 * 2 * 100 * 2 * 96 + 1, generator=g).to(dtype).cuda()
+    q, k, v = (x.view(2, 100, 2, 96) for x in flat[1:].view(3, 2, 100, 2, 96).unbind(0))
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    km = (torch.rand(2, 100, generator=g) < 0.7).float().cuda()
+    sl = torch.tensor([0.5, 0.25]).cuda()
+    counter = fa.MASKED_FLASH if op == "masked_flash_kernel" else fa.FLASH
+    launches = counter.launches
+    if op == "masked_flash_kernel":
+        out = fa.masked_flash_kernel(q, k, v, km, sl, 16)
+        ref = fa.masked_attention_reference(q.float(), k.float(), v.float(), km, sl, 16)
+    else:
+        out = fa.flash_kernel(q, k, v, True)
+        ref = fa.full_attention_reference(q.float(), k.float(), v.float(), True)
+    torch.cuda.synchronize()
+    assert counter.launches == launches + 1
+    assert (out.float() - ref).abs().max().item() <= tol

@@ -187,3 +187,43 @@ def test_kernel_input_checks(case, exc):
 def test_flash_kernel_input_checks(case, exc):
     with pytest.raises(exc):
         fa._check_qkv(*case())
+
+
+def _misaligned_view(shape, dtype):
+    """A contiguous (B, T, H, D) view whose data starts one element (2 or 4
+    bytes) past an aligned allocation: as a view of x[1:] would."""
+    flat = torch.arange(1 + torch.Size(shape).numel(), dtype=torch.float32).to(dtype)
+    x = flat[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    return x
+
+
+@pytest.mark.parametrize("D", [16, 24, 32, 64, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_misaligned_view_reaches_the_launch_aligned(dtype, D):
+    """TMA reads from a 16-byte aligned base: what the raw launches hand the
+    kernel (``kernel_operand``) starts on one, as a copy of a view that does
+    not, padded to the kernel's head dim, with the view's values."""
+    x = _misaligned_view((2, 5, 3, D), dtype)
+    Dp = fa.kernel_head_dim(D)
+    got = fa.kernel_operand(x, Dp)
+    assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+    assert got.shape == (2, 5, 3, Dp) and got.dtype == dtype
+    assert torch.equal(got[..., :D], x) and not got[..., D:].any()
+    aligned = x.clone()
+    assert aligned.data_ptr() % 16 == 0
+    assert (fa.kernel_operand(aligned, Dp) is aligned) == (Dp == D)  # no copy when none is needed
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_kernel_strides_are_whole_16_bytes(dtype, D):
+    """Every stride the wrappers hand the kernel but D's own is a multiple of
+    16 bytes (TMA's rule), at every instantiated head dim, from unpadded,
+    padded and misaligned inputs alike."""
+    for x in (torch.zeros(2, 7, 3, D, dtype=dtype), torch.zeros(2, 7, 3, D - 8, dtype=dtype),
+              _misaligned_view((2, 7, 3, D), dtype)):
+        got = fa.kernel_operand(x, fa.kernel_head_dim(x.shape[-1]))
+        *outer, inner = got.stride()
+        assert inner == 1 and got.shape[-1] == D
+        assert all(s * got.element_size() % 16 == 0 for s in outer), (dtype, D, got.stride())
