@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port (handyrl_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # every phase, about a minute on an H100
+    python3 chip_smoke.py                 # every phase, a few minutes on an H100
     python3 chip_smoke.py --kernels-only  # phases 1-3: build, check and time the kernels
     python3 chip_smoke.py --parent DIR    # also: DIR's kernels against these (see phase_parent)
 
@@ -31,8 +31,17 @@ Phases, each of which fails the run when it fails:
 6. training: the Trainer at batch 16 x window 512 in bf16 on those episodes,
    through the masked flash kernel (launch count checked), its loss held
    against the einsum path on one batch.
+7. learner: (a) the repo's config.yaml (TicTacToe, SimpleConvNet) with
+   epochs cut to 3 through ``python -m handyrl_tpu_torch.main --train`` in a
+   temp directory, its checkpoints verified against the manifest, and
+   ``--eval models/latest.ckpt 100 4``; (b) the transformer above trained
+   by ``Learner(args).run()`` (actor threads through the batched inference
+   engine, the threaded batch pipeline, 2 epochs), the kernel's launches
+   held to n_layers per step, the checkpoints verified and reloaded bit
+   for bit; then one train step's time and peak memory under remat 'none'
+   and 'block'.
 
-Phases 4 and 5-6 are the two paths through the port's kernels: each starts
+Phases 4, 5-6 and 7b are the paths through the port's kernels: each starts
 with every launch count at 0, and its kernel's count is read at its end.
 The last two lines are a JSON ``kernels`` record and the verdict
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or of handyrl_tpu is
@@ -42,10 +51,12 @@ imported.  Weights are random, made from a seed.
 from __future__ import annotations
 
 import json
+import os
 import random
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -528,9 +539,9 @@ def phase_training(results, env_args, module, episodes):
         times.append(time.perf_counter() - t0)
     launches = MASKED_FLASH.launches
 
-    n_layers = NET_ARGS["n_layers"]
-    check(launches == n_layers * TRAIN_STEPS,
-          f"kernel launched {launches} times in {TRAIN_STEPS} steps, expected {n_layers * TRAIN_STEPS}")
+    per_step = launches_per_step(args)
+    check(launches == per_step * TRAIN_STEPS,
+          f"kernel launched {launches} times in {TRAIN_STEPS} steps, expected {per_step * TRAIN_STEPS}")
     check(all(torch.isfinite(torch.tensor(m["total"])) and m["sentinel_bad"] == 0 for m in history),
           f"non-finite or skipped step: {history}")
     changed = max((a - b).abs().max().item() for a, b in zip(before, module.parameters()))
@@ -541,8 +552,7 @@ def phase_training(results, env_args, module, episodes):
     print(f"[training] {TRAIN_STEPS} steps B{B} T{T} bf16, losses "
           f"{[round(m['total'], 3) for m in history]}; first step {times[0]:.3f} s, then "
           f"{1 / steady:.3f} updates/s, {B * 2 * T / steady:.0f} tokens/s; "
-          f"peak memory {peak_gb:.2f} GB; kernel launches {launches} (8 per step)")
-    results["masked_flash_attention"]["launches"] = launches
+          f"peak memory {peak_gb:.2f} GB; kernel launches {launches} ({per_step} per step)")
     profile_call("one train step", lambda: trainer.train_epoch(1))
 
     # the path's output against its reference: the same batch through the
@@ -566,6 +576,212 @@ def phase_training(results, env_args, module, episodes):
         print(f"[training] kernel vs einsum path, one batch in bf16: {key} max_abs_err {err:.3e} "
               f"(tolerance {5e-2 * scale:.3e})")
         check(err <= 5e-2 * scale, f"training forward disagrees with the einsum path on {key}")
+
+
+def launches_per_step(args):
+    """Masked kernel launches in one train step: one per layer, two under a
+    remat rung (the checkpoint replays the attention forward)."""
+    from handyrl_tpu_torch.parallel import resolve_seq_remat
+
+    rung = resolve_seq_remat(args)
+    return NET_ARGS["n_layers"] * (1 if rung == "none" else 2)
+
+
+def run_cli(cwd, *argv, timeout=600):
+    """``python -m handyrl_tpu_torch.main ARGV`` in ``cwd``, as a user runs
+    it; fails the phase on a nonzero exit, printing the output's tail."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "handyrl_tpu_torch.main", *argv], cwd=cwd,
+                          env=env, capture_output=True, text=True, timeout=timeout)
+    elapsed = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:] + proc.stderr[-3000:])
+    check(proc.returncode == 0, f"main {' '.join(argv)} exited {proc.returncode}")
+    return proc.stdout, elapsed
+
+
+def check_snapshots(model_dir, epochs):
+    """Every epoch's snapshot, latest.ckpt and state.ckpt verify against the
+    manifest's digests."""
+    from handyrl_tpu_torch.runtime import checkpoint as ckpt
+
+    entries = ckpt.load_manifest(model_dir, strict=True)["epochs"]
+    for epoch in epochs:
+        check(ckpt.verify_snapshot(model_dir, epoch) is True, f"snapshot {epoch} does not verify")
+    last = entries[str(epochs[-1])]["files"]
+    check(ckpt.file_digest(os.path.join(model_dir, "latest.ckpt"))
+          == (last["latest.ckpt"]["crc32"], last["latest.ckpt"]["size"]),
+          "latest.ckpt does not verify")
+    check(ckpt.verify_state(model_dir, epochs[-1]) is True, "state.ckpt does not verify")
+
+
+def read_records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def print_epochs(tag, records):
+    for r in records:
+        win = (r.get("win_rate") or {}).get("total")
+        print(f"[{tag}] epoch {r['epoch']}: steps {r['steps']}, episodes {r['episodes']}, "
+              f"{r['episodes_per_sec']:.2f} episodes/s, {r['updates_per_sec']:.2f} updates/s, "
+              f"win rate vs random {'n/a' if win is None else f'{win:.3f}'}; boundary: trainer "
+              f"snapshot {r['boundary_snapshot_s']:.2f} s, save {r['boundary_save_s']:.2f} s, "
+              f"publish {r['boundary_publish_s']:.2f} s")
+        if "pipe_sample_s" in r:  # the batch pipeline's stage seconds over the epoch
+            print(f"[{tag}] epoch {r['epoch']} pipeline: sample {r['pipe_sample_s']:.3f} s, "
+                  f"assemble {r['pipe_assemble_s']:.3f} s, put {r['pipe_put_s']:.3f} s, host "
+                  f"queue full {r['pipe_free_wait_s']:.3f} s, put thread starved "
+                  f"{r['pipe_ready_wait_s']:.3f} s; trainer: {r['train_steps_per_sec']:.2f} "
+                  f"steps/s while training, input wait {r['input_wait_frac']:.1%}")
+
+
+def phase_learner_cli(results):
+    """7a: the default config.yaml (TicTacToe, SimpleConvNet), epochs cut to
+    3, through ``python -m handyrl_tpu_torch.main --train`` and then
+    ``--eval models/latest.ckpt 100 4``, on the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        text, n = re.subn(r"(?m)^(\s+epochs:\s*)-?\d+", r"\g<1>3", (ROOT / "config.yaml").read_text())
+        check(n == 1, "config.yaml has no single train_args.epochs line")
+        Path(tmp, "config.yaml").write_text(text)
+        _, train_s = run_cli(tmp, "--train")
+        check_snapshots(os.path.join(tmp, "models"), [1, 2, 3])
+        records = read_records(os.path.join(tmp, "metrics.jsonl"))
+        check(len(records) == 3 and records[-1]["steps"] > 0,
+              f"metrics.jsonl: {len(records)} records, expected 3 with steps > 0 on the last")
+        print_epochs("cli", records)
+        out, eval_s = run_cli(tmp, "--eval", "models/latest.ckpt", "100", "4")
+        total = [line for line in out.splitlines() if line.startswith("total =")]
+        check(len(total) == 1, "--eval printed no 'total =' line")
+        print(f"[cli] --train 3 epochs in {train_s:.1f} s; --eval models/latest.ckpt 100 4 in "
+              f"{eval_s:.1f} s: {total[0]} (win points vs random); final epoch's win rate "
+              f"{(records[-1].get('win_rate') or {}).get('total')}")
+
+
+def phase_learner(results):
+    """7b: the slice's transformer at full width trained through
+    ``Learner(args).run()``: actors through the batched engine, the
+    threaded pipeline, checkpoints.  Launch counts start from 0."""
+    import torch
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.ops.flash_attention import MASKED_FLASH
+    from handyrl_tpu_torch.runtime import checkpoint as ckpt
+    from handyrl_tpu_torch.runtime.learner import Learner
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = normalize_args({
+            "env_args": {"env": "Geister", "net": "transformer", "net_args": NET_ARGS},
+            "train_args": dict(TRAIN_ARGS, minimum_episodes=8, update_episodes=8, epochs=2,
+                               worker={"num_parallel": 8}, seed=SEED,
+                               model_dir=os.path.join(tmp, "models"),
+                               metrics_path=os.path.join(tmp, "metrics.jsonl")),
+        })
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        learner = Learner(cfg)
+        MASKED_FLASH.launches = 0
+        t0 = time.perf_counter()
+        learner.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches, steps = MASKED_FLASH.launches, learner.trainer.steps
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        per_step = launches_per_step(learner.args)
+        check(launches > 0 and launches == per_step * steps,
+              f"masked kernel launched {launches} times in {steps} learner steps, "
+              f"expected {per_step} per step")
+        check(learner.trainer.sentinel_skipped_steps == 0, "the sentinel skipped a step")
+        records = read_records(cfg["train_args"]["metrics_path"])
+        check(len(records) == 2, f"{len(records)} epoch records, expected 2")
+        check(all(torch.isfinite(torch.tensor(r["loss"]["total"])) for r in records if "loss" in r),
+              "non-finite epoch loss")
+        model_dir = cfg["train_args"]["model_dir"]
+        check_snapshots(model_dir, [1, 2])
+        saved = ckpt.load_params(os.path.join(model_dir, "2.ckpt"))
+        fresh = learner.env.net()
+        fresh.load_state_dict(saved)
+        served = learner.model_server.engine.model.module.state_dict()
+        check(all(torch.equal(fresh.state_dict()[k], v) and torch.equal(served[k].cpu(), v)
+                  for k, v in saved.items()),
+              "models/2.ckpt does not load bit for bit, or is not what the actors were served")
+        engine = learner.model_server.engine
+        print_epochs("learner", records)
+        # epoch 0's games are the random model's (model id 0): the engine
+        # serves epoch 1's, two requests per Geister move (both players
+        # observe under observation: true), while the actors are not held
+        # by the boundary that closes the epoch
+        r0, r1 = records
+        play_s = (r1["t_mono"] - r0["t_mono"]) - (
+            r1["boundary_snapshot_s"] + r1["boundary_save_s"] + r1["boundary_publish_s"])
+        moves = (r1["engine_requests"] - r0["engine_requests"]) / 2
+        print(f"[learner] Geister d{NET_ARGS['d_model']} L{NET_ARGS['n_layers']} B"
+              f"{TRAIN_ARGS['batch_size']} T{TRAIN_ARGS['forward_steps']} bf16: {steps} steps, "
+              f"{learner.num_returned_episodes} episodes in {run_s:.1f} s; engine: "
+              f"{engine.requests_served} requests in {engine.batches_served} batches "
+              f"({engine.requests_served / max(engine.batches_served, 1):.1f} per batch); epoch 1: "
+              f"{moves:.0f} moves in {play_s:.1f} s of play, {moves / play_s:.1f} moves/s beside "
+              f"the trainer; peak memory {peak_gb:.2f} GB; masked kernel launches {launches} "
+              f"({per_step} per step)")
+        checkpoint_line(learner, tmp)
+        results["masked_flash_attention"]["launches"] = launches
+        remat_line(learner)
+
+
+def checkpoint_line(learner, tmp):
+    """What one epoch's state.ckpt costs at full width: serialising the
+    trainer's host snapshot, the atomic write with fsync, the CRC32."""
+    import zlib
+
+    from handyrl_tpu_torch.runtime import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    blob = ckpt.to_bytes(learner.trainer.save_payload(0))
+    t1 = time.perf_counter()
+    ckpt.atomic_write_bytes(os.path.join(tmp, "probe.ckpt"), blob)
+    t2 = time.perf_counter()
+    zlib.crc32(blob)
+    t3 = time.perf_counter()
+    print(f"[checkpoint] state.ckpt {len(blob) / 1e9:.2f} GB: serialise {t1 - t0:.2f} s, write + "
+          f"fsync {t2 - t1:.2f} s ({len(blob) / 1e9 / (t2 - t1):.2f} GB/s), CRC32 {t3 - t2:.2f} s")
+
+
+def remat_line(learner):
+    """One train step at the slice shape under remat 'none' and 'block':
+    ms (host clock around synchronised steps) and peak memory.  Under
+    'block' the kernel runs twice per layer (the checkpoint replays it)."""
+    import torch
+
+    from handyrl_tpu_torch.ops.flash_attention import MASKED_FLASH
+
+    trainer = learner.trainer
+    batch = trainer.ctx.put_batch(trainer.sample_batch())
+    base = trainer.ctx.args
+    try:
+        for rung in ("none", "block"):
+            trainer.ctx.args = dict(base, remat=rung)
+            trainer.ctx.train_step(batch, trainer.lr)   # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            launches, times = MASKED_FLASH.launches, []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                trainer.ctx.train_step(batch, trainer.lr)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            per_step = launches_per_step(trainer.ctx.args)
+            check(MASKED_FLASH.launches - launches == 3 * per_step,
+                  f"remat {rung}: {MASKED_FLASH.launches - launches} launches in 3 steps")
+            print(f"[remat] {rung}: one train step B{TRAIN_ARGS['batch_size']} "
+                  f"T{TRAIN_ARGS['forward_steps']} d{NET_ARGS['d_model']} L{NET_ARGS['n_layers']} "
+                  f"bf16 {sorted(times)[1]:.1f} ms (median of 3), peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, {per_step} kernel "
+                  "launches per step")
+    finally:
+        trainer.ctx.args = base
 
 
 def profile_call(label, fn, top=12):
@@ -629,6 +845,11 @@ def main(argv):
             reset_launches()
             env_args, module, episodes = phase_acting(results)
             phase_training(results, env_args, module, episodes)
+            del module, episodes
+            torch.cuda.empty_cache()
+            phase_learner_cli(results)
+            reset_launches()
+            phase_learner(results)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -3,7 +3,9 @@
 The subset of ``handyrl_tpu/config.py`` that the ported modules use, with
 the same names and defaults, so one config.yaml ``train_args`` block
 configures both packages.  Keys of the JAX package that the port does not
-read yet are accepted and passed through untouched.
+read yet are accepted and passed through untouched.  One default differs:
+``batch_pipeline`` is ``'thread'``, the only assembly plane ported; a
+config that names another one is refused, not quietly given threads.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import copy
 from typing import Any, Dict
 
 VALID_TARGETS = ("MC", "TD", "UPGO", "VTRACE")
+REMAT_RUNGS = ("auto", "none", "attn", "block")
 
 DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     "turn_based_training": True,
@@ -22,11 +25,33 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     "compress_steps": 4,
     "entropy_regularization": 1.0e-1,
     "entropy_regularization_decay": 0.1,
+    "update_episodes": 200,
     "batch_size": 128,
+    "minimum_episodes": 400,
     "maximum_episodes": 100000,
+    "epochs": -1,            # -1 = run until stopped
+    "num_batchers": 2,
+    "eval_rate": 0.1,
+    "worker": {"num_parallel": 6},
     "lambda": 0.7,
     "policy_target": "TD",
     "value_target": "TD",
+    "eval": {"opponent": ["random"]},
+    "seed": 0,
+    # 0 = fresh start; N > 0 = resume from models/{N}.ckpt (digest-checked);
+    # -1 = resume from the newest snapshot that verifies
+    "restart_epoch": 0,
+    # epoch snapshots kept on disk (0 = all); latest/state always survive
+    "keep_checkpoints": 100,
+    "model_dir": "models",
+    "metrics_path": "metrics.jsonl",
+    # the most actor requests the inference engine runs in one forward
+    "inference_batch_size": 64,
+    # device batches the pipeline's put thread keeps ready
+    "prefetch_batches": 2,
+    "batch_pipeline": "thread",
+    # feed-forward nets run only on the live prefix of each window
+    "compact_padding": True,
     # a step whose loss, gradient norm or lr is not finite leaves the
     # params and the Adam moments untouched
     "sentinel": True,
@@ -38,7 +63,9 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     "flash_min_t": 128,
     # query rows per chunk of the attention backward's recompute
     "blk_q": 128,
-    # only 'none' is ported; 'auto' resolves to it
+    # the seq path's remat ladder: 'none', 'attn' (checkpoint the attention
+    # sublayer), 'block' (the attention+FFN block), or 'auto' ('none' on
+    # this backend); true/false collapse to 'block'/'none'
     "remat": "auto",
     # 'bfloat16' runs forward and backward in bf16 over fp32 master weights
     "compute_dtype": "float32",
@@ -61,11 +88,30 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
     for key in ("policy_target", "value_target"):
         if train[key] not in VALID_TARGETS:
             raise ValueError(f"{key}={train[key]!r} not one of {VALID_TARGETS}")
-    for key in ("forward_steps", "batch_size", "compress_steps"):
+    for key in ("forward_steps", "batch_size", "compress_steps", "update_episodes"):
         if train[key] <= 0:
             raise ValueError(f"train_args.{key} must be positive, got {train[key]}")
     if train["burn_in_steps"] < 0:
         raise ValueError("train_args.burn_in_steps must be >= 0")
+    if train["restart_epoch"] < -1:
+        raise ValueError("train_args.restart_epoch must be >= -1 (-1 = auto-resume)")
+    if train["keep_checkpoints"] < 0:
+        raise ValueError("train_args.keep_checkpoints must be >= 0 (0 = keep all)")
+    if not 0.0 <= train["eval_rate"] <= 1.0:
+        raise ValueError("train_args.eval_rate must be in [0, 1]")
+    if int(train["num_batchers"]) < 0:
+        raise ValueError("train_args.num_batchers must be >= 0")
+    if int(train["worker"]["num_parallel"]) < 1:
+        raise ValueError("train_args.worker.num_parallel must be >= 1")
+    pipeline = train["batch_pipeline"]
+    if pipeline != "thread":
+        later = {"shm": "ROADMAP A5 (shared-memory batchers)",
+                 "device": "ROADMAP A7 (the device data plane)"}
+        raise ValueError(
+            f"train_args.batch_pipeline={pipeline!r}: only 'thread' is ported; "
+            + (f"'{pipeline}' waits for {later[pipeline]}" if pipeline in later
+               else "one of ('thread', 'shm', 'device')")
+        )
     if train["seq_attention"] not in ("auto", "flash", "einsum"):
         raise ValueError(
             f"train_args.seq_attention={train['seq_attention']!r} not one of "
@@ -76,9 +122,11 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
     b = int(train["blk_q"])
     if b < 8 or (b & (b - 1)):
         raise ValueError(f"train_args.blk_q must be a power of two >= 8, got {b}")
-    if train["remat"] not in ("auto", "none", False):
+    rv = train["remat"]
+    # bool first: membership would take the ints 0/1 through ==
+    if not (isinstance(rv, bool) or rv in REMAT_RUNGS):
         raise ValueError(
-            f"train_args.remat={train['remat']!r}: only 'none' is ported yet"
+            f"train_args.remat={rv!r} not one of ('auto', true, false, 'none', 'attn', 'block')"
         )
     if train["compute_dtype"] not in ("float32", "bfloat16"):
         raise ValueError(

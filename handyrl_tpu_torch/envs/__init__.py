@@ -1,4 +1,4 @@
-"""Environment registry and factories (Geister only, so far).
+"""Environment registry and factories (TicTacToe and Geister, so far).
 
 An unknown name is treated as a dotted import path, as in the JAX package,
 so user environments plug in without registration.
@@ -12,6 +12,7 @@ from typing import Any, Dict
 from .base import BaseEnvironment  # noqa: F401  (re-export)
 
 ENVS = {
+    "TicTacToe": "handyrl_tpu_torch.envs.tictactoe",
     "Geister": "handyrl_tpu_torch.envs.geister",
 }
 

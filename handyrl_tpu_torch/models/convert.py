@@ -3,9 +3,10 @@
 Flax names each submodule as the port names its ``nn.Module``s
 (``attn0/q/kernel`` -> ``attn0.q.weight``).  A Dense kernel is stored
 (in, out) and a torch Linear weight (out, in), so kernels are transposed;
-LayerNorm ``scale``/``bias`` become ``weight``/``bias``.  The q/k/v output
-features keep their (H * Dh, head-major) order, which both packages reshape
-the same way.
+a Conv kernel is stored HWIO and a torch Conv2d weight OIHW;
+LayerNorm and GroupNorm ``scale``/``bias`` become ``weight``/``bias``.
+The q/k/v output features keep their (H * Dh, head-major) order, which
+both packages reshape the same way.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ def flax_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 continue
             arr = np.asarray(value, dtype=np.float32)
             if name == "kernel":
-                arr = arr.T
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             out[prefix + _LEAF_NAMES[name]] = torch.tensor(arr)  # a copy, C-contiguous
 
     walk(params, "")

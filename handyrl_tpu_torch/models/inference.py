@@ -8,7 +8,7 @@ between calls as device tensors, and policy / value come back as numpy.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -20,21 +20,24 @@ from ..utils import resolve_device, tree_map
 @torch.no_grad()
 def init_variables(module: nn.Module, seed: int = 0) -> nn.Module:
     """Initialise ``module``'s parameters in place, as Flax initialises its
-    own: Linear weights lecun-normal (normal truncated at two standard
-    deviations, fan-in scaled), biases zero, LayerNorm scale one.  The
+    own: Linear and Conv weights lecun-normal (normal truncated at two
+    standard deviations, scaled by the fan-in: in features times the
+    kernel's cells), biases zero, LayerNorm and GroupNorm scale one.  The
     numbers come from a ``torch.Generator`` seeded with ``seed``; they are
     not the JAX package's numbers for the same seed."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     for mod in module.modules():
-        if isinstance(mod, nn.Linear):
+        if isinstance(mod, (nn.Linear, nn.Conv2d)):
             # flax's variance_scaling(1, fan_in, truncated_normal) corrects
             # the std for the truncation
-            std = (1.0 / mod.in_features) ** 0.5 / 0.87962566103423978
+            fan_in = mod.weight[0].numel()
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
             w = torch.empty(mod.weight.shape)
             nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
             mod.weight.copy_(w)
-            mod.bias.zero_()
-        elif isinstance(mod, nn.LayerNorm):
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
     return module
@@ -61,9 +64,22 @@ class InferenceModel:
     def inference(self, obs, hidden=None) -> Dict[str, Any]:
         hidden_b = tree_map(lambda h: h[None], hidden) if hidden is not None else None
         out = self.inference_batch(tree_map(lambda x: np.asarray(x)[None], obs), hidden_b)
-        result = {k: v[0].float().cpu().numpy() for k, v in out.items() if k != "hidden"}
-        result["hidden"] = tree_map(lambda h: h[0], out["hidden"])
-        return result
+        return split_outputs(out, 1)[0]
+
+
+def split_outputs(out: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+    """A batch of ``n`` outputs -> one dict per row: policy, value ... as
+    fp32 numpy (one copy to the host per key), the next hidden state (if
+    the net has one) as views of the device tensors."""
+    host = {k: v.float().cpu().numpy() for k, v in out.items() if k != "hidden"}
+    hidden = out.get("hidden")
+    rows = []
+    for i in range(n):
+        row = {k: v[i] for k, v in host.items()}
+        if hidden is not None:
+            row["hidden"] = tree_map(lambda h: h[i], hidden)
+        rows.append(row)
+    return rows
 
 
 class RandomModel:

@@ -10,7 +10,8 @@ per-layer key/value cache of the last ``memory_len`` observed steps:
   ring exactly with masks: keys must be observed steps, ages count observed
   steps, keys older than ``memory_len`` observed steps are invisible, and
   self is always visible.  The attention is the masked flash kernel
-  (``use_flash``) or its plain version.
+  (``use_flash``) or its plain version; ``remat`` picks the block's rung of
+  the activation-checkpoint ladder (``_seq_block``).
 
 Module names follow the Flax parameter tree (``enc1``, ``attn{i}.q`` ...),
 so ``models/convert.py`` maps one onto the other by name.  LayerNorm keeps
@@ -24,6 +25,7 @@ from typing import Any, Dict, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import masked_attention_reference, masked_flash_attention
 from ..utils import tree_leaves
@@ -81,22 +83,38 @@ class CachedSelfAttention(nn.Module):
         out = torch.einsum("bhs,bshd->bhd", attn, v_cache).reshape(B, H * Dh)
         return self.o(out), {"k": k_cache, "v": v_cache}
 
-    def seq(self, x, key_mask, burn_in: int = 0, use_flash: bool = False, blk_q: int = 128):
-        B, T, _ = x.shape
-        H, Dh = self.n_heads, self.head_dim
-        q = self.q(x).reshape(B, T, H, Dh)
-        k = self.k(x).reshape(B, T, H, Dh)
-        v = self.v(x).reshape(B, T, H, Dh)
-        if burn_in > 0:  # no gradients through warm-up keys
-            bmask = (torch.arange(T, device=x.device) < burn_in).to(x.dtype)[None, :, None, None]
-            k = k.detach() * bmask + k * (1 - bmask)
-            v = v.detach() * bmask + v * (1 - bmask)
-        slopes = alibi_slopes(H, x.device)
-        if use_flash:
-            out = masked_flash_attention(q, k, v, key_mask, slopes, self.memory_len, blk_q)
-        else:
-            out = masked_attention_reference(q, k, v, key_mask, slopes, self.memory_len)
-        return self.o(out.reshape(B, T, H * Dh))
+    def seq_parts(self, burn_in: int = 0, use_flash: bool = False, blk_q: int = 128):
+        """Seq mode as two functions over the weights as they are now (under
+        ``functional_call``, the substituted ones): ``project(h) -> (q, k, v)``
+        and ``attend(q, k, v, key_mask) -> out``.  The remat ladder
+        checkpoints ``attend`` with q, k and v as its inputs, so they stay
+        stored (the kernel's backward reads them), and its replay in the
+        backward pass computes with the same weights as the forward did."""
+        H, Dh, S = self.n_heads, self.head_dim, self.memory_len
+        wq, bq, wk, bk = self.q.weight, self.q.bias, self.k.weight, self.k.bias
+        wv, bv, wo, bo = self.v.weight, self.v.bias, self.o.weight, self.o.bias
+
+        def project(h):
+            B, T, _ = h.shape
+            q = F.linear(h, wq, bq).reshape(B, T, H, Dh)
+            k = F.linear(h, wk, bk).reshape(B, T, H, Dh)
+            v = F.linear(h, wv, bv).reshape(B, T, H, Dh)
+            if burn_in > 0:  # no gradients through warm-up keys
+                bmask = (torch.arange(T, device=h.device) < burn_in).to(h.dtype)[None, :, None, None]
+                k = k.detach() * bmask + k * (1 - bmask)
+                v = v.detach() * bmask + v * (1 - bmask)
+            return q, k, v
+
+        def attend(q, k, v, key_mask):
+            B, T = q.shape[:2]
+            slopes = alibi_slopes(H, q.device)
+            if use_flash:
+                out = masked_flash_attention(q, k, v, key_mask, slopes, S, blk_q)
+            else:
+                out = masked_attention_reference(q, k, v, key_mask, slopes, S)
+            return F.linear(out.reshape(B, T, H * Dh), wo, bo)
+
+        return project, attend
 
 
 class TransformerNet(nn.Module):
@@ -131,8 +149,51 @@ class TransformerNet(nn.Module):
     def _layer(self, name: str, i: int) -> nn.Module:
         return getattr(self, f"{name}{i}")
 
+    def _seq_block(self, i: int, x, key_mask, burn_in: int, use_flash: bool, blk_q: int,
+                   remat: str):
+        """One attention+FFN block in seq mode, at rung ``remat`` of the
+        ladder (JAX ``TransformerNet`` seq mode):
+
+        * none  — every activation stored;
+        * attn  — the attention sublayer (kernel forward and output
+          projection) checkpointed and replayed in the backward pass;
+        * block — the whole block checkpointed: only its input and q, k, v
+          stay stored per layer.
+
+        Both rungs keep q, k and v, as the JAX package's
+        ``save_only_these_names('attn_qkv')`` does, by making them inputs
+        of the checkpointed region.  One definition of each half serves
+        every rung, so the rungs compute the same numbers."""
+        ln_a, ln_m = self._layer("ln_a", i), self._layer("ln_m", i)
+        up, dn = self._layer("mlp_up", i), self._layer("mlp_dn", i)
+        project, attend = self._layer("attn", i).seq_parts(burn_in, use_flash, blk_q)
+        wa, ba, wm, bm = ln_a.weight, ln_a.bias, ln_m.weight, ln_m.bias
+        wu, bu, wd, bd = up.weight, up.bias, dn.weight, dn.bias
+        shape = (x.shape[-1],)
+
+        def qkv(x):
+            return project(F.layer_norm(x, shape, wa, ba, LN_EPS))
+
+        def mlp(x):
+            m = F.linear(F.layer_norm(x, shape, wm, bm, LN_EPS), wu, bu)
+            return x + F.linear(F.relu(m), wd, bd)
+
+        def rest(x, q, k, v):
+            return mlp(x + attend(q, k, v, key_mask))
+
+        if remat == "none":
+            return rest(x, *qkv(x))
+        if remat == "attn":
+            q, k, v = qkv(x)
+            return mlp(x + checkpoint(attend, q, k, v, key_mask,
+                                      use_reentrant=False, preserve_rng_state=False))
+        if remat == "block":
+            q, k, v = checkpoint(qkv, x, use_reentrant=False, preserve_rng_state=False)
+            return checkpoint(rest, x, q, k, v, use_reentrant=False, preserve_rng_state=False)
+        raise ValueError(f"remat={remat!r} not one of ('none', 'attn', 'block')")
+
     def forward(self, obs, hidden=None, *, seq: bool = False, key_mask=None, burn_in: int = 0,
-                use_flash: bool = False, blk_q: int = 128) -> Dict[str, Any]:
+                use_flash: bool = False, blk_q: int = 128, remat: str = "none") -> Dict[str, Any]:
         dtype = self.enc1.weight.dtype
         if seq:
             x = F.relu(self.enc1(flatten_obs(obs, 2, dtype)))
@@ -149,13 +210,12 @@ class TransformerNet(nn.Module):
 
         new_layers = []
         for i in range(self.n_layers):
-            h = self._layer("ln_a", i)(x)
-            attn = self._layer("attn", i)
             if seq:
-                a = attn.seq(h, key_mask, burn_in, use_flash, blk_q)
-            else:
-                a, cache = attn.step(h, hidden["layers"][i], slot, count)
-                new_layers.append(cache)
+                x = self._seq_block(i, x, key_mask, burn_in, use_flash, blk_q, remat)
+                continue
+            h = self._layer("ln_a", i)(x)
+            a, cache = self._layer("attn", i).step(h, hidden["layers"][i], slot, count)
+            new_layers.append(cache)
             x = x + a
             m = self._layer("mlp_up", i)(self._layer("ln_m", i)(x))
             x = x + self._layer("mlp_dn", i)(F.relu(m))

@@ -1,3 +1,13 @@
-from .train_step import TrainContext, forward_prediction, resolve_seq_attention, trim_burn_in
+from .train_step import (
+    TrainContext, forward_prediction, live_steps, resolve_seq_attention, resolve_seq_remat,
+    trim_burn_in,
+)
 
-__all__ = ["TrainContext", "forward_prediction", "resolve_seq_attention", "trim_burn_in"]
+__all__ = [
+    "TrainContext",
+    "forward_prediction",
+    "live_steps",
+    "resolve_seq_attention",
+    "resolve_seq_remat",
+    "trim_burn_in",
+]

@@ -1,9 +1,10 @@
 """The training step: forward, targets, loss, optimizer.
 
-Counterpart of ``handyrl_tpu/parallel/train_step.py`` for the seq-mode
-transformer path:
+Counterpart of ``handyrl_tpu/parallel/train_step.py`` for feed-forward
+nets and the seq-mode transformer:
 
-    forward (whole window through TransformerNet seq mode)
+    forward (a feed-forward net over the window's live prefix, or the
+             whole window through TransformerNet seq mode)
     -> output masking (turn / legal-action / observation)
     -> loss core (ops/losses.py)
     -> global-norm clip 4.0 -> L2 decay 1e-5 -> Adam, lr applied per step
@@ -12,8 +13,8 @@ transformer path:
 for the forward (fp32 master weights keep the optimizer state; gradients
 flow back through the cast in fp32), as the JAX step does; outputs return
 to fp32 before the masking, since the 1e32 action mask is not
-bf16-representable.  The feed-forward compaction branch, the RNN scan
-branch and the ring-attention branch are not ported yet.
+bf16-representable.  The RNN scan branch and the ring-attention branch are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -23,10 +24,11 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.func import functional_call
 
 from ..ops import compute_loss_from_outputs
-from ..utils import resolve_device, tree_map
+from ..utils import resolve_device, tree_leaves, tree_map
 
 LOSS_KEYS = ("p", "v", "r", "ent", "total")
 
@@ -54,6 +56,29 @@ def resolve_seq_attention(args: Dict[str, Any], T: int) -> str:
     return mode
 
 
+def resolve_seq_remat(args: Dict[str, Any]) -> str:
+    """The seq path's rung of the remat ladder: 'none', 'attn' or 'block'.
+
+    Named rungs pass through; booleans collapse to 'block' (True) and
+    'none' (False); ``auto`` is 'none', as the JAX package resolves it on
+    every backend but a TPU (where it depends on the window length)."""
+    v = args.get("remat", "auto")
+    if v in ("none", "attn", "block"):
+        return v
+    if isinstance(v, bool):
+        return "block" if v else "none"
+    return "none"
+
+
+def _apply(module, params, inputs, kwargs=None):
+    """``module(*inputs, **kwargs)``, with ``params`` in place of the
+    module's own when given."""
+    kwargs = kwargs or {}
+    if params is None:
+        return module(*inputs, **kwargs)
+    return functional_call(module, params, inputs, kwargs)
+
+
 def forward_prediction(module, params, batch: Dict[str, Any], args: Dict[str, Any]) -> Dict[str, Any]:
     """Run the net over a (B, T, P, ...) batch; returns post-burn-in outputs,
     turn/action/observation masked.  ``params``: a name -> tensor dict used
@@ -64,31 +89,45 @@ def forward_prediction(module, params, batch: Dict[str, Any], args: Dict[str, An
         obs = _cast_floats(obs, cdt)
     B, T, P1 = batch["action"].shape[:3]
     burn_in = args["burn_in_steps"]
-    if not (getattr(module, "supports_seq", False) and args.get("seq_forward", True)):
-        raise NotImplementedError("only the seq-mode transformer forward is ported")
 
-    omask = batch["observation_mask"]
-    if omask.shape[2] != P1:
-        raise ValueError(
-            "recurrent training requires full-player batches (set observation: true)"
+    if module.initial_state((B, P1)) is None:
+        # feed-forward: put_batch may have cut the observation to the live
+        # prefix [0, T_obs) of the window; every later step is padding whose
+        # outputs the masks below zero, so the net runs on the prefix only
+        # and its outputs are zero-padded back to T
+        T_obs = tree_leaves(obs)[0].shape[1]
+        flat = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[3:])), obs)
+        outs = _apply(module, params, (flat, None))
+        outputs = {}
+        for k, v in outs.items():
+            if k == "hidden" or v is None:
+                continue
+            v = v.reshape((B, T_obs, P1) + tuple(v.shape[1:]))
+            if T_obs < T:
+                v = F.pad(v, (0, 0) * (v.dim() - 2) + (0, T - T_obs))
+            outputs[k] = v[:, burn_in:]
+    elif getattr(module, "supports_seq", False) and args.get("seq_forward", True):
+        omask = batch["observation_mask"]
+        if omask.shape[2] != P1:
+            raise ValueError(
+                "recurrent training requires full-player batches (set observation: true)"
+            )
+        to_bp = lambda x: x.movedim(2, 1).reshape((B * P1, T) + tuple(x.shape[3:]))  # noqa: E731
+        obs_bp = tree_map(to_bp, obs)                       # (B*P, T, ...)
+        km = to_bp(omask)[..., 0]                           # (B*P, T)
+        kwargs = dict(
+            seq=True, key_mask=km, burn_in=burn_in,
+            use_flash=resolve_seq_attention(args, T) == "flash",
+            blk_q=int(args.get("blk_q", 128)), remat=resolve_seq_remat(args),
         )
-    to_bp = lambda x: x.movedim(2, 1).reshape((B * P1, T) + tuple(x.shape[3:]))  # noqa: E731
-    obs_bp = tree_map(to_bp, obs)                       # (B*P, T, ...)
-    km = to_bp(omask)[..., 0]                           # (B*P, T)
-    kwargs = dict(
-        seq=True, key_mask=km, burn_in=burn_in,
-        use_flash=resolve_seq_attention(args, T) == "flash",
-        blk_q=int(args.get("blk_q", 128)),
-    )
-    if params is None:
-        outs = module(obs_bp, None, **kwargs)
+        outs = _apply(module, params, (obs_bp, None), kwargs)
+        outputs = {
+            k: v.reshape((B, P1, T) + tuple(v.shape[2:])).movedim(1, 2)[:, burn_in:]
+            for k, v in outs.items()
+            if k != "hidden" and v is not None
+        }
     else:
-        outs = functional_call(module, params, (obs_bp, None), kwargs)
-    outputs = {
-        k: v.reshape((B, P1, T) + tuple(v.shape[2:])).movedim(1, 2)[:, burn_in:]
-        for k, v in outs.items()
-        if k != "hidden" and v is not None
-    }
+        raise NotImplementedError("the RNN scan branch of forward_prediction is not ported yet")
 
     tmask = batch["turn_mask"][:, burn_in:]
     omask = batch["observation_mask"][:, burn_in:]
@@ -104,6 +143,14 @@ def forward_prediction(module, params, batch: Dict[str, Any], args: Dict[str, An
         else:
             masked[k] = v * omask
     return masked
+
+
+def live_steps(batch: Dict[str, Any]) -> int:
+    """One past the last step of the window with any turn or observation
+    activity in any row (1 when there is none)."""
+    act = np.asarray(batch["turn_mask"]) + np.asarray(batch["observation_mask"])
+    live = act.any(axis=(0, 2, 3))
+    return int(live.nonzero()[0][-1]) + 1 if live.any() else 1
 
 
 def trim_burn_in(batch: Dict[str, Any], burn_in: int) -> Dict[str, Any]:
@@ -122,11 +169,16 @@ class TrainContext:
         self.device = resolve_device(device)
         self.module = module.to(self.device)
         self.args = args
-        if args.get("turn_based_training", True) and not args.get("observation"):
+        recurrent = module.initial_state((1, 1)) is not None
+        if recurrent and args.get("turn_based_training", True) and not args.get("observation"):
             raise ValueError(
                 "memory models (KV-cache transformer) under turn-based training "
                 "require train_args.observation: true"
             )
+        # feed-forward batches with no burn-in keep their live steps in a
+        # prefix of the window: put_batch cuts the observation to it
+        self.ff_compact = (not recurrent and args.get("burn_in_steps", 0) == 0
+                           and args.get("compact_padding", True))
         self.compute_dtype = _compute_dtype(args)
         # optax's clip(4.0) -> add_decayed_weights(1e-5) -> scale_by_adam ->
         # scale(-lr) is torch Adam with L2 weight decay (not AdamW), after
@@ -134,8 +186,23 @@ class TrainContext:
         self.optimizer = torch.optim.Adam(self.module.parameters(), lr=0.0, weight_decay=1e-5)
         self.sentinel = bool(args.get("sentinel", True))
 
-    def put_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        return tree_map(lambda x: torch.as_tensor(np.asarray(x), device=self.device), batch)
+    def put_batch(self, batch: Dict[str, Any], non_blocking: bool = False) -> Dict[str, Any]:
+        """A host (numpy) batch on the device, its observation cut to the
+        live prefix for feed-forward nets.  ``non_blocking`` stages each
+        array in pinned memory and enqueues the copy without waiting for it
+        (the caller orders its use, e.g. with an event)."""
+        if self.ff_compact:
+            t_eff = live_steps(batch)
+            batch = dict(batch, observation=tree_map(lambda x: x[:, :t_eff], batch["observation"]))
+        pin = non_blocking and self.device.type == "cuda"
+
+        def put(x):
+            t = torch.from_numpy(np.ascontiguousarray(x))
+            if pin:
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t.to(self.device)
+
+        return tree_map(put, batch)
 
     def loss(self, batch: Dict[str, Any]):
         """(losses, data count) of one device batch, with the graph kept."""
@@ -147,13 +214,16 @@ class TrainContext:
         return compute_loss_from_outputs(outputs, trimmed, self.args)
 
     def train_step(self, batch: Dict[str, Any], lr: float) -> Dict[str, float]:
-        """One update from a host (numpy) batch; returns metrics.
+        """One update from a device batch, or from a host (numpy) one, which
+        goes through ``put_batch`` first; returns metrics.
 
         With the sentinel on, a step whose loss, gradient norm or lr is not
         finite leaves params and Adam state untouched, contributes zeros to
         the metrics, and sets ``sentinel_bad``."""
+        if isinstance(batch["action"], np.ndarray):
+            batch = self.put_batch(batch)
         self.optimizer.zero_grad(set_to_none=True)
-        losses, dcnt = self.loss(self.put_batch(batch))
+        losses, dcnt = self.loss(batch)
         losses["total"].backward()
         gnorm = torch.nn.utils.clip_grad_norm_(self.module.parameters(), 4.0)
         zero = torch.zeros((), device=self.device)

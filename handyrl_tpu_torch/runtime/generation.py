@@ -7,7 +7,8 @@ discounted-return backfill.  Episodes come out columnar, in zlib-compressed
 blocks of ``compress_steps`` steps, in the JAX package's byte format.
 
 ``models[player]`` is any object with ``inference(obs, hidden)`` and
-``init_hidden()``: an ``InferenceModel`` (hidden stays on its device) or a
+``init_hidden()``: an ``InferenceModel`` (hidden stays on its device), a
+client of the batched inference engine (which also has ``submit``) or a
 ``RandomModel``.
 """
 
@@ -117,6 +118,7 @@ class Generator:
             observers = env.observers()
             actions: Dict[int, Optional[int]] = {}
 
+            active = []
             for player in players:
                 if player not in turn_players and player not in observers:
                     continue
@@ -126,8 +128,18 @@ class Generator:
                     and not self.args["observation"]
                 ):
                     continue
-                obs = env.observation(player)
-                outputs = models[player].inference(obs, hidden[player])
+                active.append((player, env.observation(player)))
+
+            # every player's request goes out before any is waited on: the
+            # inference engine's clients take them into one batch
+            futures = {
+                p: models[p].submit(o, hidden[p]) for p, o in active if hasattr(models[p], "submit")
+            }
+            for player, obs in active:
+                if player in futures:
+                    outputs = futures[player].result()
+                else:
+                    outputs = models[player].inference(obs, hidden[player])
                 hidden[player] = outputs.get("hidden")
                 row["obs"][player] = obs
                 if outputs.get("value") is not None:
@@ -157,3 +169,9 @@ class Generator:
         if not rows:
             return None
         return finalize_episode(rows, players, env.outcome(), args, self.args)
+
+    def execute(self, models: Dict[int, Any], args: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        episode = self.generate(models, args)
+        if episode is None:
+            print("None episode in generation!")
+        return episode

@@ -44,7 +44,11 @@ def _imported_roots(path):
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((ROOT / "handyrl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    checked = {str(p.relative_to(ROOT / "handyrl_tpu_torch")) for p in files[:-1]}
+    assert len(files) > 30 and {
+        "main.py", "agents.py", "envs/tictactoe.py", "models/layers.py", "models/nets.py",
+        "runtime/checkpoint.py", "runtime/evaluation.py", "runtime/inference_engine.py",
+        "runtime/learner.py", "runtime/trainer.py", "runtime/worker.py"} <= checked
     offenders = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN) for p in files}
     assert not {k: v for k, v in offenders.items() if v}
 
@@ -61,6 +65,42 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
     build(device="cpu")  # asked for: fine
+
+
+LOOP_CONFIG = {"env_args": {"env": "TicTacToe"},
+               "train_args": {"batch_size": 4, "forward_steps": 4, "minimum_episodes": 2,
+                              "update_episodes": 2, "epochs": 1, "worker": {"num_parallel": 1}}}
+
+
+@pytest.mark.parametrize("entry", ["learner", "train_main", "eval_main", "main_train", "main_eval"])
+def test_loop_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path, entry):
+    """The learner loop and the CLI run on the card; without one they raise
+    before anything starts, and run on the CPU only when asked."""
+    import yaml
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.main import main
+    from handyrl_tpu_torch.runtime.evaluation import eval_main
+    from handyrl_tpu_torch.runtime.learner import Learner, train_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "config.yaml").write_text(yaml.safe_dump(LOOP_CONFIG))
+    args = normalize_args(LOOP_CONFIG)
+    call = {
+        "learner": lambda device=None: Learner(args, device=device),
+        "train_main": lambda device=None: train_main(args, device=device),
+        "eval_main": lambda device=None: eval_main(args, ["random", "2", "1"], device=device),
+        "main_train": lambda device=None: main(["--train"], device=device),
+        "main_eval": lambda device=None: main(["--eval", "random", "2", "1"], device=device),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    assert not (tmp_path / "models").exists()
+    if entry == "learner":
+        call(device="cpu").model_server.stop()
+    elif entry != "train_main":
+        call(device="cpu")
 
 
 def test_kernel_wrapper_never_takes_the_plain_version_off_the_cpu():

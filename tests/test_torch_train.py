@@ -163,13 +163,27 @@ def test_config_subset_keeps_the_jax_defaults_and_refuses_what_is_not_ported():
     from handyrl_tpu_torch.config import DEFAULT_TRAIN_ARGS
 
     for key, value in DEFAULT_TRAIN_ARGS.items():
-        assert JAX_DEFAULTS[key] == value, key
+        if key == "batch_pipeline":  # the port's one deliberate difference
+            assert value == "thread" and JAX_DEFAULTS[key] == "shm"
+        elif isinstance(value, dict):  # a subset of the JAX package's section
+            assert {k: JAX_DEFAULTS[key][k] for k in value} == value, key
+        else:
+            assert JAX_DEFAULTS[key] == value, key
     env = {"env": "Geister"}
     assert normalize_args({"env_args": env, "train_args": {"attn_mode": "einsum"}})[
         "train_args"]["seq_attention"] == "einsum"
-    for bad in ({"seq_attention": "ring"}, {"remat": "block"}, {"blk_q": 12},
-                {"compute_dtype": "float16"}, {"value_target": "XX"}, {"batch_size": 0}):
+    for rung in ("attn", "block", True, False):
+        assert normalize_args({"env_args": env, "train_args": {"remat": rung}})[
+            "train_args"]["remat"] == rung
+    for bad in ({"seq_attention": "ring"}, {"remat": "full"}, {"remat": 1}, {"blk_q": 12},
+                {"compute_dtype": "float16"}, {"value_target": "XX"}, {"batch_size": 0},
+                {"restart_epoch": -2}, {"eval_rate": 1.5}, {"update_episodes": 0}):
         with pytest.raises(ValueError):
             normalize_args({"env_args": env, "train_args": bad})
+    for mode, roadmap in (("shm", "A5"), ("device", "A7")):
+        with pytest.raises(ValueError, match=roadmap):
+            normalize_args({"env_args": env, "train_args": {"batch_pipeline": mode}})
+    with pytest.raises(ValueError, match="only 'thread'"):
+        normalize_args({"env_args": env, "train_args": {"batch_pipeline": "bogus"}})
     with pytest.raises(ValueError):
         normalize_args({"train_args": {}})
