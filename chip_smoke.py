@@ -40,9 +40,22 @@ Phases, each of which fails the run when it fails:
    held to n_layers per step, the checkpoints verified and reloaded bit
    for bit; then one train step's time and peak memory under remat 'none'
    and 'block'.
+8. recurrent and simultaneous-move training, no kernel on either path:
+   (a) Geister with the DRC ``GeisterNet`` at its full width (bench.py's
+   geister stage: B128, burn-in 8, forward 16, UPGO, fp32) through
+   ``Learner(args).run()`` for 2 epochs with 8 actors, checkpoints verified
+   and reloaded bit for bit; one train step's time and peak memory with
+   remat on and off, one under the profiler (busy share, launches); the RNN
+   branch's forward on the card against the CPU's on one batch, in the
+   port's conv mode (TF32) and in strict fp32; (b) HungryGeese (GeeseNet,
+   simultaneous moves, 4 players) through ``python -m
+   handyrl_tpu_torch.main --train`` for 2 epochs, evaluated against the
+   rule-based geese, then ``--eval models/latest.ckpt:rulebase 100 4``.
 
 Phases 4, 5-6 and 7b are the paths through the port's kernels: each starts
-with every launch count at 0, and its kernel's count is read at its end.
+with every launch count at 0, and its kernel's count is read at its end;
+phase 8a is read the same way and launches neither kernel (8b runs in
+processes of its own).
 The last two lines are a JSON ``kernels`` record and the verdict
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or of handyrl_tpu is
 imported.  Weights are random, made from a seed.
@@ -50,7 +63,9 @@ imported.  Weights are random, made from a seed.
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import os
 import random
 import re
@@ -70,6 +85,19 @@ TRAIN_ARGS = {
     "batch_size": 16, "forward_steps": 512, "burn_in_steps": 0, "observation": True,
     "compute_dtype": "bfloat16", "seq_attention": "auto", "flash_min_t": 128,
 }
+# phase 8a: the recurrent configuration, bench.py's geister stage (the DRC
+# GeisterNet at its defaults, batch_size at its default of 128, fp32)
+DRC_TRAIN_ARGS = {
+    "burn_in_steps": 8, "forward_steps": 16, "observation": True,
+    "policy_target": "UPGO", "value_target": "UPGO",
+}
+DRC_EPISODES = 16        # minimum_episodes and update_episodes of phase 8a
+GEESE_EPISODES = 100     # the same for phase 8b
+# the card against the CPU on the RNN branch's outputs, absolute, times
+# max(1, the outputs' scale): cuDNN's TF32 convolutions round their inputs
+# to 10 bits of mantissa; in strict fp32 the two devices' conv algorithms
+# sum in other orders, through 24 recurrent steps
+DRC_TOLERANCE = {"tf32": 2e-2, "fp32": 1e-3}
 HEAD_DIMS = (16, 32, 64, 96, 128)   # the kernels' instantiated head dims
 TRAIN_STEPS = 4          # the first one is warm-up, left out of the rates
 EPISODES = 4
@@ -622,12 +650,12 @@ def read_records(path):
         return [json.loads(line) for line in f]
 
 
-def print_epochs(tag, records):
+def print_epochs(tag, records, opponent="random"):
     for r in records:
         win = (r.get("win_rate") or {}).get("total")
         print(f"[{tag}] epoch {r['epoch']}: steps {r['steps']}, episodes {r['episodes']}, "
               f"{r['episodes_per_sec']:.2f} episodes/s, {r['updates_per_sec']:.2f} updates/s, "
-              f"win rate vs random {'n/a' if win is None else f'{win:.3f}'}; boundary: trainer "
+              f"win rate vs {opponent} {'n/a' if win is None else f'{win:.3f}'}; boundary: trainer "
               f"snapshot {r['boundary_snapshot_s']:.2f} s, save {r['boundary_save_s']:.2f} s, "
               f"publish {r['boundary_publish_s']:.2f} s")
         if "pipe_sample_s" in r:  # the batch pipeline's stage seconds over the epoch
@@ -784,6 +812,183 @@ def remat_line(learner):
         trainer.ctx.args = base
 
 
+def phase_drc_learner(results):
+    """8a: Geister with the DRC GeisterNet at the recurrent configuration,
+    through ``Learner(args).run()``: actors carry the DRC's hidden state
+    through the batched engine, the trainer steps the RNN branch."""
+    import torch
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.models import GeisterNet
+    from handyrl_tpu_torch.runtime import checkpoint as ckpt
+    from handyrl_tpu_torch.runtime.learner import Learner
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = normalize_args({
+            "env_args": {"env": "Geister"},
+            "train_args": dict(DRC_TRAIN_ARGS, minimum_episodes=DRC_EPISODES,
+                               update_episodes=DRC_EPISODES, epochs=2,
+                               worker={"num_parallel": 8}, seed=SEED,
+                               model_dir=os.path.join(tmp, "models"),
+                               metrics_path=os.path.join(tmp, "metrics.jsonl")),
+        })
+        gc.collect()  # earlier phases' learners hold card memory until their cycles go
+        torch.cuda.synchronize()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        learner = Learner(cfg)
+        check(type(learner.module) is GeisterNet, "Geister's default net is not the DRC GeisterNet")
+        t0 = time.perf_counter()
+        learner.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        steps = learner.trainer.steps
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        check(steps > 0, "the DRC learner took no step")
+        check(learner.trainer.sentinel_skipped_steps == 0, "the sentinel skipped a DRC step")
+        records = read_records(cfg["train_args"]["metrics_path"])
+        check(len(records) == 2, f"{len(records)} epoch records, expected 2")
+        losses = [r["loss"]["total"] for r in records if "loss" in r]
+        check(losses and all(torch.isfinite(torch.tensor(x)) for x in losses),
+              f"no loss or a non-finite epoch loss: {losses}")
+        model_dir = cfg["train_args"]["model_dir"]
+        check_snapshots(model_dir, [1, 2])
+        saved = ckpt.load_params(os.path.join(model_dir, "2.ckpt"))
+        fresh = GeisterNet()
+        fresh.load_state_dict(saved)
+        served = learner.model_server.engine.model.module.state_dict()
+        check(all(torch.equal(fresh.state_dict()[k], v) and torch.equal(served[k].cpu(), v)
+                  for k, v in saved.items()),
+              "models/2.ckpt does not load bit for bit, or is not what the actors were served")
+        engine = learner.model_server.engine
+        print_epochs("drc", records)
+        B = cfg["train_args"]["batch_size"]
+        T = DRC_TRAIN_ARGS["burn_in_steps"] + DRC_TRAIN_ARGS["forward_steps"]
+        print(f"[drc] Geister GeisterNet (filters 32, DRC 3x3) B{B} T{T} (burn-in "
+              f"{DRC_TRAIN_ARGS['burn_in_steps']}) P2 fp32 UPGO: {steps} steps, "
+              f"{learner.num_returned_episodes} episodes in {run_s:.1f} s; engine: "
+              f"{engine.requests_served} requests in {engine.batches_served} batches "
+              f"({engine.requests_served / max(engine.batches_served, 1):.1f} per batch); "
+              f"peak memory {peak_gb:.2f} GB ({held_gb:.2f} GB of it held before the phase); "
+              f"loss {losses}")
+        drc_step_lines(learner)
+        drc_device_check(learner)
+
+
+def drc_step_lines(learner):
+    """One train step at the recurrent configuration with remat off and on
+    (a checkpoint per post-burn-in step): ms (host clock around
+    synchronised steps, median of 3) and peak memory; then one step under
+    the profiler at remat 'auto' (on, on the card)."""
+    import torch
+
+    from handyrl_tpu_torch.parallel import resolve_rnn_remat
+
+    ctx = learner.trainer.ctx
+    batch = ctx.put_batch(learner.trainer.sample_batch())
+    lr = learner.trainer.lr
+    base = ctx.args
+    try:
+        for remat in (False, True):
+            ctx.args = dict(base, remat=remat)
+            ctx.train_step(batch, lr)   # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                metrics = ctx.train_step(batch, lr)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            check(metrics["sentinel_bad"] == 0, f"remat {remat}: a non-finite step")
+            print(f"[drc remat] {'on' if remat else 'off'}: one train step B{base['batch_size']} "
+                  f"T{base['burn_in_steps'] + base['forward_steps']} fp32 {sorted(times)[1]:.1f} ms "
+                  f"(median of 3: {', '.join(f'{t:.1f}' for t in times)}), peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    finally:
+        ctx.args = base
+    check(resolve_rnn_remat(base, ctx.device), "remat 'auto' should be on for the card")
+    profile_call("one DRC train step (remat auto = on)", lambda: ctx.train_step(batch, lr))
+
+
+def drc_device_check(learner):
+    """The RNN branch of forward_prediction on the card against the same
+    function on the CPU, the same weights and batch: in the port's mode
+    (cuDNN convolutions in TF32, PyTorch's default) and in strict fp32."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from handyrl_tpu_torch.parallel.train_step import forward_prediction
+    from handyrl_tpu_torch.utils import tree_map
+
+    ctx = learner.trainer.ctx
+    host = learner.trainer.sample_batch()
+    cpu_module = copy.deepcopy(ctx.module).cpu()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = forward_prediction(cpu_module, None,
+                                  tree_map(lambda x: torch.from_numpy(np.ascontiguousarray(x)), host),
+                                  ctx.args)
+        cpu_s = time.perf_counter() - t0
+    burn_in = ctx.args["burn_in_steps"]
+    acting = torch.from_numpy(host["turn_mask"][:, burn_in:, :, 0] > 0)
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        for mode, allow in (("tf32", True), ("fp32", False)):
+            torch.backends.cudnn.allow_tf32 = allow
+            with torch.no_grad():
+                got = forward_prediction(ctx.module, None, ctx.put_batch(host), ctx.args)
+            for key in ("policy", "value", "return"):
+                a, b = got[key].cpu(), want[key]
+                check(a.shape == b.shape and torch_finite(a), f"bad {key} from the card")
+                if key == "policy":  # legal logits of acting steps
+                    a, b = a[acting], b[acting]
+                    legal = b > -1e30
+                    a, b = a[legal], b[legal]
+                err, scale = (a - b).abs().max().item(), max(1.0, b.abs().max().item())
+                tol = DRC_TOLERANCE[mode] * scale
+                print(f"[drc check] RNN forward_prediction, card ({mode} convs) vs CPU, one batch "
+                      f"B{host['action'].shape[0]}: {key} max_abs_err {err:.3e} (tolerance {tol:.3e})")
+                check(err <= tol, f"the card's RNN forward disagrees with the CPU's on {key} ({mode})")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"[drc check] the CPU's forward took {cpu_s:.1f} s")
+
+
+def phase_geese_cli(results):
+    """8b: HungryGeese (GeeseNet, 4 players moving at once) through
+    ``python -m handyrl_tpu_torch.main --train`` with the rule-based geese
+    as the evaluation opponent, then ``--eval models/latest.ckpt:rulebase
+    100 4``, on the card."""
+    import yaml
+
+    config = {
+        "env_args": {"env": "HungryGeese"},
+        "train_args": {"turn_based_training": False, "observation": False, "epochs": 2,
+                       "minimum_episodes": GEESE_EPISODES, "update_episodes": GEESE_EPISODES,
+                       "eval": {"opponent": ["rulebase"]}, "seed": SEED},
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        Path(tmp, "config.yaml").write_text(yaml.safe_dump(config))
+        _, train_s = run_cli(tmp, "--train")
+        check_snapshots(os.path.join(tmp, "models"), [1, 2])
+        records = read_records(os.path.join(tmp, "metrics.jsonl"))
+        check(len(records) == 2 and records[-1]["steps"] > 0,
+              f"metrics.jsonl: {len(records)} records, expected 2 with steps > 0 on the last")
+        check(all(math.isfinite(r["loss"]["total"]) for r in records if "loss" in r),
+              "non-finite epoch loss")
+        print_epochs("geese", records, "rulebase")
+        out, eval_s = run_cli(tmp, "--eval", "models/latest.ckpt:rulebase", "100", "4")
+        total = [line for line in out.splitlines() if line.startswith("total =")]
+        check(len(total) == 1, "--eval printed no 'total =' line")
+        print(f"[geese] --train 2 epochs ({GEESE_EPISODES} + 2 x {GEESE_EPISODES} episodes, B128 "
+              f"T16, 6 actors) in {train_s:.1f} s; --eval models/latest.ckpt:rulebase 100 4 in "
+              f"{eval_s:.1f} s: {total[0]} (win points of seat 0 vs 3 rule-based geese)")
+
+
 def profile_call(label, fn, top=12):
     """One more call of fn under torch.profiler: the device-busy share of
     its wall time and the kernels that took the most device time."""
@@ -850,6 +1055,13 @@ def main(argv):
             phase_learner_cli(results)
             reset_launches()
             phase_learner(results)
+            # the recurrent and simultaneous-move paths: no kernel on either
+            # (8b runs in processes of its own)
+            reset_launches()
+            phase_drc_learner(results)
+            print(f"[drc] kernel launches in phase 8a: masked {MASKED_FLASH.launches}, "
+                  f"flash {FLASH.launches}")
+            phase_geese_cli(results)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

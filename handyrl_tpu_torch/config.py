@@ -65,8 +65,15 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     "blk_q": 128,
     # the seq path's remat ladder: 'none', 'attn' (checkpoint the attention
     # sublayer), 'block' (the attention+FFN block), or 'auto' ('none' on
-    # this backend); true/false collapse to 'block'/'none'
+    # this backend); true/false collapse to 'block'/'none'.  The RNN branch
+    # reads it as on/off per time step ('attn'/'block' on, 'none' off),
+    # 'auto' on for every device but the CPU
     "remat": "auto",
+    # the JAX package's switch to unroll its RNN training scan (an XLA
+    # compile knob): accepted and checked ('auto', true, false) so one
+    # config serves both packages, and ignored, since eager PyTorch steps
+    # the recurrence in a Python loop either way
+    "unroll": "auto",
     # 'bfloat16' runs forward and backward in bf16 over fp32 master weights
     "compute_dtype": "float32",
     "lr_scale": 1.0,
@@ -128,6 +135,9 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
         raise ValueError(
             f"train_args.remat={rv!r} not one of ('auto', true, false, 'none', 'attn', 'block')"
         )
+    uv = train["unroll"]
+    if not (isinstance(uv, bool) or uv in ("auto", None)):
+        raise ValueError(f"train_args.unroll={uv!r} not one of ('auto', true, false)")
     if train["compute_dtype"] not in ("float32", "bfloat16"):
         raise ValueError(
             f"train_args.compute_dtype={train['compute_dtype']!r} "

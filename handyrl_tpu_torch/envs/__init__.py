@@ -1,4 +1,5 @@
-"""Environment registry and factories (TicTacToe and Geister, so far).
+"""Environment registry and factories: TicTacToe, Geister, ParallelTicTacToe
+and HungryGeese.
 
 An unknown name is treated as a dotted import path, as in the JAX package,
 so user environments plug in without registration.
@@ -14,6 +15,8 @@ from .base import BaseEnvironment  # noqa: F401  (re-export)
 ENVS = {
     "TicTacToe": "handyrl_tpu_torch.envs.tictactoe",
     "Geister": "handyrl_tpu_torch.envs.geister",
+    "ParallelTicTacToe": "handyrl_tpu_torch.envs.parallel_tictactoe",
+    "HungryGeese": "handyrl_tpu_torch.envs.hungry_geese",
 }
 
 

@@ -13,8 +13,9 @@ Implementation is piece-table based: parallel arrays ``pos``/``kind``/
 ids as the single source of truth, rather than the reference's
 board-of-codes + counts bookkeeping.
 
-The port's copy of ``handyrl_tpu/envs/geister.py``, rule for rule.  Only the
-transformer net (``net: transformer``) is ported so far.
+The port's copy of ``handyrl_tpu/envs/geister.py``, rule for rule.  Its
+default net is the DRC ``GeisterNet``; ``net: transformer`` picks the memory
+transformer.  The device twin (``vector_env``) is not ported.
 """
 
 from __future__ import annotations
@@ -334,9 +335,9 @@ class Environment(BaseEnvironment):
         return {"num_actions": self.action_size(), "with_return": True}
 
     def default_net(self):
-        raise NotImplementedError(
-            "the DRC GeisterNet is not ported yet; set env_args.net: transformer"
-        )
+        from ..models import GeisterNet
+
+        return GeisterNet()
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 from .convert import flax_to_state_dict
 from .inference import InferenceModel, RandomModel, init_variables
-from .nets import SimpleConvNet
+from .nets import GeeseNet, GeisterNet, SimpleConvNet
 from .transformer import TransformerNet
 
 __all__ = [
+    "GeeseNet",
+    "GeisterNet",
     "InferenceModel",
     "RandomModel",
     "SimpleConvNet",

@@ -1,7 +1,8 @@
 """Weight bridge: the JAX package's Flax params -> the port's ``state_dict``.
 
 Flax names each submodule as the port names its ``nn.Module``s
-(``attn0/q/kernel`` -> ``attn0.q.weight``).  A Dense kernel is stored
+(``attn0/q/kernel`` -> ``attn0.q.weight``, ``drc/cell0/Conv_0/kernel`` ->
+``drc.cell0.Conv_0.weight``).  A Dense kernel is stored
 (in, out) and a torch Linear weight (out, in), so kernels are transposed;
 a Conv kernel is stored HWIO and a torch Conv2d weight OIHW;
 LayerNorm and GroupNorm ``scale``/``bias`` become ``weight``/``bias``.

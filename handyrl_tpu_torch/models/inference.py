@@ -22,12 +22,17 @@ def init_variables(module: nn.Module, seed: int = 0) -> nn.Module:
     """Initialise ``module``'s parameters in place, as Flax initialises its
     own: Linear and Conv weights lecun-normal (normal truncated at two
     standard deviations, scaled by the fan-in: in features times the
-    kernel's cells), biases zero, LayerNorm and GroupNorm scale one.  The
-    numbers come from a ``torch.Generator`` seeded with ``seed``; they are
-    not the JAX package's numbers for the same seed."""
+    kernel's cells), biases zero, LayerNorm and GroupNorm scale one.  A
+    layer marked ``zero_init`` (a Flax ``zeros_init`` kernel) gets zero
+    weights.  The numbers come from a ``torch.Generator`` seeded with
+    ``seed``; they are not the JAX package's numbers for the same seed."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     for mod in module.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+        if getattr(mod, "zero_init", False):
+            mod.weight.zero_()
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (nn.Linear, nn.Conv2d)):
             # flax's variance_scaling(1, fan_in, truncated_normal) corrects
             # the std for the truncation
             fan_in = mod.weight[0].numel()

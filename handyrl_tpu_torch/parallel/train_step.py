@@ -1,10 +1,10 @@
 """The training step: forward, targets, loss, optimizer.
 
-Counterpart of ``handyrl_tpu/parallel/train_step.py`` for feed-forward
-nets and the seq-mode transformer:
+Counterpart of ``handyrl_tpu/parallel/train_step.py``:
 
-    forward (a feed-forward net over the window's live prefix, or the
-             whole window through TransformerNet seq mode)
+    forward (a feed-forward net over the window's live prefix, the whole
+             window through TransformerNet seq mode, or a recurrent net
+             stepped over the window's T steps)
     -> output masking (turn / legal-action / observation)
     -> loss core (ops/losses.py)
     -> global-norm clip 4.0 -> L2 decay 1e-5 -> Adam, lr applied per step
@@ -13,8 +13,10 @@ nets and the seq-mode transformer:
 for the forward (fp32 master weights keep the optimizer state; gradients
 flow back through the cast in fp32), as the JAX step does; outputs return
 to fp32 before the masking, since the 1e32 action mask is not
-bf16-representable.  The RNN scan branch and the ring-attention branch are
-not ported yet.
+bf16-representable; a recurrent state stays fp32.  On the card, convolutions
+run in TF32 (PyTorch's default, ``torch.backends.cudnn.allow_tf32``) and
+matmuls in fp32, so an fp32 conv net's step there is TF32 in its convs.
+The ring-attention branch is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import compute_loss_from_outputs
 from ..utils import resolve_device, tree_leaves, tree_map
@@ -68,6 +71,18 @@ def resolve_seq_remat(args: Dict[str, Any]) -> str:
     if isinstance(v, bool):
         return "block" if v else "none"
     return "none"
+
+
+def resolve_rnn_remat(args: Dict[str, Any], device: torch.device) -> bool:
+    """Whether the RNN branch checkpoints each time step, as the JAX
+    package resolves it for its scan: the seq path's named rungs collapse
+    to on ('attn', 'block') and off ('none'); ``auto`` is on for every
+    device but the CPU."""
+    v = args.get("remat", "auto")
+    v = {"none": False, "attn": True, "block": True}.get(v, v)
+    if v is None or v == "auto":
+        return device.type != "cpu"
+    return bool(v)
 
 
 def _apply(module, params, inputs, kwargs=None):
@@ -127,7 +142,7 @@ def forward_prediction(module, params, batch: Dict[str, Any], args: Dict[str, An
             if k != "hidden" and v is not None
         }
     else:
-        raise NotImplementedError("the RNN scan branch of forward_prediction is not ported yet")
+        outputs = _rnn_forward(module, params, obs, batch["observation_mask"], burn_in, args)
 
     tmask = batch["turn_mask"][:, burn_in:]
     omask = batch["observation_mask"][:, burn_in:]
@@ -143,6 +158,53 @@ def forward_prediction(module, params, batch: Dict[str, Any], args: Dict[str, An
         else:
             masked[k] = v * omask
     return masked
+
+
+def _rnn_forward(module, params, obs, omask, burn_in: int, args: Dict[str, Any]):
+    """A recurrent net stepped over the window, time-major: the hidden
+    state entering step t is masked by the step's observation mask, and
+    the net's new state is committed only where the player observed.  The
+    burn-in steps run without a graph (the JAX package's stop_gradient);
+    with remat on, each later step is a checkpoint that its backward
+    replays.  Returns post-burn-in outputs shaped (B, T', P, ...)."""
+    B, T, P1 = omask.shape[:3]
+    if P1 != tree_leaves(obs)[0].shape[2]:
+        raise ValueError(
+            "recurrent training requires full-player batches (set observation: true)"
+        )
+
+    def mask_like(m, h):
+        return m.reshape(m.shape[:2] + (1,) * (h.dim() - 2))
+
+    def step(hidden, obs_t, omask_t):
+        h_in = tree_map(lambda h: h * mask_like(omask_t, h), hidden)
+        h_flat = tree_map(lambda h: h.reshape((-1,) + tuple(h.shape[2:])), h_in)
+        obs_flat = tree_map(lambda o: o.reshape((-1,) + tuple(o.shape[2:])), obs_t)
+        # params is read here, from the closure, on the forward and on a
+        # checkpoint's replay alike: the same bf16 copies both times
+        out = _apply(module, params, (obs_flat, h_flat))
+        new_hidden = tree_map(lambda h: h.reshape((B, P1) + tuple(h.shape[1:])), out["hidden"])
+        hidden = tree_map(
+            lambda h, nh: h * (1 - mask_like(omask_t, h)) + nh * mask_like(omask_t, nh),
+            hidden, new_hidden)
+        outs = {k: v.reshape((B, P1) + tuple(v.shape[1:]))
+                for k, v in out.items() if k != "hidden" and v is not None}
+        return hidden, outs
+
+    hidden = module.initial_state((B, P1), omask.device)
+    at = lambda t: tree_map(lambda x: x[:, t], obs)  # noqa: E731
+    with torch.no_grad():
+        for t in range(burn_in):
+            hidden, _ = step(hidden, at(t), omask[:, t])
+    remat = resolve_rnn_remat(args, omask.device) and torch.is_grad_enabled()
+    steps = []
+    for t in range(burn_in, T):
+        if remat:
+            hidden, outs = checkpoint(step, hidden, at(t), omask[:, t], use_reentrant=False)
+        else:
+            hidden, outs = step(hidden, at(t), omask[:, t])
+        steps.append(outs)
+    return {k: torch.stack([o[k] for o in steps], dim=1) for k in steps[0]}
 
 
 def live_steps(batch: Dict[str, Any]) -> int:
@@ -170,10 +232,14 @@ class TrainContext:
         self.module = module.to(self.device)
         self.args = args
         recurrent = module.initial_state((1, 1)) is not None
+        # a simultaneous-move batch holds its one target player's own
+        # observations, so its hidden carry is well-defined without the flag
         if recurrent and args.get("turn_based_training", True) and not args.get("observation"):
             raise ValueError(
-                "memory models (KV-cache transformer) under turn-based training "
-                "require train_args.observation: true"
+                "recurrent/memory models (RNN hidden or KV-cache transformer) under "
+                "turn-based training require train_args.observation: true: their "
+                "all-player training windows need every player's observation at every "
+                "step (for a single-player env, turn_based_training: false also works)"
             )
         # feed-forward batches with no burn-in keep their live steps in a
         # prefix of the window: put_batch cuts the observation to it

@@ -46,7 +46,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((ROOT / "handyrl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     checked = {str(p.relative_to(ROOT / "handyrl_tpu_torch")) for p in files[:-1]}
     assert len(files) > 30 and {
-        "main.py", "agents.py", "envs/tictactoe.py", "models/layers.py", "models/nets.py",
+        "main.py", "agents.py", "envs/tictactoe.py", "envs/hungry_geese.py",
+        "envs/parallel_tictactoe.py", "models/layers.py", "models/nets.py",
         "runtime/checkpoint.py", "runtime/evaluation.py", "runtime/inference_engine.py",
         "runtime/learner.py", "runtime/trainer.py", "runtime/worker.py"} <= checked
     offenders = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN) for p in files}
@@ -65,6 +66,26 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
     build(device="cpu")  # asked for: fine
+
+
+@pytest.mark.parametrize("env_args,train_args", [
+    ({"env": "Geister"}, dict(TRAIN_ARGS, burn_in_steps=2)),
+    ({"env": "HungryGeese"}, dict(TRAIN_ARGS, turn_based_training=False, observation=False)),
+    ({"env": "ParallelTicTacToe"}, dict(TRAIN_ARGS, turn_based_training=False)),
+])
+@pytest.mark.parametrize("entry", ["inference", "train_context"])
+def test_new_nets_refuse_to_fall_back_to_cpu(monkeypatch, entry, env_args, train_args):
+    """The DRC GeisterNet, GeeseNet and the simultaneous-move env take the
+    same entry points: on the card, or on the CPU when asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    module = make_env(env_args).net()
+    build = {
+        "inference": lambda device=None: InferenceModel(module, device=device),
+        "train_context": lambda device=None: TrainContext(module, train_args, device=device),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
+    build(device="cpu")
 
 
 LOOP_CONFIG = {"env_args": {"env": "TicTacToe"},
