@@ -51,11 +51,24 @@ Phases, each of which fails the run when it fails:
    simultaneous moves, 4 players) through ``python -m
    handyrl_tpu_torch.main --train`` for 2 epochs, evaluated against the
    rule-based geese, then ``--eval models/latest.ckpt:rulebase 100 4``.
+9. the remote actor plane and network battles, over loopback: (a) the
+   repo's config.yaml with epochs cut to 3 through ``--train-server`` and
+   ``--worker`` processes (8 remote actors on the card, a 1 s heartbeat),
+   its checkpoints verified, episodes/s and updates/s per epoch; (b) the
+   transformer above through ``Learner(args, remote=True)`` in this process
+   with one ``--worker 8`` process on the same card: the masked kernel
+   held to n_layers launches per learner step, each params blob the worker
+   fetched held by CRC32 against the blob served and the snapshot saved,
+   the blob's size and fetch seconds, remote moves/s, the boundaries'
+   seconds, jobs_lost and heartbeat drops; (c) ``--eval-server 20`` with
+   two ``--eval-client`` processes, (a)'s ``models/latest.ckpt`` on the
+   card and random: 20 games, no forfeit.  Alone: ``python3 -c "import
+   chip_smoke as cs; cs.phase_remote({})"``.
 
-Phases 4, 5-6 and 7b are the paths through the port's kernels: each starts
-with every launch count at 0, and its kernel's count is read at its end;
-phase 8a is read the same way and launches neither kernel (8b runs in
-processes of its own).
+Phases 4, 5-6, 7b and 9b are the paths through the port's kernels: each
+starts with every launch count at 0, and its kernel's count is read at its
+end; phase 8a is read the same way and launches neither kernel (8b, 9a and
+9c run in processes of their own).
 The last two lines are a JSON ``kernels`` record and the verdict
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or of handyrl_tpu is
 imported.  Weights are random, made from a seed.
@@ -72,6 +85,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -93,6 +107,8 @@ DRC_TRAIN_ARGS = {
 }
 DRC_EPISODES = 16        # minimum_episodes and update_episodes of phase 8a
 GEESE_EPISODES = 100     # the same for phase 8b
+REMOTE_HEARTBEAT = 1.0   # phase 9's heartbeat interval, seconds (the default is 10)
+BATTLE_GAMES = 20        # phase 9c's games
 # the card against the CPU on the RNN branch's outputs, absolute, times
 # max(1, the outputs' scale): cuDNN's TF32 convolutions round their inputs
 # to 10 bits of mantissa; in strict fp32 the two devices' conv algorithms
@@ -615,14 +631,18 @@ def launches_per_step(args):
     return NET_ARGS["n_layers"] * (1 if rung == "none" else 2)
 
 
+def cli_env():
+    """This environment with the repo on PYTHONPATH, for the CLI's processes."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+
+
 def run_cli(cwd, *argv, timeout=600):
     """``python -m handyrl_tpu_torch.main ARGV`` in ``cwd``, as a user runs
     it; fails the phase on a nonzero exit, printing the output's tail."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "handyrl_tpu_torch.main", *argv], cwd=cwd,
-                          env=env, capture_output=True, text=True, timeout=timeout)
+                          env=cli_env(), capture_output=True, text=True, timeout=timeout)
     elapsed = time.perf_counter() - t0
     if proc.returncode != 0:
         print(proc.stdout[-3000:] + proc.stderr[-3000:])
@@ -989,6 +1009,254 @@ def phase_geese_cli(results):
               f"{eval_s:.1f} s: {total[0]} (win points of seat 0 vs 3 rule-based geese)")
 
 
+def free_port():
+    """A TCP port that is free now (bound to port 0, then released)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        return sock.getsockname()[1]
+
+
+class Children:
+    """``python -m handyrl_tpu_torch.main`` processes run side by side in
+    ``cwd``, each one's output in a log file there; every one is reaped when
+    the block ends, killed first if it still runs."""
+
+    def __init__(self, cwd):
+        self.cwd, self.procs = cwd, {}
+
+    def __enter__(self):
+        return self
+
+    def start(self, tag, *argv):
+        log = open(os.path.join(self.cwd, f"{tag}.log"), "w")
+        proc = subprocess.Popen([sys.executable, "-m", "handyrl_tpu_torch.main", *argv],
+                                cwd=self.cwd, env=cli_env(), stdout=log,
+                                stderr=subprocess.STDOUT, text=True)
+        self.procs[tag] = (proc, log)
+        return proc
+
+    def output(self, tag):
+        self.procs[tag][1].flush()
+        return Path(self.cwd, f"{tag}.log").read_text()
+
+    def running(self, tag):
+        return self.procs[tag][0].poll() is None
+
+    def wait_all(self, timeout, alive=lambda: False):
+        """Wait for every process to exit 0 within ``timeout`` seconds; a
+        nonzero exit fails at once, printing its log's tail.  ``alive`` says
+        whether work in this process is still going on."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            codes = {tag: proc.poll() for tag, (proc, _) in self.procs.items()}
+            for tag, code in codes.items():
+                if code not in (None, 0):
+                    print(self.output(tag)[-3000:])
+                    check(False, f"main {' '.join(self.procs[tag][0].args[3:])} exited {code}")
+            if all(code == 0 for code in codes.values()) and not alive():
+                return {tag: self.output(tag) for tag in self.procs}
+            time.sleep(0.2)
+        for tag in self.procs:
+            print(f"--- {tag} ---\n" + self.output(tag)[-2000:])
+        check(False, f"processes still running after {timeout} s: "
+              + ", ".join(tag for tag in self.procs if self.running(tag)))
+
+    def __exit__(self, *exc):
+        for proc, log in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            log.close()
+
+
+REMOTE_LINE = re.compile(r"\[remote\] model (\d+): (\d+) bytes in ([\d.]+) s, crc32 ([0-9a-f]+)")
+SESSION_LINE = re.compile(r"\[remote\] session (\d+): (\d+) inference requests in (\d+) "
+                          r"batches over ([\d.]+) s of play")
+
+
+def remote_books(tag, records, worker_out):
+    """The remote plane's books: the epochs' jobs_lost and heartbeat drops,
+    every params fetch the worker made, its sessions' inference."""
+    last = records[-1]
+    print(f"[{tag}] remote plane: jobs_lost {last['jobs_lost']}, heartbeat drops "
+          f"{last['heartbeat_drops']}, blobs serialised by the server (id, bytes, s) "
+          f"{last['blobs_served']}")
+    fetches = [(int(i), int(n), float(s), c) for i, n, s, c in REMOTE_LINE.findall(worker_out)]
+    for model_id, nbytes, seconds, crc in fetches:
+        print(f"[{tag}] worker fetched model {model_id}: {nbytes / 1e9:.4f} GB in {seconds:.3f} s "
+              f"({nbytes / 1e9 / max(seconds, 1e-9):.2f} GB/s), crc32 {crc}")
+    sessions = [(int(a), int(b), int(c), float(d)) for a, b, c, d in SESSION_LINE.findall(worker_out)]
+    check(fetches and sessions, "the worker printed no fetch or no session line")
+    return fetches, sessions
+
+
+def phase_remote_cli(tmp):
+    """9a: the default config.yaml with epochs cut to 3 through ``python -m
+    handyrl_tpu_torch.main --train-server`` and ``--worker`` (8 actors on
+    the card) over loopback, a short heartbeat."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "config.yaml").read_text())
+    entry_port = free_port()
+    cfg["train_args"]["epochs"] = 3
+    cfg["train_args"]["worker"].update(entry_port=entry_port, data_port=0,
+                                       heartbeat_interval=REMOTE_HEARTBEAT)
+    cfg["worker_args"].update(server_address="127.0.0.1", entry_port=entry_port)
+    Path(tmp, "config.yaml").write_text(yaml.safe_dump(cfg))
+    t0 = time.perf_counter()
+    with Children(tmp) as kids:
+        kids.start("train_server", "--train-server")
+        kids.start("worker", "--worker")
+        outs = kids.wait_all(600)
+    run_s = time.perf_counter() - t0
+    check_snapshots(os.path.join(tmp, "models"), [1, 2, 3])
+    records = read_records(os.path.join(tmp, "metrics.jsonl"))
+    check(len(records) == 3 and records[-1]["steps"] > 0,
+          f"metrics.jsonl: {len(records)} records, expected 3 with steps > 0 on the last")
+    print_epochs("remote cli", records)
+    _, sessions = remote_books("remote cli", records, outs["worker"])
+    requests = sum(s[1] for s in sessions)
+    print(f"[remote cli] --train-server + --worker (config.yaml, 3 epochs, {cfg['worker_args']['num_parallel']} "
+          f"remote actors, heartbeat {REMOTE_HEARTBEAT} s) in {run_s:.1f} s; worker: {len(sessions)} "
+          f"session(s), {requests} inference requests in {sum(s[2] for s in sessions)} batches")
+
+
+def phase_remote_learner(results):
+    """9b: the slice's transformer at full width through ``Learner(args,
+    remote=True)`` in this process, fed by one ``--worker 8`` process on the
+    same card: the masked kernel's launches per learner step, the params
+    the worker served against the learner's snapshots by CRC32."""
+    import zlib
+
+    import torch
+    import yaml
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.ops.flash_attention import FLASH, MASKED_FLASH
+    from handyrl_tpu_torch.runtime import checkpoint as ckpt
+    from handyrl_tpu_torch.runtime.learner import Learner
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = normalize_args({
+            "env_args": {"env": "Geister", "net": "transformer", "net_args": NET_ARGS},
+            "train_args": dict(TRAIN_ARGS, minimum_episodes=8, update_episodes=8, epochs=2,
+                               worker={"num_parallel": 8, "entry_port": 0, "data_port": 0,
+                                       "heartbeat_interval": REMOTE_HEARTBEAT},
+                               seed=SEED, model_dir=os.path.join(tmp, "models"),
+                               metrics_path=os.path.join(tmp, "metrics.jsonl")),
+        })
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        learner = Learner(cfg, remote=True)
+        Path(tmp, "config.yaml").write_text(yaml.safe_dump({
+            "env_args": cfg["env_args"],
+            "worker_args": {"server_address": "127.0.0.1", "entry_port": learner.worker.entry_port},
+        }))
+        with Children(tmp) as kids:
+            kids.start("worker", "--worker", "8")
+            MASKED_FLASH.launches = FLASH.launches = 0
+            thread = threading.Thread(target=learner.run, daemon=True)
+            t0 = time.perf_counter()
+            thread.start()
+            while thread.is_alive() and time.perf_counter() - t0 < 600:
+                if not kids.running("worker"):
+                    learner.shutdown_flag = True  # drained, or dead: no episodes come
+                thread.join(0.5)
+            check(not thread.is_alive(), "the remote learner did not finish in 600 s")
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches, flash_launches = MASKED_FLASH.launches, FLASH.launches
+            outs = kids.wait_all(120)
+        steps = learner.trainer.steps
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        per_step = launches_per_step(learner.args)
+        check(steps > 0 and launches == per_step * steps and flash_launches == 0,
+              f"masked kernel launched {launches} times (plain {flash_launches}) in {steps} "
+              f"learner steps, expected {per_step} per step")
+        check(learner.trainer.sentinel_skipped_steps == 0, "the sentinel skipped a step")
+        # the kernels line counts the launches of both learner paths, 7b's and this one
+        results.setdefault("masked_flash_attention", {"launches": 0})["launches"] += launches
+        records = read_records(cfg["train_args"]["metrics_path"])
+        check(len(records) == 2, f"{len(records)} epoch records, expected 2")
+        check(all(math.isfinite(r["loss"]["total"]) for r in records if "loss" in r)
+              and any("loss" in r for r in records), "no loss or a non-finite epoch loss")
+        model_dir = cfg["train_args"]["model_dir"]
+        check_snapshots(model_dir, [1, 2])
+        print_epochs("remote learner", records)
+        fetches, sessions = remote_books("remote learner", records, outs["worker"])
+        manifest = ckpt.load_manifest(model_dir)["epochs"]
+        for model_id, nbytes, _, crc in fetches:
+            blob = learner.worker._blob_cache.get(model_id)
+            check(blob is not None, f"the server holds no blob of model {model_id}")
+            ours = zlib.crc32(blob)
+            recorded = manifest.get(str(model_id), {}).get("files", {}).get(f"{model_id}.ckpt")
+            print(f"[remote learner] model {model_id}: served blob crc32 {ours:08x} "
+                  f"({len(blob)} bytes), worker's {crc} ({nbytes} bytes), the manifest's "
+                  f"{'n/a (the initial params)' if recorded is None else format(recorded['crc32'], '08x')}")
+            check(ours == int(crc, 16) and len(blob) == nbytes,
+                  f"model {model_id}: the worker's params are not the learner's snapshot")
+            check(recorded is None or recorded["crc32"] == ours,
+                  f"model {model_id}: the blob served is not the snapshot saved")
+        _, requests, batches, play_s = sessions[-1]
+        boundary_s = sum(r["boundary_snapshot_s"] + r["boundary_save_s"] + r["boundary_publish_s"]
+                         for r in records)
+        # the actors are held while the learner is inside a boundary (the
+        # server's dispatch waits on it) and while a gather fetches a blob;
+        # the first fetch precedes the play
+        held_s = boundary_s + sum(f[2] for f in fetches[1:])
+        moves = requests / 2  # both Geister players are inferred per move
+        print(f"[remote learner] Geister d{NET_ARGS['d_model']} L{NET_ARGS['n_layers']} B"
+              f"{TRAIN_ARGS['batch_size']} T{TRAIN_ARGS['forward_steps']} bf16, 8 remote actors: "
+              f"{steps} steps, {learner.num_returned_episodes} episodes in {run_s:.1f} s; worker: "
+              f"{requests} requests in {batches} batches ({requests / max(batches, 1):.1f} per "
+              f"batch) over {play_s:.1f} s of session: {moves / max(play_s, 1e-9):.1f} moves/s in "
+              f"all, {moves / max(play_s - held_s, 1e-9):.1f} moves/s outside the boundaries "
+              f"({boundary_s:.1f} s) and later fetches ({held_s - boundary_s:.1f} s); peak memory "
+              f"in this process {peak_gb:.2f} GB; masked kernel launches {launches} ({per_step} "
+              "per step)")
+
+
+def phase_battle(tmp):
+    """9c: ``--eval-server 20`` with two ``--eval-client`` processes, one
+    playing 9a's ``models/latest.ckpt`` on the card, one random."""
+    import yaml
+
+    cfg = yaml.safe_load(Path(tmp, "config.yaml").read_text())
+    cfg["train_args"]["battle_port"] = free_port()
+    Path(tmp, "config.yaml").write_text(yaml.safe_dump(cfg))
+    t0 = time.perf_counter()
+    with Children(tmp) as kids:
+        kids.start("eval_server", "--eval-server", str(BATTLE_GAMES))
+        kids.start("client_model", "--eval-client", "models/latest.ckpt", "127.0.0.1")
+        kids.start("client_random", "--eval-client", "random", "127.0.0.1")
+        outs = kids.wait_all(300)
+    run_s = time.perf_counter() - t0
+    lines = outs["eval_server"].splitlines()
+    total = [line for line in lines if line.startswith("total =")]
+    payoff = [line for line in lines if line.startswith("payoff:")]
+    check(len(total) == 1 and total[0].endswith(f"({BATTLE_GAMES})"),
+          f"the battle server's total line: {total}")
+    check(len(payoff) == 1 and f"over {BATTLE_GAMES} match(es), 0 forfeit(s)" in payoff[0],
+          f"the battle server's payoff line: {payoff}")
+    games = [line for line in outs["client_model"].splitlines() if line.startswith("outcome =")]
+    print(f"[battle] --eval-server {BATTLE_GAMES} with --eval-client models/latest.ckpt (9a's, on "
+          f"the card) and --eval-client random in {run_s:.1f} s: {total[0]} (seat 0); {payoff[0]}; "
+          f"the model client played {len(games)} games, won "
+          f"{sum(float(line.split('=')[1]) > 0 for line in games)}")
+
+
+def phase_remote(results):
+    """9: the remote actor plane and network battles; 9b's kernel counts
+    start from 0."""
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_remote_cli(tmp)
+        phase_remote_learner(results)
+        phase_battle(tmp)
+
+
 def profile_call(label, fn, top=12):
     """One more call of fn under torch.profiler: the device-busy share of
     its wall time and the kernels that took the most device time."""
@@ -1062,6 +1330,8 @@ def main(argv):
             print(f"[drc] kernel launches in phase 8a: masked {MASKED_FLASH.launches}, "
                   f"flash {FLASH.launches}")
             phase_geese_cli(results)
+            # the remote actor plane (9b runs the masked kernel) and battles
+            phase_remote(results)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

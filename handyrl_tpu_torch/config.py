@@ -1,11 +1,14 @@
 """Training configuration: defaults and validation for the keys the port reads.
 
 The subset of ``handyrl_tpu/config.py`` that the ported modules use, with
-the same names and defaults, so one config.yaml ``train_args`` block
-configures both packages.  Keys of the JAX package that the port does not
-read yet are accepted and passed through untouched.  One default differs:
+the same names and defaults, so one config.yaml (``env_args``,
+``train_args``, ``worker_args``) configures both packages.  Keys of the JAX
+package that the port does not read are accepted and passed through
+untouched, except those that select a plane the port lacks: a non-default
+value of one of ``NOT_PORTED_KEYS`` is refused, naming the ROADMAP item
+that ports it, not quietly run on the plain loop.  One default differs:
 ``batch_pipeline`` is ``'thread'``, the only assembly plane ported; a
-config that names another one is refused, not quietly given threads.
+config that names another one is refused too.
 """
 
 from __future__ import annotations
@@ -32,7 +35,21 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     "epochs": -1,            # -1 = run until stopped
     "num_batchers": 2,
     "eval_rate": 0.1,
-    "worker": {"num_parallel": 6},
+    "worker": {
+        "num_parallel": 6,
+        "entry_port": 9999,
+        "data_port": 9998,
+        # liveness ping cadence of the remote actor plane, both directions;
+        # a peer silent for ~3 intervals is presumed dead (0 disables both)
+        "heartbeat_interval": 10.0,
+        # the longest stall (no byte of progress) of a gather's send or
+        # receive, not a bound on a whole frame: a params blob crossing a
+        # slow link stays alive while bytes flow
+        "socket_timeout": 60.0,
+        # the entry handshake's absolute deadline: a client that connects
+        # and stalls is dropped so later joins go on
+        "entry_timeout": 10.0,
+    },
     "lambda": 0.7,
     "policy_target": "TD",
     "value_target": "TD",
@@ -61,8 +78,10 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     # exact einsum below), 'flash' or 'einsum'
     "seq_attention": "auto",
     "flash_min_t": 128,
-    # query rows per chunk of the attention backward's recompute
+    # query rows per chunk of the attention backward's recompute; blk_k,
+    # the JAX kernel's key block, is checked as there and not read
     "blk_q": 128,
+    "blk_k": 128,
     # the seq path's remat ladder: 'none', 'attn' (checkpoint the attention
     # sublayer), 'block' (the attention+FFN block), or 'auto' ('none' on
     # this backend); true/false collapse to 'block'/'none'.  The RNN branch
@@ -77,7 +96,39 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     # 'bfloat16' runs forward and backward in bf16 over fp32 master weights
     "compute_dtype": "float32",
     "lr_scale": 1.0,
+    # the network battle server's port (--eval-server / --eval-client)
+    "battle_port": 9876,
 }
+
+DEFAULT_WORKER_ARGS: Dict[str, Any] = {
+    "server_address": "",
+    "num_parallel": 8,
+    "entry_port": 9999,
+    # on a severed or stalled connection the worker machine tears its
+    # session down and re-enters through the entry port with exponential
+    # backoff; rejoin: false joins once
+    "rejoin": True,
+    "rejoin_backoff": 1.0,
+    "rejoin_backoff_max": 60.0,
+    # consecutive failed sessions before giving up (-1 = never)
+    "max_rejoins": -1,
+    # how long each entry attempt retries the TCP connect
+    "entry_retry_seconds": 60.0,
+}
+
+# keys of the JAX package that select a plane the port lacks: the key's
+# path in train_args, its JAX default, and the ROADMAP item that ports it
+NOT_PORTED_KEYS = (
+    (("device_rollout_games",), 0, "A7 (the device data plane)"),
+    (("device_replay",), False, "A7 (the device data plane)"),
+    (("device_eval_games",), 0, "A7 (the device data plane)"),
+    (("plane",), "fused", "A7 (the device data plane)"),
+    (("obs_int8",), False, "A7 (the device data plane)"),
+    (("distributed", "num_processes"), 1, "A8 (multiple GPUs)"),
+    (("flywheel", "enabled"), False, "A10 (serving and the rest)"),
+    (("trace", "enabled"), False, "A8 (the learner's fault machinery and tracing)"),
+    (("profile_dir",), None, "A8 (the learner's fault machinery and tracing)"),
+)
 
 
 def _deep_merge(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
@@ -126,9 +177,10 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
         )
     if int(train["flash_min_t"]) < 1:
         raise ValueError("train_args.flash_min_t must be >= 1")
-    b = int(train["blk_q"])
-    if b < 8 or (b & (b - 1)):
-        raise ValueError(f"train_args.blk_q must be a power of two >= 8, got {b}")
+    for key in ("blk_q", "blk_k"):
+        b = int(train[key])
+        if b < 8 or (b & (b - 1)):
+            raise ValueError(f"train_args.{key} must be a power of two >= 8, got {b}")
     rv = train["remat"]
     # bool first: membership would take the ints 0/1 through ==
     if not (isinstance(rv, bool) or rv in REMAT_RUNGS):
@@ -145,6 +197,18 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
         )
     if train["lr_scale"] <= 0:
         raise ValueError(f"train_args.lr_scale must be > 0, got {train['lr_scale']}")
+    for path, default, item in NOT_PORTED_KEYS:
+        value = train
+        for key in path:
+            value = value.get(key, default) if isinstance(value, dict) else default
+        if value != default:
+            raise ValueError(
+                f"train_args.{'.'.join(path)}={value!r} selects a plane that is not ported to "
+                f"handyrl_tpu_torch yet: ROADMAP {item}"
+            )
+    worker_args = args.get("worker_args", {})
+    if worker_args and float(worker_args.get("entry_retry_seconds", 60.0)) <= 0:
+        raise ValueError("worker_args.entry_retry_seconds must be > 0")
     if "env" not in args.get("env_args", {}):
         raise ValueError("env_args.env is required")
     return args
@@ -165,5 +229,6 @@ def normalize_args(raw: Dict[str, Any]) -> Dict[str, Any]:
     args = {
         "env_args": copy.deepcopy(raw.get("env_args", {})),
         "train_args": _deep_merge(DEFAULT_TRAIN_ARGS, train_raw),
+        "worker_args": _deep_merge(DEFAULT_WORKER_ARGS, raw.get("worker_args", {}) or {}),
     }
     return validate_args(args)

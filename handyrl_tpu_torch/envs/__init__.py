@@ -1,8 +1,10 @@
-"""Environment registry and factories: TicTacToe, Geister, ParallelTicTacToe
-and HungryGeese.
+"""Environment registry and factories: TicTacToe, Geister, ParallelTicTacToe,
+HungryGeese and ConnectFour.
 
 An unknown name is treated as a dotted import path, as in the JAX package,
-so user environments plug in without registration.
+so user environments plug in without registration.  A module may define a
+``prepare()`` hook, which ``prepare_env`` runs once per process before the
+first ``make_env`` of a learner, worker or evaluation.
 """
 
 from __future__ import annotations
@@ -17,9 +19,21 @@ ENVS = {
     "Geister": "handyrl_tpu_torch.envs.geister",
     "ParallelTicTacToe": "handyrl_tpu_torch.envs.parallel_tictactoe",
     "HungryGeese": "handyrl_tpu_torch.envs.hungry_geese",
+    "ConnectFour": "handyrl_tpu_torch.envs.connect_four",
 }
 
 
-def make_env(env_args: Dict[str, Any]) -> BaseEnvironment:
+def _resolve(env_args: Dict[str, Any]):
     name = env_args["env"]
-    return importlib.import_module(ENVS.get(name, name)).Environment(env_args)
+    return importlib.import_module(ENVS.get(name, name))
+
+
+def prepare_env(env_args: Dict[str, Any]) -> None:
+    """Run a module-level ``prepare()`` hook once per process, if present."""
+    module = _resolve(env_args)
+    if hasattr(module, "prepare"):
+        module.prepare()
+
+
+def make_env(env_args: Dict[str, Any]) -> BaseEnvironment:
+    return _resolve(env_args).Environment(env_args)

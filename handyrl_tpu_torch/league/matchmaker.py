@@ -1,0 +1,170 @@
+"""The payoff ledger of network battles: ``PayoffMatrix``.
+
+The port's copy of ``PayoffMatrix`` from ``handyrl_tpu/league/matchmaker.py``,
+the one win-rate ledger that battle matches (runtime/battle.py) record
+into.  Its convention is ``runtime.evaluation.wp_func``'s: win points are
+wins + draws/2 over games.
+
+* a finished match records one entry per ordered pair of distinct member
+  names, pairwise from the per-seat scores: a higher score wins, equal
+  scores draw, so multi-player placements (HungryGeese's ranks) decompose
+  into pairwise results;
+* two seats held by the same member record nothing;
+* a severed peer forfeits: its seat loses to every surviving seat, and
+  survivor pairs record nothing (their game never finished).
+
+The league's ``Matchmaker`` and its PFSP weights are not ported yet
+(ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+__all__ = ["PayoffMatrix"]
+
+
+class PayoffMatrix:
+    """Win/draw/loss books per ordered (member, member) pair."""
+
+    def __init__(self):
+        # (a, b) -> [wins, draws, losses] from a's perspective
+        self._books: Dict[Tuple[str, str], List[int]] = {}
+        self.matches = 0          # finished/forfeited MATCHES recorded
+        self.forfeits = 0
+
+    # -- recording -----------------------------------------------------------
+
+    def record_score(self, a: str, b: str, score_a: float, score_b: float,
+                     n: int = 1) -> None:
+        """``n`` pairwise results between ``a`` and ``b`` from final
+        scores: higher score wins, equal draws.  Records BOTH ordered
+        directions; self-pairs are ignored."""
+        if a == b or n <= 0:
+            return
+        if score_a > score_b:
+            i, j = 0, 2
+        elif score_a < score_b:
+            i, j = 2, 0
+        else:
+            i = j = 1
+        self._books.setdefault((a, b), [0, 0, 0])[i] += n
+        self._books.setdefault((b, a), [0, 0, 0])[j] += n
+
+    def record_outcome(self, names: Mapping[Any, str],
+                       outcome: Mapping[Any, float]) -> None:
+        """One finished match: ``names`` maps seats to member names,
+        ``outcome`` seats to final scores (an ``exec_match`` /
+        ``exec_network_match`` outcome dict).  Every unordered seat pair
+        with distinct names records pairwise."""
+        seats = [s for s in names if s in outcome]
+        for x in range(len(seats)):
+            for y in range(x + 1, len(seats)):
+                sa, sb = seats[x], seats[y]
+                self.record_score(
+                    names[sa], names[sb],
+                    float(outcome[sa]), float(outcome[sb]),
+                )
+        self.matches += 1
+
+    def record_forfeit(self, names: Mapping[Any, str], severed_seat) -> None:
+        """A peer severed mid-match: its seat loses to every surviving
+        seat; survivor pairs record nothing (their game never finished)."""
+        loser = names[severed_seat]
+        for seat, name in names.items():
+            if seat == severed_seat:
+                continue
+            self.record_score(name, loser, 1.0, -1.0)
+        self.matches += 1
+        self.forfeits += 1
+
+    def adopt(self, old: str, new: str) -> None:
+        """Rename ``old``'s books to ``new`` (candidate -> frozen member
+        at promotion).  Any pre-existing books under ``new`` are dropped
+        first: a resurrected name must not inherit a dead member's
+        record."""
+        if old == new:
+            return
+        for pair in [p for p in self._books if new in p]:
+            del self._books[pair]
+        for (a, b) in list(self._books):
+            if a == old:
+                self._books[(new, b)] = self._books.pop((a, b))
+            elif b == old:
+                self._books[(a, new)] = self._books.pop((a, b))
+
+    # -- reading ---------------------------------------------------------------
+
+    def games(self, a: str, b: str) -> int:
+        return sum(self._books.get((a, b), (0, 0, 0)))
+
+    def win_points(self, a: str, b: str) -> Optional[float]:
+        """(wins + draws/2) / games from ``a``'s perspective — the
+        ``wp_func`` convention; None with no games on the books."""
+        w, d, l = self._books.get((a, b), (0, 0, 0))
+        n = w + d + l
+        return None if n == 0 else (w + d / 2) / n
+
+    def aggregate_win_points(self, a: str,
+                             opponents: Sequence[str]) -> Optional[float]:
+        """Pooled win points of ``a`` over every listed opponent (game-
+        weighted, not mean-of-means — 3 games vs X must not outweigh 300
+        vs Y)."""
+        w = d = n = 0
+        for b in opponents:
+            bw, bd, bl = self._books.get((a, b), (0, 0, 0))
+            w, d, n = w + bw, d + bd, n + bw + bd + bl
+        return None if n == 0 else (w + d / 2) / n
+
+    def members(self) -> List[str]:
+        return sorted({a for a, _ in self._books})
+
+    def coverage(self, a: str, opponents: Sequence[str],
+                 min_games: int = 1) -> float:
+        """Fraction of ``opponents`` against whom ``a`` has at least
+        ``min_games`` on the books (1.0 over an empty pool: nothing is
+        missing)."""
+        if not opponents:
+            return 1.0
+        hit = sum(1 for b in opponents if self.games(a, b) >= min_games)
+        return hit / len(opponents)
+
+    def elo(self, members: Sequence[str],
+            anchor: Optional[str] = None) -> Dict[str, float]:
+        """Per-member Elo estimates from pooled win points against the
+        listed members: r = 400·log10(p/(1-p)) with p clipped away from
+        {0, 1} (a member yet to lose is 'at least +478', not infinity).
+        Coarse by design — a population spread/ordering signal for the
+        bench and metrics, not a ladder rating; ``anchor`` (when listed)
+        is shifted to exactly 0 so ratings are comparable across epochs."""
+        ratings: Dict[str, float] = {}
+        for m in members:
+            p = self.aggregate_win_points(m, [x for x in members if x != m])
+            if p is None:
+                continue
+            p = min(max(p, 0.06), 0.94)
+            ratings[m] = 400.0 * math.log10(p / (1.0 - p))
+        if anchor in ratings:
+            shift = ratings[anchor]
+            ratings = {m: r - shift for m, r in ratings.items()}
+        return ratings
+
+    # -- persistence -----------------------------------------------------------
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "matches": self.matches,
+            "forfeits": self.forfeits,
+            "books": {f"{a}\x00{b}": wdl for (a, b), wdl in self._books.items()},
+        }
+
+    @classmethod
+    def from_dict(cls, data: Mapping[str, Any]) -> "PayoffMatrix":
+        out = cls()
+        out.matches = int(data.get("matches", 0))
+        out.forfeits = int(data.get("forfeits", 0))
+        for key, wdl in dict(data.get("books", {})).items():
+            a, _, b = key.partition("\x00")
+            out._books[(a, b)] = [int(x) for x in wdl]
+        return out

@@ -1,12 +1,18 @@
 """Command line of the port, run from a directory that holds config.yaml:
 
     python -m handyrl_tpu_torch.main --train            # learner + local actors
+    python -m handyrl_tpu_torch.main --train-server     # learner serving worker machines
+    python -m handyrl_tpu_torch.main --worker [NUM_PARALLEL]
     python -m handyrl_tpu_torch.main --eval MODELS NUM_GAMES NUM_WORKERS
+    python -m handyrl_tpu_torch.main --eval-server [NUM_GAMES]
+    python -m handyrl_tpu_torch.main --eval-client AGENT [HOST] [N_GAMES]
 
-It reads the config.yaml the JAX package's ``main.py`` reads and runs on
-the card.  ``main(argv, device="cpu")`` runs on the CPU from Python; the
-command line has no device flag.  The JAX CLI's other modes are not ported
-yet: each exits 1 saying so.
+It reads the config.yaml the JAX package's ``main.py`` reads (``--worker``
+reads ``worker_args.server_address`` and the entry port; ``--eval-server``
+and ``--eval-client`` ``train_args.battle_port``) and runs on the card.
+``main(argv, device="cpu")`` runs on the CPU from Python; the command line
+has no device flag.  The JAX CLI's serving, fleet and league modes are not
+ported yet: each exits 1 saying so.
 """
 
 from __future__ import annotations
@@ -17,10 +23,6 @@ from typing import Any, Dict, List, Optional
 from .config import normalize_args
 
 NOT_PORTED = {
-    "--train-server": "ROADMAP A9", "-ts": "ROADMAP A9",
-    "--worker": "ROADMAP A9", "-w": "ROADMAP A9",
-    "--eval-server": "ROADMAP A9", "-es": "ROADMAP A9",
-    "--eval-client": "ROADMAP A9", "-ec": "ROADMAP A9",
     "--serve": "ROADMAP A10", "-s": "ROADMAP A10",
     "--fleet": "ROADMAP A10", "-f": "ROADMAP A10",
     "--edge": "ROADMAP A10",
@@ -36,6 +38,7 @@ def load_args(path: str = "config.yaml") -> Dict[str, Any]:
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> int:
+    """``argv`` is the command line after the program name."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv:
         print("Please set mode of HandyRL-TPU.")
@@ -45,10 +48,30 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         from .runtime.learner import train_main
 
         return train_main(load_args(), device=device)
+    if mode in ("--train-server", "-ts"):
+        from .runtime.learner import train_server_main
+
+        return train_server_main(load_args(), device=device)
+    if mode in ("--worker", "-w"):
+        from .runtime.server import worker_main
+
+        # worker_main reads NUM_PARALLEL where sys.argv holds it, at [2]
+        worker_main(load_args(), ["main", *argv], device=device)
+        return 0
     if mode in ("--eval", "-e"):
         from .runtime.evaluation import eval_main
 
         eval_main(load_args(), argv[1:], device=device)
+        return 0
+    if mode in ("--eval-server", "-es"):
+        from .runtime.battle import eval_server_main
+
+        eval_server_main(load_args(), argv[1:])
+        return 0
+    if mode in ("--eval-client", "-ec"):
+        from .runtime.battle import eval_client_main
+
+        eval_client_main(load_args(), argv[1:], device=device)
         return 0
     if mode in NOT_PORTED:
         print(f"mode {mode} is not ported to handyrl_tpu_torch yet ({NOT_PORTED[mode]})")

@@ -3,6 +3,9 @@
 Counterpart of ``handyrl_tpu/runtime/evaluation.py``:
 
 * ``exec_match`` — one match on a shared env;
+* ``exec_network_match`` — one match whose agents each hold a replica env
+  synchronised by ``diff_info``/``update`` deltas (the battle server's,
+  runtime/battle.py);
 * ``Evaluator`` — the worker-side model-vs-opponent job;
 * ``evaluate_mp`` — standalone evaluation over a thread pool, balancing
   first and second seats, with a win-point report per seat pattern;
@@ -11,8 +14,7 @@ Counterpart of ``handyrl_tpu/runtime/evaluation.py``:
 
 Threads share one model on the card; with several of them, each distinct
 model is served through one batched inference engine, so concurrent games
-share its forwards.  The network match (``exec_network_match``) and the
-battle server wait for the remote-worker port (ROADMAP A9).
+share its forwards.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import threading
 from typing import Any, Dict, List, Optional
 
 from ..agents import Agent, EnsembleAgent, RandomAgent, RuleBasedAgent
-from ..envs import make_env
+from ..envs import make_env, prepare_env
 from ..models import InferenceModel
 from ..utils import resolve_device
 from .checkpoint import load_params
@@ -63,6 +65,35 @@ def exec_match(env, agents: Dict[int, Any], critic=None, show: bool = False, gam
         view(env)
         print("final outcome = %s" % env.outcome())
     return env.outcome()
+
+
+def exec_network_match(env, network_agents: Dict[int, Any], show: bool = False, game_args=None):
+    """A match on the master ``env`` whose agents hold replica envs, kept in
+    step by the master's deltas; returns the outcome dict, or None on an
+    env error."""
+    if env.reset(game_args or {}):
+        return None
+    for p, agent in network_agents.items():
+        agent.update(env.diff_info(p), True)
+    while not env.terminal():
+        if show:
+            view(env)
+        turn_players = env.turns()
+        observers = env.observers()
+        actions = {}
+        for p, agent in network_agents.items():
+            if p in turn_players:
+                actions[p] = env.str2action(agent.action(p), p)
+            elif p in observers:
+                agent.observe(p)
+        if env.step(actions):
+            return None
+        for p, agent in network_agents.items():
+            agent.update(env.diff_info(p), False)
+    outcome = env.outcome()
+    for p, agent in network_agents.items():
+        agent.outcome(outcome[p])
+    return outcome
 
 
 def build_agent(raw: Any, env=None) -> Optional[Any]:
@@ -216,6 +247,7 @@ def eval_main(args: Dict[str, Any], argv: List[str], device=None) -> None:
     otherwise."""
     device = resolve_device(device)
     env_args = args["env_args"]
+    prepare_env(env_args)
     env = make_env(env_args)
     raw = argv[0] if argv else "models/latest.ckpt"
     num_games = int(argv[1]) if len(argv) >= 2 else 100

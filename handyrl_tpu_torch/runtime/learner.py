@@ -13,9 +13,13 @@ Counterpart of ``handyrl_tpu/runtime/learner.py``, single process:
   None, so the workers drain.
 
 Workers are threads sharing the batched inference engine; their requests
-arrive on one queue that the server loop consumes.  The JAX package's
-distributed learner, fault injection, tracing, data flywheel, device planes
-and preemption drain are not ported (ROADMAP).
+arrive on one queue that the server loop consumes.  With ``remote=True``
+(``--train-server``) the actors run on worker machines instead, served over
+TCP by ``runtime/server.py``'s ``WorkerServer``: a gather asks for ``n``
+assignments at once and uploads lists, a vanished connection's jobs come
+back as ``jobs_lost``, and the drain waits for the live connections.  The
+JAX package's distributed learner, fault injection, tracing, data flywheel,
+device planes and preemption drain are not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import time
 from concurrent.futures import Future
 from typing import Any, Dict, List, Optional
 
-from ..envs import make_env
+from ..envs import make_env, prepare_env
 from ..models import init_variables
 from ..utils import resolve_device
 from .checkpoint import (
@@ -47,15 +51,21 @@ from .worker import LocalModelServer, LocalWorkerPool
 class Learner:
     """``Learner(args).run()`` trains to ``epochs`` epochs; ``args`` is a
     normalised config (``env_args`` and ``train_args``).  It runs on the
-    card unless ``device`` names another device."""
+    card unless ``device`` names another device; ``remote`` serves worker
+    machines over TCP in place of local actor threads."""
 
-    def __init__(self, args: Dict[str, Any], net=None, device=None):
+    # seconds the drain waits for remote connections that linger after
+    # the learner answered their last job request with None
+    DRAIN_GRACE = 30.0
+
+    def __init__(self, args: Dict[str, Any], net=None, device=None, remote: bool = False):
         train_args = dict(args["train_args"])
         train_args["env"] = args["env_args"]
         self.args = train_args
         self.device = resolve_device(device)
         random.seed(self.args["seed"])
 
+        prepare_env(args["env_args"])
         self.env = make_env(args["env_args"])
         update_episodes = self.args["update_episodes"]
         self.eval_rate = max(self.args["eval_rate"], update_episodes ** 0.85 / update_episodes)
@@ -84,6 +94,8 @@ class Learner:
         self.results: Dict[int, tuple] = {}
         self.results_per_opponent: Dict[int, Dict[str, tuple]] = {}
         self.num_results = 0
+        # in-flight jobs of vanished worker connections, handed back (remote)
+        self.jobs_lost = {"g": 0, "e": 0}
 
         self.trainer = Trainer(self.args, self.module, self.device)
         print("batch pipeline: %s (num_batchers=%d)"
@@ -99,10 +111,17 @@ class Learner:
         self.model_server = LocalModelServer(self.module, make_env(args["env_args"]), self.args,
                                              self.device)
         self.model_server.publish(self.model_epoch, self.trainer.state_host["params"])
-        self.worker = LocalWorkerPool(self.args, self.handle, self.model_server)
+        self.remote = remote
+        if remote:
+            from .server import WorkerServer
+
+            self.worker = WorkerServer(self.args, self.handle, self.model_server)
+        else:
+            self.worker = LocalWorkerPool(self.args, self.handle, self.model_server)
 
         self._requests: queue.Queue = queue.Queue()
         self._active_workers = 0
+        self._shutdown_t0 = 0.0
         self._epoch_t0 = time.time()
         self._epoch_steps0 = self.trainer.steps  # nonzero after a resume
         self._epoch_episodes0 = 0
@@ -218,6 +237,11 @@ class Learner:
         )
         if self.model_server.substituted_snapshots:
             record["serve_snapshot_substituted"] = self.model_server.substituted_snapshots
+        if self.remote:  # the remote actor plane's books, cumulative
+            record.update(remote_connections=self.worker.connection_count(),
+                          jobs_lost=dict(self.jobs_lost),
+                          heartbeat_drops=self.worker.silent_drops,
+                          blobs_served=[list(b) for b in self.worker.blob_log])
         self._epoch_t0 = now
         self._epoch_steps0 = steps
         self._epoch_episodes0 = self.num_returned_episodes
@@ -296,29 +320,50 @@ class Learner:
             self.num_episodes += 1
         return args
 
+    def _workers_active(self) -> bool:
+        """The drain: remote mode counts live connections (for at most
+        ``DRAIN_GRACE`` seconds after the shutdown), local mode threads."""
+        if self.remote:
+            if self._shutdown_t0 and time.time() - self._shutdown_t0 > self.DRAIN_GRACE:
+                return False
+            return self.worker.connection_count() > 0
+        return self._active_workers > 0
+
+    def _serve_request(self, req: str, data: Any):
+        if req == "args":
+            # data None: one local worker; an int n: a gather prefetching n
+            if self.shutdown_flag:
+                self._active_workers -= 1
+                return None
+            if data is None:
+                return self._assign_role()
+            return [self._assign_role() for _ in range(int(data))]
+        if req == "episode":
+            self.feed_episodes(data if isinstance(data, list) else [data])
+        elif req == "result":
+            self.feed_results(data if isinstance(data, list) else [data])
+        elif req == "jobs_lost":
+            # a worker connection vanished with jobs in flight: hand their
+            # counts back, so the balance re-dispatches them
+            for role in ("g", "e"):
+                self.jobs_lost[role] += int(data.get(role, 0))
+            self.num_episodes = max(0, self.num_episodes - int(data.get("g", 0)))
+            self.num_results = max(0, self.num_results - int(data.get("e", 0)))
+        return None
+
     def server(self) -> None:
         print("started server")
         next_update_episodes = self.args["minimum_episodes"] + self.args["update_episodes"]
+        self._shutdown_t0 = 0.0
         try:
-            while self._active_workers > 0 or not self.shutdown_flag:
+            while self._workers_active() or not self.shutdown_flag:
+                if self.shutdown_flag and not self._shutdown_t0:
+                    self._shutdown_t0 = time.time()
                 try:
                     req, data, fut = self._requests.get(timeout=0.3)
                 except queue.Empty:
                     continue
-                if req == "args":
-                    if self.shutdown_flag:
-                        fut.set_result(None)
-                        self._active_workers -= 1
-                    else:
-                        fut.set_result(self._assign_role())
-                elif req == "episode":
-                    self.feed_episodes([data])
-                    fut.set_result(None)
-                elif req == "result":
-                    self.feed_results([data])
-                    fut.set_result(None)
-                else:
-                    fut.set_result(None)
+                fut.set_result(self._serve_request(req, data))
 
                 if self.num_returned_episodes >= next_update_episodes and not self.shutdown_flag:
                     next_update_episodes += self.args["update_episodes"]
@@ -327,6 +372,8 @@ class Learner:
                         self.shutdown_flag = True
         finally:
             self.trainer.stop()
+            if self.remote:
+                self.worker.shutdown()
             self.model_server.stop()
             # futures enqueued after the loop's last pass: resolve them so no
             # worker waits forever
@@ -347,7 +394,8 @@ class Learner:
                                                 name="trainer")
         self._trainer_thread.start()
         self.worker.run()
-        self._active_workers = len(self.worker.threads)
+        if not self.remote:
+            self._active_workers = len(self.worker.threads)
         self.server()
         return 0
 
@@ -356,3 +404,9 @@ def train_main(args: Dict[str, Any], device=None) -> int:
     """``--train``: one learner with local actor threads, on the card
     unless ``device`` says otherwise."""
     return Learner(args, device=device).run()
+
+
+def train_server_main(args: Dict[str, Any], device=None) -> int:
+    """``--train-server``: one learner serving remote worker machines
+    (``--worker``) over TCP, on the card unless ``device`` says otherwise."""
+    return Learner(args, device=device, remote=True).run()

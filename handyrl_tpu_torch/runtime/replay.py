@@ -6,7 +6,9 @@ sampling a window decompresses only the blocks it touches.  Index i of an
 N-episode buffer is accepted with probability 1 - (N-1-i)/N, and windows of
 ``forward_steps`` start uniformly, extended backwards by ``burn_in_steps``
 where possible — all drawn from Python's ``random``, in the JAX package's
-order, so one seed samples the same windows in both packages.
+order, so one seed samples the same windows in both packages.  Above 95%
+host memory the buffer shrinks to fit (psutil, when installed), as the JAX
+store does.
 """
 
 from __future__ import annotations
@@ -21,6 +23,11 @@ import numpy as np
 
 from . import codec
 from ..utils import tree_leaves
+
+try:
+    import psutil
+except ImportError:  # pragma: no cover
+    psutil = None
 
 
 def compress_block(columns: Dict[str, Any]) -> bytes:
@@ -87,8 +94,18 @@ class EpisodeStore:
         episodes = [e for e in episodes if e is not None]
         with self._lock:
             self._episodes.extend(episodes)
-            while len(self._episodes) > self.maximum_episodes:
+            limit = self._memory_limited_max()
+            while len(self._episodes) > limit:
                 self._episodes.popleft()
+
+    def _memory_limited_max(self) -> int:
+        """Shrink the buffer under memory pressure: above 95% host memory
+        it keeps that share of what it holds."""
+        if psutil is not None:
+            mem_percent = psutil.virtual_memory().percent
+            if mem_percent > 95:
+                return max(1, int(len(self._episodes) * 95 / mem_percent))
+        return self.maximum_episodes
 
     def sample_window(self, forward_steps: int, burn_in_steps: int, compress_steps: int) -> Optional[Dict[str, Any]]:
         """Pick one episode (recency-biased) and one training window in it."""

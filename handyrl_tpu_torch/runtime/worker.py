@@ -8,7 +8,8 @@ engine turns many actors' single requests into one forward.
 Protocol: a worker asks ``('args', None)``, runs one generation or
 evaluation job and reports ``('episode', ep)`` / ``('result', res)``.
 Model ids: 0 = the zero-output random model, -1 = latest, epoch numbers
-otherwise.
+otherwise.  The same ``Worker`` runs on a remote worker machine
+(runtime/server.py), where its connection is a gather over TCP.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Any, Callable, Dict, List
 
 import torch
 
-from ..envs import make_env
+from ..envs import make_env, prepare_env
 from ..models import InferenceModel, RandomModel
 from ..utils import resolve_device
 from .evaluation import Evaluator
@@ -46,6 +47,7 @@ class LocalModelServer:
         self.engine = BatchedInferenceEngine(
             self._model, max_batch=args.get("inference_batch_size", 64)).start()
         self.model_id = 0
+        self._latest: Dict[str, torch.Tensor] = {}
         self._lock = threading.Lock()
         # requested snapshots served as the latest instead (missing or
         # corrupt file): counted, so eval books scored against the wrong
@@ -54,10 +56,19 @@ class LocalModelServer:
 
     def publish(self, model_id: int, state_dict: Dict[str, torch.Tensor]) -> None:
         """Serve ``state_dict`` (a detached copy, e.g. the trainer's epoch
-        snapshot) as the latest model, ``model_id``."""
+        snapshot) as the latest model, ``model_id``.  The reference is kept:
+        a train server serialises what its actors are served from it."""
         with self._lock:
             self.engine.load_state_dict(state_dict)
             self.model_id = model_id
+            self._latest = state_dict
+
+    def latest_snapshot(self):
+        """(model_id, host state_dict) of the served latest model, read
+        together, so a cache keyed by the id never pairs it with newer
+        params published in between."""
+        with self._lock:
+            return self.model_id, self._latest
 
     def stop(self) -> None:
         self.engine.stop()
@@ -99,7 +110,10 @@ class Worker:
 
     def run(self) -> None:
         while True:
-            args = self.conn("args", None)
+            try:
+                args = self.conn("args", None)
+            except OSError:
+                break  # the transport is gone (a severed or stalled gather)
             if args is None:
                 break
             role = args["role"]
@@ -111,6 +125,8 @@ class Worker:
                     self.conn("result", self.evaluator.execute(models, args))
             except EngineStopped:
                 break  # the learner shut the engine down mid-job
+            except OSError:
+                break  # the transport is gone; nothing left to report to
             except Exception as exc:
                 # a failed job must not kill the actor: a dead thread would
                 # shrink the pool and hang the learner's shutdown
@@ -128,6 +144,7 @@ class LocalWorkerPool:
         self.threads: List[threading.Thread] = []
 
     def run(self) -> None:
+        prepare_env(self.args["env"])
         for wid in range(self.args["worker"]["num_parallel"]):
             worker = Worker(make_env(self.args["env"]), self.args, self.handler,
                             self.model_server, wid)

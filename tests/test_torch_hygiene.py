@@ -49,7 +49,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "main.py", "agents.py", "envs/tictactoe.py", "envs/hungry_geese.py",
         "envs/parallel_tictactoe.py", "models/layers.py", "models/nets.py",
         "runtime/checkpoint.py", "runtime/evaluation.py", "runtime/inference_engine.py",
-        "runtime/learner.py", "runtime/trainer.py", "runtime/worker.py"} <= checked
+        "runtime/learner.py", "runtime/trainer.py", "runtime/worker.py",
+        "runtime/connection.py", "runtime/server.py", "runtime/battle.py",
+        "league/matchmaker.py", "envs/connect_four.py"} <= checked
     offenders = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN) for p in files}
     assert not {k: v for k, v in offenders.items() if v}
 
@@ -122,6 +124,46 @@ def test_loop_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path, ent
         call(device="cpu").model_server.stop()
     elif entry != "train_main":
         call(device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["train_server_main", "worker_main", "eval_client_main",
+                                   "remote_model_server", "main_train_server", "main_worker",
+                                   "main_eval_client"])
+def test_remote_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path, entry):
+    """The train server, the worker machine, the battle client and the
+    machine's model server run on the card; without one they raise before
+    they touch the network."""
+    import yaml
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.main import main
+    from handyrl_tpu_torch.runtime.battle import eval_client_main
+    from handyrl_tpu_torch.runtime.learner import train_server_main
+    from handyrl_tpu_torch.runtime.server import RemoteModelServer, worker_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "config.yaml").write_text(yaml.safe_dump(LOOP_CONFIG))
+    args = normalize_args(LOOP_CONFIG)
+    env = make_env(LOOP_CONFIG["env_args"])
+    touched = []
+
+    def fetch(model_id):
+        touched.append(model_id)
+        raise AssertionError("fetched before the device check")
+
+    call = {
+        "train_server_main": lambda: train_server_main(args),
+        "worker_main": lambda: worker_main(args, ["main", "--worker", "1"]),
+        "eval_client_main": lambda: eval_client_main(args, ["random", "127.0.0.1"], port=1),
+        "remote_model_server": lambda: RemoteModelServer(env.net(), env, {}, fetch),
+        "main_train_server": lambda: main(["--train-server"]),
+        "main_worker": lambda: main(["--worker"]),
+        "main_eval_client": lambda: main(["--eval-client", "random"]),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    assert not touched and not (tmp_path / "models").exists()
 
 
 def test_kernel_wrapper_never_takes_the_plain_version_off_the_cpu():
