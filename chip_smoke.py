@@ -36,7 +36,7 @@ Phases, each of which fails the run when it fails:
    temp directory, its checkpoints verified against the manifest, and
    ``--eval models/latest.ckpt 100 4``; (b) the transformer above trained
    by ``Learner(args).run()`` (actor threads through the batched inference
-   engine, the threaded batch pipeline, 2 epochs), the kernel's launches
+   engine, the shm batch pipeline, 2 epochs), the kernel's launches
    held to n_layers per step, the checkpoints verified and reloaded bit
    for bit; then one train step's time and peak memory under remat 'none'
    and 'block'.
@@ -64,6 +64,26 @@ Phases, each of which fails the run when it fails:
    two ``--eval-client`` processes, (a)'s ``models/latest.ckpt`` on the
    card and random: 20 games, no forfeit.  Alone: ``python3 -c "import
    chip_smoke as cs; cs.phase_remote({})"``.
+10. the batch-assembly plane at full width: (a) the C codec against the
+   pure-Python one, byte for byte and decode for decode, on episodes of
+   every env, and the ms to encode and decode 64 Geister episodes both
+   ways; (b) the C fill against the numpy fill, bit for bit, with the ms,
+   on 8a's B128 x T24 batch and 7b's B16 x T512 batch, and the copy of a
+   ring slot to the card: registered pages seen as pinned, the put's host
+   time against its copy's event time, and 7a's feed-forward cut made on
+   the host or on the card; (c) 8a's and 7a's learners under
+   ``batch_pipeline: thread`` and ``shm`` in turns, each run's second
+   epoch; (d) a batcher child
+   SIGKILLed mid-run: respawned, batches flow, the learner ends, the
+   segment is unlinked; (e) no batcher pid holds a CUDA context.  Alone:
+   ``python3 -c "import chip_smoke as cs; cs.phase_assembly({})"``.
+
+Every learner phase (7a, 7b, 8a, 8b, 9a, 9b) runs on the port's default
+``batch_pipeline: shm`` and fails unless every epoch's live pipeline mode
+is ``shm``, the codec accelerator and the C fill are loaded, and no
+batcher died or fell back; it prints the pipeline's stage seconds and the
+put's ms per batch.  The script fails if a shared-memory segment or a
+process of the port outlives it.
 
 Phases 4, 5-6, 7b and 9b are the paths through the port's kernels: each
 starts with every launch count at 0, and its kernel's count is read at its
@@ -209,17 +229,22 @@ def visible(key_mask, window):
     return valid | (pos[:, None] == pos[None, :]), age
 
 
-def phase_device(results):
-    import torch
-
-    from handyrl_tpu_torch.ops.flash_attention import FLASH, MASKED_FLASH
-
+def card_line():
+    """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device(results):
+    import torch
+
+    from handyrl_tpu_torch.ops.flash_attention import FLASH, MASKED_FLASH
+
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     sources = {kernel.source: kernel for kernel in (MASKED_FLASH, FLASH)}
     t0 = time.perf_counter()
@@ -679,11 +704,48 @@ def print_epochs(tag, records, opponent="random"):
               f"snapshot {r['boundary_snapshot_s']:.2f} s, save {r['boundary_save_s']:.2f} s, "
               f"publish {r['boundary_publish_s']:.2f} s")
         if "pipe_sample_s" in r:  # the batch pipeline's stage seconds over the epoch
-            print(f"[{tag}] epoch {r['epoch']} pipeline: sample {r['pipe_sample_s']:.3f} s, "
-                  f"assemble {r['pipe_assemble_s']:.3f} s, put {r['pipe_put_s']:.3f} s, host "
-                  f"queue full {r['pipe_free_wait_s']:.3f} s, put thread starved "
-                  f"{r['pipe_ready_wait_s']:.3f} s; trainer: {r['train_steps_per_sec']:.2f} "
-                  f"steps/s while training, input wait {r['input_wait_frac']:.1%}")
+            put_ms = r["pipe_put_s"] / max(r["pipe_batches"], 1) * 1e3
+            print(f"[{tag}] epoch {r['epoch']} pipeline {r['pipeline']}: {r['pipe_batches']:.0f} "
+                  f"batches, sample {r['pipe_sample_s']:.3f} s, assemble {r['pipe_assemble_s']:.3f} "
+                  f"s, put {r['pipe_put_s']:.3f} s ({put_ms:.2f} ms per batch), batchers waiting "
+                  f"for a free slot {r['pipe_free_wait_s']:.3f} s, put thread waiting for a batch "
+                  f"{r['pipe_ready_wait_s']:.3f} s, device queue depth "
+                  f"{r.get('pipe_device_queue_depth', 0):.2f}; batcher deaths "
+                  f"{r['pipe_batcher_deaths']:.0f}, restarts {r['pipe_batcher_restarts']:.0f}, "
+                  f"fallback {r['pipe_batcher_fallback']:.0f}; trainer: "
+                  f"{r['train_steps_per_sec']:.2f} steps/s while training, input wait "
+                  f"{r['input_wait_frac']:.1%}")
+
+
+ACCEL_LINE = re.compile(r"batch pipeline: (\w+) configured \(num_batchers=(\d+)\); "
+                        r"codec accelerator (on|off), C fill (on|off)")
+
+
+def check_shm(tag, records, learner_out=None):
+    """A learner phase that injects nothing ran on the shm plane: every
+    epoch's live mode is 'shm', no batcher died or fell back, and the codec
+    accelerator and the C fill were loaded in the learner's process (this
+    one, or the CLI's, read from its output ``learner_out``)."""
+    if learner_out is None:
+        from handyrl_tpu_torch.runtime import batch, codec
+
+        accel = ("on" if codec.get_accel() is not None else "off",
+                 "on" if batch._fill_accel() is not None else "off")
+    else:
+        found = ACCEL_LINE.findall(learner_out)
+        check(len(found) == 1, f"[{tag}] the learner printed {len(found)} pipeline lines")
+        configured, _, *accel = found[0]
+        check(configured == "shm", f"[{tag}] the learner's configured pipeline is {configured}")
+    check(tuple(accel) == ("on", "on"),
+          f"[{tag}] codec accelerator {accel[0]}, C fill {accel[1]}: both must be on")
+    for r in records:
+        check(r.get("pipeline") == "shm",
+              f"[{tag}] epoch {r['epoch']}: live pipeline {r.get('pipeline')!r}, not 'shm'")
+        for key in ("pipe_batcher_deaths", "pipe_batcher_fallback"):
+            check(r.get(key, 0) == 0, f"[{tag}] epoch {r['epoch']}: {key} {r.get(key)}")
+    check(any("pipe_batches" in r for r in records), f"[{tag}] no epoch trained")
+    print(f"[{tag}] batch pipeline shm in every epoch, codec accelerator and C fill on, "
+          "no batcher death or fallback")
 
 
 def phase_learner_cli(results):
@@ -694,12 +756,13 @@ def phase_learner_cli(results):
         text, n = re.subn(r"(?m)^(\s+epochs:\s*)-?\d+", r"\g<1>3", (ROOT / "config.yaml").read_text())
         check(n == 1, "config.yaml has no single train_args.epochs line")
         Path(tmp, "config.yaml").write_text(text)
-        _, train_s = run_cli(tmp, "--train")
+        train_out, train_s = run_cli(tmp, "--train")
         check_snapshots(os.path.join(tmp, "models"), [1, 2, 3])
         records = read_records(os.path.join(tmp, "metrics.jsonl"))
         check(len(records) == 3 and records[-1]["steps"] > 0,
               f"metrics.jsonl: {len(records)} records, expected 3 with steps > 0 on the last")
         print_epochs("cli", records)
+        check_shm("cli", records, train_out)
         out, eval_s = run_cli(tmp, "--eval", "models/latest.ckpt", "100", "4")
         total = [line for line in out.splitlines() if line.startswith("total =")]
         check(len(total) == 1, "--eval printed no 'total =' line")
@@ -758,6 +821,7 @@ def phase_learner(results):
               "models/2.ckpt does not load bit for bit, or is not what the actors were served")
         engine = learner.model_server.engine
         print_epochs("learner", records)
+        check_shm("learner", records)
         # epoch 0's games are the random model's (model id 0): the engine
         # serves epoch 1's, two requests per Geister move (both players
         # observe under observation: true), while the actors are not held
@@ -883,6 +947,7 @@ def phase_drc_learner(results):
               "models/2.ckpt does not load bit for bit, or is not what the actors were served")
         engine = learner.model_server.engine
         print_epochs("drc", records)
+        check_shm("drc", records)
         B = cfg["train_args"]["batch_size"]
         T = DRC_TRAIN_ARGS["burn_in_steps"] + DRC_TRAIN_ARGS["forward_steps"]
         print(f"[drc] Geister GeisterNet (filters 32, DRC 3x3) B{B} T{T} (burn-in "
@@ -993,7 +1058,7 @@ def phase_geese_cli(results):
     }
     with tempfile.TemporaryDirectory() as tmp:
         Path(tmp, "config.yaml").write_text(yaml.safe_dump(config))
-        _, train_s = run_cli(tmp, "--train")
+        train_out, train_s = run_cli(tmp, "--train")
         check_snapshots(os.path.join(tmp, "models"), [1, 2])
         records = read_records(os.path.join(tmp, "metrics.jsonl"))
         check(len(records) == 2 and records[-1]["steps"] > 0,
@@ -1001,6 +1066,7 @@ def phase_geese_cli(results):
         check(all(math.isfinite(r["loss"]["total"]) for r in records if "loss" in r),
               "non-finite epoch loss")
         print_epochs("geese", records, "rulebase")
+        check_shm("geese", records, train_out)
         out, eval_s = run_cli(tmp, "--eval", "models/latest.ckpt:rulebase", "100", "4")
         total = [line for line in out.splitlines() if line.startswith("total =")]
         check(len(total) == 1, "--eval printed no 'total =' line")
@@ -1116,6 +1182,7 @@ def phase_remote_cli(tmp):
     check(len(records) == 3 and records[-1]["steps"] > 0,
           f"metrics.jsonl: {len(records)} records, expected 3 with steps > 0 on the last")
     print_epochs("remote cli", records)
+    check_shm("remote cli", records, outs["train_server"])
     _, sessions = remote_books("remote cli", records, outs["worker"])
     requests = sum(s[1] for s in sessions)
     print(f"[remote cli] --train-server + --worker (config.yaml, 3 epochs, {cfg['worker_args']['num_parallel']} "
@@ -1186,6 +1253,7 @@ def phase_remote_learner(results):
         model_dir = cfg["train_args"]["model_dir"]
         check_snapshots(model_dir, [1, 2])
         print_epochs("remote learner", records)
+        check_shm("remote learner", records)
         fetches, sessions = remote_books("remote learner", records, outs["worker"])
         manifest = ckpt.load_manifest(model_dir)["epochs"]
         for model_id, nbytes, _, crc in fetches:
@@ -1257,6 +1325,411 @@ def phase_remote(results):
         phase_battle(tmp)
 
 
+# -- phase 10: the batch-assembly plane ---------------------------------------
+
+# the envs whose episodes 10(a) encodes: env args and the generator's args
+ASSEMBLY_ENVS = {
+    "TicTacToe": ({"env": "TicTacToe"}, {"observation": False}),
+    "Geister": ({"env": "Geister"}, {"observation": True}),
+    "HungryGeese": ({"env": "HungryGeese"}, {"observation": False}),
+    "ParallelTicTacToe": ({"env": "ParallelTicTacToe"}, {"observation": False}),
+    "ConnectFour": ({"env": "ConnectFour"}, {"observation": False}),
+}
+CODEC_EPISODES = 64      # Geister episodes 10(a) encodes and decodes, and 10(b) samples
+PUT_REPEATS = 20         # copies of one slot timed in 10(b), the median kept
+KILL_EPISODES = 100      # minimum_episodes and update_episodes of 10(d)
+# update_episodes of 10(c)'s runs (8a warms up on its 16; 7a on as many)
+TURN_EPISODES = {"8a": 32, "7a": 100}
+
+
+def random_episodes(env_args, gen_args, n, seed):
+    """``n`` self-play episodes of uniform play (a zero-logit model shaped
+    like the env's net), seeded."""
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models import InferenceModel, RandomModel
+    from handyrl_tpu_torch.runtime import Generator
+
+    env = make_env(env_args)
+    env.reset()
+    model = RandomModel.from_model(InferenceModel(env.net(), device="cpu"),
+                                   env.observation(env.players()[0]))
+    gen = Generator(env, dict(gen_args, gamma=0.8, compress_steps=4))
+    random.seed(seed)
+    episodes = []
+    while len(episodes) < n:
+        ep = gen.generate({p: model for p in env.players()}, {"player": env.players()})
+        if ep is not None:
+            episodes.append(ep)
+    return episodes
+
+
+def same_tree(a, b):
+    import numpy as np
+
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(same_tree, a, b))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    return type(a) is type(b) and a == b
+
+
+def best_ms(fn, repeats=3):
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times)
+
+
+def assembly_codec():
+    """10(a): the C codec against the pure-Python specification."""
+    from handyrl_tpu_torch.runtime import codec
+    from handyrl_tpu_torch.runtime.replay import decompress_block
+
+    acc = codec.get_accel()
+    check(acc is not None, "the codec accelerator did not load")
+    for name, (env_args, gen_args) in ASSEMBLY_ENVS.items():
+        objs = 0
+        for ep in random_episodes(env_args, gen_args, 2, SEED):
+            for obj in [ep] + [decompress_block(b) for b in ep["blocks"]]:
+                raw = acc.dumps(obj)
+                check(raw == codec.py_dumps(obj), f"{name}: the C codec's bytes differ")
+                check(same_tree(acc.loads(raw), codec.py_loads(raw)) and same_tree(acc.loads(raw), obj),
+                      f"{name}: the C and Python decodes differ")
+                objs += 1
+        print(f"[codec] {name}: {objs} episodes and blocks byte-equal and decode-equal, C and Python")
+    episodes = random_episodes(*ASSEMBLY_ENVS["Geister"], CODEC_EPISODES, SEED)
+    # what the actors encode and the batchers decode: each episode's columns
+    columns = [[decompress_block(b) for b in ep["blocks"]] for ep in episodes]
+    blobs = [codec.py_dumps(c) for c in columns]
+    nbytes = sum(map(len, blobs))
+    impls = {"C": (acc.dumps, acc.loads), "Python": (codec.py_dumps, codec.py_loads)}
+    times = {impl: [] for impl in impls}
+    for impl in ("C", "Python", "Python", "C"):  # in turns
+        dumps, loads = impls[impl]
+        times[impl].append((best_ms(lambda: [dumps(c) for c in columns]),
+                            best_ms(lambda: [loads(b) for b in blobs])))
+    print(f"[codec] {CODEC_EPISODES} Geister episodes ({sum(ep['steps'] for ep in episodes)} steps, "
+          f"{nbytes / 1e6:.2f} MB of columns), best of 3, two turns: " + "; ".join(
+              f"{impl} encode {', '.join(f'{e:.2f}' for e, _ in ts)} ms, decode "
+              f"{', '.join(f'{d:.2f}' for _, d in ts)} ms" for impl, ts in times.items()))
+    return episodes
+
+
+def assembly_fill(episodes):
+    """10(b): the C fill against numpy at 8a's and 7b's batch shapes; then
+    the copy of one ring slot to the card."""
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.runtime import EpisodeStore, make_batch
+
+    store = EpisodeStore(1000)
+    store.extend(episodes)
+    shapes = {}
+    for tag, over in (("8a B128 x T24", DRC_TRAIN_ARGS), ("7b B16 x T512", TRAIN_ARGS)):
+        args = normalize_args({"env_args": {"env": "Geister"}, "train_args": over})["train_args"]
+        random.seed(SEED)
+        windows = [store.sample_window(args["forward_steps"], args["burn_in_steps"],
+                                       args["compress_steps"]) for _ in range(args["batch_size"])]
+        got, times = {}, {"C": [], "numpy": []}
+        for impl in ("C", "numpy", "numpy", "C"):  # in turns
+            if impl == "numpy":
+                os.environ["HANDYRL_NO_FILL_ACCEL"] = "1"
+            try:
+                got[impl] = make_batch(windows, args)
+                times[impl].append(best_ms(lambda: make_batch(windows, args), 5))
+            finally:
+                os.environ.pop("HANDYRL_NO_FILL_ACCEL", None)
+        check(same_tree(got["C"], got["numpy"]), f"{tag}: the C fill differs from the numpy fill")
+        nbytes = sum(leaf.nbytes for leaf in _leaves(got["C"]))
+        print(f"[fill] {tag} ({nbytes / 1e6:.1f} MB): C fill bit-identical to numpy; make_batch "
+              f"best of 5, two turns: C {', '.join(f'{t:.2f}' for t in times['C'])} ms, numpy "
+              f"{', '.join(f'{t:.2f}' for t in times['numpy'])} ms")
+        shapes[tag] = (args, windows)
+    put_lines(*shapes["7b B16 x T512"], "7b B16 x T512", ff=False)
+    ttt = random_episodes(*ASSEMBLY_ENVS["TicTacToe"], 64, SEED)
+    store = EpisodeStore(1000)
+    store.extend(ttt)
+    args = normalize_args({"env_args": {"env": "TicTacToe"}, "train_args": {}})["train_args"]
+    random.seed(SEED)
+    windows = [store.sample_window(args["forward_steps"], 0, 4) for _ in range(args["batch_size"])]
+    put_lines(args, windows, "7a B128 x T16", ff=True)
+
+
+def _leaves(tree):
+    from handyrl_tpu_torch.utils import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def put_lines(args, windows, tag, ff):
+    """One batch filled into a shared-memory slot and copied to the card
+    with ``put_batch(non_blocking=True)``: from the slot registered with
+    cudaHostRegister (what the shm pipeline does), and staged through
+    freshly pinned memory (what the threaded pipeline does).  Host ms of
+    the call against the event ms of the copies, medians.  ``ff``: a
+    feed-forward batch, whose observation is cut to its live prefix, on
+    the card (registered) or on the host (staged)."""
+    from multiprocessing import shared_memory
+
+    import torch
+
+    from handyrl_tpu_torch.models import SimpleConvNet
+    from handyrl_tpu_torch.parallel import TrainContext, live_steps
+    from handyrl_tpu_torch.runtime import make_batch
+    from handyrl_tpu_torch.runtime.batch import fill_batch
+    from handyrl_tpu_torch.runtime.shm_batch import _buffer_address, slot_spec, slot_views
+
+    template = make_batch(windows, args)
+    spec, nbytes = slot_spec(template)
+    # the put path reads only the context's device and its feed-forward cut
+    ctx = TrainContext(SimpleConvNet(), dict(args, burn_in_steps=0, compact_padding=ff))
+    shm = shared_memory.SharedMemory(create=True, size=nbytes)
+    addr = 0
+    try:
+        views = slot_views(spec, shm.buf, 0)
+        fill_batch(windows, args, views)
+        probe = views["action_mask"]
+        t_eff = live_steps(template) if ff else None
+        results = {}
+        for mode in ("staged", "registered", "registered", "staged"):
+            pinned = mode == "registered"
+            if pinned and not addr:
+                check(not torch.from_numpy(probe).is_pinned(), f"{tag}: pageable pages seen as pinned")
+                addr = _buffer_address(shm.buf)
+                torch.cuda.check_error(torch.cuda.cudart().cudaHostRegister(addr, nbytes, 0))
+                check(torch.from_numpy(probe).is_pinned(), f"{tag}: registered pages not seen as pinned")
+            elif not pinned and addr:
+                torch.cuda.synchronize()
+                torch.cuda.check_error(torch.cuda.cudart().cudaHostUnregister(addr))
+                addr = 0
+            host, event = [], []
+            for _ in range(PUT_REPEATS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                t0 = time.perf_counter()
+                out = ctx.put_batch(views, non_blocking=True, pinned=pinned)
+                host.append((time.perf_counter() - t0) * 1e3)
+                end.record()
+                torch.cuda.synchronize()
+                event.append(start.elapsed_time(end))
+            for key in ("action_mask", "turn_mask", "value"):
+                check(torch.equal(out[key].cpu(), torch.from_numpy(template[key])),
+                      f"{tag}: {key} differs after the copy ({mode})")
+            obs = _leaves(out["observation"])[0]
+            if ff:
+                check(obs.shape[1] == t_eff, f"{tag}: observation cut to {obs.shape[1]}, not {t_eff}")
+            results.setdefault(mode, []).append((sorted(host)[len(host) // 2],
+                                                 sorted(event)[len(event) // 2]))
+        for mode, runs in results.items():
+            how = {"registered": "from the registered slot", "staged": "through fresh pinned memory"}
+            print(f"[put] {tag} ({nbytes / 1e6:.1f} MB slot), {how[mode]}"
+                  f"{' (observation cut on the card)' if ff and mode == 'registered' else ''}"
+                  f"{' (observation cut on the host)' if ff and mode == 'staged' else ''}: "
+                  + ", ".join(f"call {h:.3f} ms on the host, copies {e:.3f} ms by events"
+                              for h, e in runs) + f" (medians of {PUT_REPEATS}, two turns)")
+        print(f"[put] {tag}: pageable slot pages not pinned, registered ones pinned (is_pinned)")
+        if not ff:
+            host_ms, event_ms = results["registered"][0]
+            check(host_ms < event_ms,
+                  f"{tag}: the registered put took {host_ms:.3f} ms on the host, its copies "
+                  f"{event_ms:.3f} ms: the call did not return before the copy ended")
+    finally:
+        views = probe = None
+        gc.collect()
+        if addr:
+            torch.cuda.synchronize()
+            torch.cuda.check_error(torch.cuda.cudart().cudaHostUnregister(addr))
+        shm.close()
+        shm.unlink()
+
+
+def turn_run(config, pipeline, tmp):
+    """One learner of 10(c) in-process for 2 epochs under ``pipeline``: its
+    second epoch's record (the first holds the trainer's warm-up: its first
+    batch and the first step's one-off costs)."""
+    import torch
+    import yaml
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.runtime.learner import Learner
+
+    run_dir = os.path.join(tmp, f"{config}_{pipeline}_{time.monotonic_ns()}")
+    paths = dict(epochs=2, batch_pipeline=pipeline, seed=SEED,
+                 model_dir=os.path.join(run_dir, "models"),
+                 metrics_path=os.path.join(run_dir, "metrics.jsonl"))
+    if config == "8a":
+        cfg = normalize_args({"env_args": {"env": "Geister"}, "train_args": dict(
+            DRC_TRAIN_ARGS, minimum_episodes=DRC_EPISODES, update_episodes=TURN_EPISODES["8a"],
+            worker={"num_parallel": 8}, **paths)})
+    else:  # 7a: config.yaml
+        raw = yaml.safe_load((ROOT / "config.yaml").read_text())
+        raw["train_args"].update(minimum_episodes=TURN_EPISODES["7a"],
+                                 update_episodes=TURN_EPISODES["7a"], **paths)
+        cfg = normalize_args(raw)
+    gc.collect()
+    t0 = time.perf_counter()
+    learner = Learner(cfg)
+    learner.run()
+    torch.cuda.synchronize()
+    records = read_records(cfg["train_args"]["metrics_path"])
+    check(len(records) == 2 and "loss" in records[1] and records[1]["pipeline"] == pipeline,
+          f"{config} {pipeline}: records {[(r['epoch'], r.get('pipeline')) for r in records]}")
+    return records[1], time.perf_counter() - t0
+
+
+def assembly_turns():
+    """10(c): 8a's and 7a's learners under the threaded and the shm pipeline,
+    in turns (thread, shm, shm, thread); the second epoch of each run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for config in ("8a", "7a"):
+            runs = []
+            for pipeline in ("thread", "shm", "shm", "thread"):
+                r, run_s = turn_run(config, pipeline, tmp)
+                if pipeline == "shm":
+                    check_shm(f"turns {config}", [r])
+                runs.append((pipeline, r))
+                print_epochs(f"turns {config} {pipeline}", [r])
+                print(f"[turns] {config} {pipeline}: the run took {run_s:.1f} s")
+            for pipeline in ("thread", "shm"):
+                rs = [r for p, r in runs if p == pipeline]
+                rate = ", ".join(f"{r['updates_per_sec']:.3f}" for r in rs)
+                train = ", ".join(f"{r['train_steps_per_sec']:.3f}" for r in rs)
+                wait = ", ".join(f"{r['input_wait_frac']:.1%}" for r in rs)
+                put = ", ".join(f"{r['pipe_put_s'] / max(r['pipe_batches'], 1) * 1e3:.2f}" for r in rs)
+                paced = ", ".join("the pipeline" if r["input_wait_frac"] > 0.5 else "the trainer"
+                                  for r in rs)
+                print(f"[turns] {config} {pipeline}: epoch 1 at {rate} updates/s, {train} steps/s "
+                      f"while training, input wait {wait}, put {put} ms per batch: {paced} sets "
+                      "the pace")
+
+
+def compute_app_pids():
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi --query-compute-apps failed: {smi.stderr}")
+    return {int(x) for x in smi.stdout.split() if x.strip().isdigit()}
+
+
+def check_no_cuda_context(tag, pids):
+    """(e): none of ``pids`` (batcher processes) holds a context on the
+    card; the card lists at most this process."""
+    apps = compute_app_pids()
+    visible = os.getpid() in apps
+    print(f"[no context] {tag}: compute apps on the card {sorted(apps)}, this process "
+          f"{os.getpid()} ({'listed' if visible else 'not listed: another pid namespace'}), "
+          f"batchers {sorted(pids)}")
+    check(not (apps & set(pids)), f"{tag}: a batcher process holds a CUDA context")
+    check(len(apps) <= 1, f"{tag}: {len(apps)} processes hold a context on the card")
+
+
+def assembly_kill():
+    """10(d) and (e): the default config in-process, a batcher child
+    SIGKILLed once batches flow."""
+    import signal
+
+    import torch
+    import yaml
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.runtime.learner import Learner
+    from handyrl_tpu_torch.runtime.shm_batch import ShmBatchPipeline
+
+    raw = yaml.safe_load((ROOT / "config.yaml").read_text())
+    with tempfile.TemporaryDirectory() as tmp:
+        raw["train_args"].update(epochs=2, minimum_episodes=KILL_EPISODES,
+                                 update_episodes=KILL_EPISODES,
+                                 model_dir=os.path.join(tmp, "models"),
+                                 metrics_path=os.path.join(tmp, "metrics.jsonl"))
+        cfg = normalize_args(raw)
+        gc.collect()
+        learner = Learner(cfg)
+        pipe = learner.trainer.batcher
+        check(isinstance(pipe, ShmBatchPipeline), f"config.yaml builds {type(pipe).__name__}")
+        thread = threading.Thread(target=learner.run, daemon=True)
+        thread.start()
+        deadline = time.monotonic() + 300
+        while pipe.stats()["batches"] < 4 and thread.is_alive() and time.monotonic() < deadline:
+            time.sleep(0.1)
+        check(pipe.stats()["batches"] >= 4, "no batch flowed before the kill")
+        check_no_cuda_context("before the kill", [p.pid for p in pipe._procs])
+        victim = pipe._procs[0]
+        at_kill = pipe.stats()["batches"]
+        os.kill(victim.pid, signal.SIGKILL)
+        t_kill = time.monotonic()
+        while pipe.stats()["batcher_restarts"] < 1 and time.monotonic() < t_kill + 30:
+            time.sleep(0.05)
+        respawn_s = time.monotonic() - t_kill
+        check(pipe.stats()["batcher_restarts"] == 1, "the killed batcher was not respawned")
+        check_no_cuda_context("after the respawn", [p.pid for p in pipe._procs if p is not None])
+        thread.join(timeout=max(1.0, deadline - time.monotonic()))
+        check(not thread.is_alive(), "the learner did not finish after the kill")
+        torch.cuda.synchronize()
+        stats = pipe.stats()
+        records = read_records(cfg["train_args"]["metrics_path"])
+        print_epochs("kill", records)
+        last = records[-1]
+        check(stats["mode"] == "shm" and stats["batcher_deaths"] == 1
+              and stats["batcher_fallback"] == 0 and last["pipe_batcher_deaths"] == 1
+              and last["pipe_batcher_restarts"] == 1 and last["pipeline"] == "shm",
+              f"after the kill: {stats}, last record {last.get('pipeline')}")
+        check(stats["batches"] >= at_kill + 2 * pipe._n_slots,
+              f"{stats['batches'] - at_kill:.0f} batches after the kill")
+        check(all(p is None or not p.is_alive() for p in pipe._procs), "a batcher outlived the learner")
+        check(not segment_linked(pipe._shm.name), "the ring's segment outlived the learner")
+        print(f"[kill] batcher {victim.pid} SIGKILLed after {at_kill:.0f} batches, respawned in "
+              f"{respawn_s:.2f} s; {stats['batches'] - at_kill:.0f} batches after it; the learner "
+              f"ended after {last['steps']} steps, deaths {stats['batcher_deaths']:.0f}, restarts "
+              f"{stats['batcher_restarts']:.0f}, fallback {stats['batcher_fallback']:.0f}; every "
+              "batcher reaped, the segment unlinked")
+
+
+def segment_linked(name):
+    return os.path.exists(os.path.join("/dev/shm", name.lstrip("/")))
+
+
+def phase_assembly(results):
+    """10: the batch-assembly plane (no kernel on it)."""
+    print(f"[assembly] {card_line()}")
+    times, t0 = [], time.perf_counter()
+    episodes = assembly_codec()
+    times.append(time.perf_counter())
+    assembly_fill(episodes)
+    times.append(time.perf_counter())
+    assembly_turns()
+    times.append(time.perf_counter())
+    assembly_kill()
+    times.append(time.perf_counter())
+    parts = ", ".join(f"({tag}) {t1 - t:.1f} s"
+                      for tag, t, t1 in zip("abcd", [t0] + times, times))
+    print(f"[assembly] phase 10 in {times[-1] - t0:.1f} s: {parts}, (e) within (d)")
+
+
+def leftovers(shm_before):
+    """Shared-memory segments and processes of the port alive now: segments
+    made since ``shm_before``, this process's children, and CLI processes
+    (a CLI learner's batchers carry its command line)."""
+    import multiprocessing as mp
+
+    segments = sorted(n for n in set(os.listdir("/dev/shm")) - shm_before if n.startswith("psm_"))
+    procs = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            cmdline = Path("/proc", pid, "cmdline").read_bytes().replace(b"\0", b" ").decode()
+        except OSError:
+            continue
+        if "handyrl_tpu_torch.main" in cmdline:
+            procs.append(f"{pid}: {cmdline.strip()}")
+    procs += [f"{c.pid}: {c.name}" for c in mp.active_children()]
+    return segments, procs
+
+
 def profile_call(label, fn, top=12):
     """One more call of fn under torch.profiler: the device-busy share of
     its wall time and the kernels that took the most device time."""
@@ -1305,6 +1778,8 @@ def main(argv):
 
     device_name = torch.cuda.get_device_name(0)
     results = {name: {"launches": 0} for name in KERNELS}
+    shm_before = set(os.listdir("/dev/shm"))
+    t_script = time.perf_counter()
     try:
         phase_device(results)
         phase_kernel_check(results)
@@ -1332,6 +1807,13 @@ def main(argv):
             phase_geese_cli(results)
             # the remote actor plane (9b runs the masked kernel) and battles
             phase_remote(results)
+            # the batch-assembly plane under the learners (no kernel)
+            phase_assembly(results)
+            segments, procs = leftovers(shm_before)
+            check(not segments and not procs,
+                  f"outlived their runs: segments {segments}, processes {procs}")
+            print("[leftovers] no shared-memory segment and no process of the port outlived "
+                  f"its run; the script took {time.perf_counter() - t_script:.1f} s")
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

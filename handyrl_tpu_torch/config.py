@@ -6,9 +6,9 @@ the same names and defaults, so one config.yaml (``env_args``,
 package that the port does not read are accepted and passed through
 untouched, except those that select a plane the port lacks: a non-default
 value of one of ``NOT_PORTED_KEYS`` is refused, naming the ROADMAP item
-that ports it, not quietly run on the plain loop.  One default differs:
-``batch_pipeline`` is ``'thread'``, the only assembly plane ported; a
-config that names another one is refused too.
+that ports it, not quietly run on the plain loop.  Every default is the
+JAX package's, ``batch_pipeline: shm`` included; ``device``, the one
+assembly plane not ported, is refused too.
 """
 
 from __future__ import annotations
@@ -66,7 +66,23 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     "inference_batch_size": 64,
     # device batches the pipeline's put thread keeps ready
     "prefetch_batches": 2,
-    "batch_pipeline": "thread",
+    # the batch-assembly plane: 'shm' forks num_batchers processes that
+    # write columnar batches into shared-memory ring slots, off the
+    # learner's GIL (runtime/shm_batch.py); 'thread' runs the batchers as
+    # threads of the learner, and is what 'shm' degrades to, loudly, when
+    # its processes cannot run; 'device' is not ported
+    "batch_pipeline": "shm",
+    # ring depth in slots of one (B, T, P, ...) batch, raised to
+    # 2 * fused_steps + 2 (effective_shm_slots)
+    "shm_slots": 6,
+    # a batcher process that dies is respawned this many times in a run;
+    # past that, or when the ring stays silent this many seconds after a
+    # death, the pipeline degrades to threads
+    "batcher_max_restarts": 3,
+    "batcher_stall_timeout": 60.0,
+    # k updates per pull of the pipeline: the batches travel as one
+    # stacked group, and the trainer takes them in a row at one lr
+    "fused_steps": 1,
     # feed-forward nets run only on the live prefix of each window
     "compact_padding": True,
     # a step whose loss, gradient norm or lr is not finite leaves the
@@ -131,6 +147,13 @@ NOT_PORTED_KEYS = (
 )
 
 
+def effective_shm_slots(train: Dict[str, Any]) -> int:
+    """The ring depth the shm pipeline allocates: ``shm_slots`` raised so
+    the put thread can hold two fused groups in flight while the children
+    keep filling.  ``validate_args`` checks ``num_batchers`` against it."""
+    return max(int(train.get("shm_slots", 6)), 2 * int(train.get("fused_steps", 1)) + 2, 3)
+
+
 def _deep_merge(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
     out = copy.deepcopy(base)
     for key, value in (override or {}).items():
@@ -162,13 +185,33 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
     if int(train["worker"]["num_parallel"]) < 1:
         raise ValueError("train_args.worker.num_parallel must be >= 1")
     pipeline = train["batch_pipeline"]
-    if pipeline != "thread":
-        later = {"shm": "ROADMAP A5 (shared-memory batchers)",
-                 "device": "ROADMAP A7 (the device data plane)"}
+    if pipeline == "device":
         raise ValueError(
-            f"train_args.batch_pipeline={pipeline!r}: only 'thread' is ported; "
-            + (f"'{pipeline}' waits for {later[pipeline]}" if pipeline in later
-               else "one of ('thread', 'shm', 'device')")
+            "train_args.batch_pipeline='device' is not ported to handyrl_tpu_torch yet: "
+            "ROADMAP A7 (the device data plane)"
+        )
+    if pipeline not in ("shm", "thread"):
+        raise ValueError(
+            f"train_args.batch_pipeline={pipeline!r} not one of ('shm', 'thread', 'device')"
+        )
+    if int(train["fused_steps"]) < 1:
+        raise ValueError("train_args.fused_steps must be >= 1")
+    if int(train["shm_slots"]) < 2:
+        raise ValueError("train_args.shm_slots must be >= 2")
+    if int(train["batcher_max_restarts"]) < 0:
+        raise ValueError("train_args.batcher_max_restarts must be >= 0")
+    if float(train["batcher_stall_timeout"]) <= 0:
+        raise ValueError("train_args.batcher_stall_timeout must be > 0")
+    # the ring depth promised at any fused_steps (the JAX trainer may clamp
+    # fused_steps to 1 at run time, so only that floor is checked there too)
+    floor_slots = effective_shm_slots(dict(train, fused_steps=1))
+    if pipeline == "shm" and int(train["num_batchers"]) > floor_slots:
+        # a child beyond the ring depth would never be dealt a slot
+        raise ValueError(
+            f"train_args.num_batchers={train['num_batchers']} exceeds the guaranteed shm "
+            f"ring depth {floor_slots} (shm_slots={train['shm_slots']}): each batcher "
+            "process needs at least one ring slot to hold; raise shm_slots or lower "
+            "num_batchers"
         )
     if train["seq_attention"] not in ("auto", "flash", "einsum"):
         raise ValueError(

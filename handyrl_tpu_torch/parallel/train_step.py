@@ -22,7 +22,7 @@ The ring-attention branch is not ported yet.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -252,23 +252,73 @@ class TrainContext:
         self.optimizer = torch.optim.Adam(self.module.parameters(), lr=0.0, weight_decay=1e-5)
         self.sentinel = bool(args.get("sentinel", True))
 
-    def put_batch(self, batch: Dict[str, Any], non_blocking: bool = False) -> Dict[str, Any]:
+    def put_batch(self, batch: Dict[str, Any], non_blocking: bool = False,
+                  pinned: bool = False) -> Dict[str, Any]:
         """A host (numpy) batch on the device, its observation cut to the
-        live prefix for feed-forward nets.  ``non_blocking`` stages each
-        array in pinned memory and enqueues the copy without waiting for it
-        (the caller orders its use, e.g. with an event)."""
-        if self.ff_compact:
-            t_eff = live_steps(batch)
-            batch = dict(batch, observation=tree_map(lambda x: x[:, :t_eff], batch["observation"]))
-        pin = non_blocking and self.device.type == "cuda"
+        live prefix for feed-forward nets.  The result never shares memory
+        with ``batch`` (a ring slot is refilled once its copy is done).
 
-        def put(x):
-            t = torch.from_numpy(np.ascontiguousarray(x))
-            if pin:
-                return t.pin_memory().to(self.device, non_blocking=True)
-            return t.to(self.device)
+        ``non_blocking`` enqueues the copies without waiting for them (the
+        caller orders their use, e.g. with an event), staging each array in
+        freshly pinned memory first, unless ``pinned`` says the arrays
+        already lie in page-locked memory (a registered ring slot): then
+        they are copied from where they lie, the whole window, and the
+        observation is cut on the device, since a host cut would be a
+        strided view that PyTorch first copies into pageable memory."""
+        (batch,), t_eff = self._compact([batch], pinned)
+        out = tree_map(lambda x: self._put_array(x, non_blocking, pinned), batch)
+        if t_eff is not None:
+            out["observation"] = tree_map(lambda x: x[:, :t_eff], out["observation"])
+        return out
 
-        return tree_map(put, batch)
+    def put_batches(self, batches: List[Dict[str, Any]], non_blocking: bool = False,
+                    pinned: bool = False) -> Dict[str, Any]:
+        """k host batches as one (k, B, ...) device tree, for ``train_steps``;
+        a feed-forward group is cut to the largest live prefix among its
+        batches.  ``non_blocking``/``pinned`` as for ``put_batch``: each
+        batch is copied into its slice of the stacked tensors, so a pinned
+        group goes from its slots to the device with no host copy."""
+        batches, t_eff = self._compact(batches, pinned)
+
+        def stack(*xs):
+            srcs = [self._host_tensor(x, non_blocking, pinned) for x in xs]
+            out = torch.empty((len(srcs),) + tuple(srcs[0].shape), dtype=srcs[0].dtype,
+                              device=self.device)
+            for dst, src in zip(out, srcs):
+                dst.copy_(src, non_blocking=non_blocking)
+            return out
+
+        out = tree_map(stack, *batches)
+        if t_eff is not None:
+            out["observation"] = tree_map(lambda x: x[:, :, :t_eff], out["observation"])
+        return out
+
+    def _compact(self, batches, pinned: bool):
+        """(batches, t_eff): for a feed-forward net the group's largest live
+        prefix is cut from the observations here, on the host, or, for
+        page-locked batches bound for the card, returned as ``t_eff`` to be
+        cut there (None: nothing left to cut)."""
+        if not self.ff_compact:
+            return batches, None
+        t_eff = max(live_steps(b) for b in batches)
+        if pinned and self.device.type == "cuda":
+            return batches, t_eff
+        return [dict(b, observation=tree_map(lambda x: x[:, :t_eff], b["observation"]))
+                for b in batches], None
+
+    def _host_tensor(self, x, non_blocking: bool, pinned: bool) -> torch.Tensor:
+        """``x`` as a CPU tensor to copy from: pinned when the copy is to
+        run asynchronously to the card and ``x`` is not page-locked yet."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if non_blocking and not pinned and self.device.type == "cuda":
+            t = t.pin_memory()
+        return t
+
+    def _put_array(self, x, non_blocking: bool, pinned: bool) -> torch.Tensor:
+        t = self._host_tensor(x, non_blocking, pinned)
+        if self.device.type == "cpu":
+            return t.clone()
+        return t.to(self.device, non_blocking=non_blocking)
 
     def loss(self, batch: Dict[str, Any]):
         """(losses, data count) of one device batch, with the graph kept."""
@@ -308,3 +358,16 @@ class TrainContext:
         if self.sentinel:
             metrics["sentinel_bad"] = float(bad)
         return metrics
+
+    def train_steps(self, batches: Dict[str, Any], lr: float) -> Dict[str, float]:
+        """k updates in a row from a stacked (k, B, ...) device tree (see
+        ``put_batches``), at one lr; metrics summed over the k steps
+        (``sentinel_bad`` counts the skipped ones).  The same as k calls of
+        ``train_step`` on the k batches."""
+        k = batches["action"].shape[0]
+        total: Dict[str, float] = {}
+        for i in range(k):
+            metrics = self.train_step(tree_map(lambda x, i=i: x[i], batches), lr)
+            for key, value in metrics.items():
+                total[key] = total.get(key, 0.0) + value
+        return total

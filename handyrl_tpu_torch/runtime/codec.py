@@ -1,19 +1,28 @@
-"""Pickle-free binary wire codec: the pure-Python specification.
+"""Pickle-free binary wire codec.
 
-The port's copy of ``py_dumps``/``py_loads`` from
-``handyrl_tpu/runtime/codec.py``, byte for byte the same format, so episode
-blocks written by either package decode in the other.  The wire vocabulary
-is closed: None/bool/int/float/str/bytes/list/tuple/dict and numpy arrays
-(raw buffer + dtype/shape header, no object dtypes).
+The port's copy of ``handyrl_tpu/runtime/codec.py``, byte for byte the same
+format, so episode blocks and frames written by either package decode in
+the other.  The wire vocabulary is closed: None/bool/int/float/str/bytes/
+list/tuple/dict and numpy arrays (raw buffer + dtype/shape header, no
+object dtypes).
 
 Format: one tag byte per value, big-endian fixed-width lengths.  Arrays
-are C-contiguous raw buffers.  The C accelerator of the JAX package is not
-ported yet.
+are C-contiguous raw buffers.
+
+Two interchangeable implementations share the format: this pure-Python
+module (the specification, and the fallback) and a C extension
+(``_codec_accel.c``, the port's own copy, built at first use by
+``_codec_build.py``) that removes the per-small-object overhead of episode
+blocks.  ``dumps``/``loads`` dispatch to the accelerator when it loaded;
+``HANDYRL_NO_CODEC_ACCEL=1`` forces pure Python, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import functools
+import os
 import struct
+import sys
 from typing import Any
 
 import numpy as np
@@ -184,3 +193,45 @@ def py_loads(buf: bytes) -> Any:
     if r.pos != len(r.buf):
         raise CodecError("trailing bytes after message")
     return obj
+
+
+# -- accelerator dispatch ----------------------------------------------------
+
+def _accel_disabled() -> bool:
+    # "0"/"false"/"no"/empty leave the accelerator on: bare truthiness
+    # would read "=0" as disable, the opposite of what is meant
+    return os.environ.get("HANDYRL_NO_CODEC_ACCEL", "").strip().lower() not in (
+        "", "0", "false", "no",
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def get_accel():
+    """The C accelerator module, built and loaded at the first call, or None
+    when it is disabled or cannot be built (the pure-Python codec runs).
+
+    Every user of the accelerator (these ``dumps``/``loads``, batch.py's
+    columnar fill) asks here, so a process makes one build/load/disable
+    decision.  A process that forks batchers calls this before it forks."""
+    if _accel_disabled():
+        return None
+    try:
+        from . import _codec_build
+
+        mod = _codec_build.load()
+        mod.init(CodecError, np)
+    except Exception as exc:  # no compiler, read-only checkout, exotic platform
+        print(f"[handyrl_tpu_torch] codec accelerator unavailable ({type(exc).__name__}: "
+              f"{exc}); running the pure-Python codec", file=sys.stderr)
+        return None
+    return mod
+
+
+def dumps(obj: Any) -> bytes:
+    acc = get_accel()
+    return py_dumps(obj) if acc is None else acc.dumps(obj)
+
+
+def loads(buf: bytes) -> Any:
+    acc = get_accel()
+    return py_loads(buf) if acc is None else acc.loads(buf)

@@ -145,11 +145,11 @@ class FramedConnection:
                 hard_deadline, gap = time.monotonic() + gap, None
             (length,) = _HEADER.unpack(self._recv_exact(4, gap, hard_deadline))
             payload = self._recv_exact(length, gap, hard_deadline) if length else b""
-        return codec.py_loads(payload)
+        return codec.loads(payload)
 
     @staticmethod
     def _frame(obj: Any) -> List[bytes]:
-        payload = codec.py_dumps(obj)
+        payload = codec.dumps(obj)
         header = frame_header(len(payload))
         # a large payload goes out after its header, not copied behind it
         return [header + payload] if len(payload) < _COALESCE else [header, payload]

@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Optional
 from ..envs import make_env, prepare_env
 from ..models import init_variables
 from ..utils import resolve_device
+from . import batch, codec
 from .checkpoint import (
     gc_snapshots,
     latest_verified_epoch,
@@ -98,8 +99,13 @@ class Learner:
         self.jobs_lost = {"g": 0, "e": 0}
 
         self.trainer = Trainer(self.args, self.module, self.device)
-        print("batch pipeline: %s (num_batchers=%d)"
-              % (self.trainer.batcher.mode, self.trainer.batcher.num_batchers))
+        # the configured plane; an shm pipeline may still fall back to
+        # threads when it starts, so each record reads the live mode.  The
+        # codec accelerator is built here, before any batcher is forked
+        print("batch pipeline: %s configured (num_batchers=%d); codec accelerator %s, C fill %s"
+              % (self.trainer.batcher.mode, self.args["num_batchers"],
+                 "on" if codec.get_accel() is not None else "off",
+                 "on" if batch._fill_accel() is not None else "off"))
         if self.model_epoch > 0:
             state_path = os.path.join(self.model_dir, "state.ckpt")
             if not os.path.exists(state_path):
@@ -224,7 +230,9 @@ class Learner:
         if steps > epoch_steps0:
             record["loss"] = dict(self.trainer.last_loss)
             record.update(self.trainer.stats)
-        record["pipeline"] = self.trainer.batcher.mode
+        # the live mode: an shm pipeline that fell back to threads is not
+        # recorded as shm
+        record["pipeline"] = self.trainer.batcher.stats()["mode"]
         now = time.time()
         dt = max(now - self._epoch_t0, 1e-6)
         # an epoch closes on returned episodes, not on steps: before the
@@ -393,7 +401,11 @@ class Learner:
         self._trainer_thread = threading.Thread(target=self.trainer.run, daemon=True,
                                                 name="trainer")
         self._trainer_thread.start()
-        self.worker.run()
+        try:
+            self.worker.run()
+        except BaseException:
+            self.trainer.stop()  # the batch pipeline's processes and segment go with it
+            raise
         if not self.remote:
             self._active_workers = len(self.worker.threads)
         self.server()

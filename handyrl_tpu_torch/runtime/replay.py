@@ -33,7 +33,7 @@ except ImportError:  # pragma: no cover
 def compress_block(columns: Dict[str, Any]) -> bytes:
     # codec, not pickle: blocks may come from other hosts and must never
     # carry executable payloads
-    return zlib.compress(codec.py_dumps(columns), level=1)
+    return zlib.compress(codec.dumps(columns), level=1)
 
 
 class _BlockCache:
@@ -59,7 +59,7 @@ class _BlockCache:
             if cols is not None:
                 self._cols.move_to_end(blob)
                 return cols
-        cols = codec.py_loads(zlib.decompress(blob))
+        cols = codec.loads(zlib.decompress(blob))
         for leaf in tree_leaves(cols):
             if isinstance(leaf, np.ndarray):
                 leaf.flags.writeable = False
@@ -75,6 +75,17 @@ class _BlockCache:
 _BLOCK_CACHE = _BlockCache()
 
 
+def reset_block_cache() -> None:
+    """Re-create the decoded-block cache and its lock.
+
+    A forked batcher process (runtime/shm_batch.py) inherits this module's
+    state as of the fork, including a lock some thread of the parent may
+    have held at that instant; it calls this first, so its cache is its own
+    and its lock is fresh."""
+    global _BLOCK_CACHE
+    _BLOCK_CACHE = _BlockCache()
+
+
 def decompress_block(blob: bytes) -> Dict[str, Any]:
     return _BLOCK_CACHE.get(blob)
 
@@ -86,9 +97,28 @@ class EpisodeStore:
         self.maximum_episodes = maximum_episodes
         self._episodes: deque = deque()
         self._lock = threading.Lock()
+        self._listeners: List[Any] = []
 
     def __len__(self) -> int:
         return len(self._episodes)
+
+    def subscribe(self, listener) -> None:
+        """Call ``listener(episodes)`` with every batch of episodes added from
+        now on (outside the store's lock): the shared-memory pipeline mirrors
+        the stream into its batcher processes' replica stores this way."""
+        with self._lock:
+            self._listeners.append(listener)
+
+    def unsubscribe(self, listener) -> None:
+        with self._lock:
+            if listener in self._listeners:
+                self._listeners.remove(listener)
+
+    def snapshot(self) -> List[Dict[str, Any]]:
+        """A consistent copy of the episode list (the episodes themselves,
+        compressed block bytes, never change once stored)."""
+        with self._lock:
+            return list(self._episodes)
 
     def extend(self, episodes: List[Dict[str, Any]]) -> None:
         episodes = [e for e in episodes if e is not None]
@@ -97,6 +127,10 @@ class EpisodeStore:
             limit = self._memory_limited_max()
             while len(self._episodes) > limit:
                 self._episodes.popleft()
+            listeners = list(self._listeners)
+        if episodes:
+            for listener in listeners:
+                listener(episodes)
 
     def _memory_limited_max(self) -> int:
         """Shrink the buffer under memory pressure: above 95% host memory

@@ -1,30 +1,35 @@
-"""Learner-side training: the threaded batch pipeline and the SGD thread.
+"""Learner-side training: the batch pipelines and the SGD thread.
 
-Counterpart of ``handyrl_tpu/runtime/trainer.py``, single process, with
-the threaded pipeline (the shared-memory and device pipelines wait for
-ROADMAP A5/A7):
+Counterpart of ``handyrl_tpu/runtime/trainer.py``, single process.  The
+default assembly plane is the JAX package's: batcher processes writing
+columnar batches into shared-memory ring slots (runtime/shm_batch.py,
+``batch_pipeline: shm``).  The threaded pipeline below (``batch_pipeline:
+thread``, or ``num_batchers: 0``) is the in-process reference and what the
+shm plane degrades to:
 
     batcher threads (sample windows + make_batch, numpy)
       -> host batch queue
       -> put thread (pinned memory, non-blocking copy, CUDA event)
       -> device batch queue
-      -> Trainer.run() on its own thread, one train step per batch
+      -> Trainer.run() on its own thread, fused_steps updates per batch
 
-The pipeline keeps cumulative stage timings (``stats()``), which the
-trainer diffs per epoch into the ``pipe_*`` keys of metrics.jsonl, so a
-nonzero ``input_wait_frac`` can be laid at a stage.
+Both pipelines keep cumulative stage timings and supervision counters
+(``stats()``); the trainer diffs the timings per epoch into the ``pipe_*``
+keys of metrics.jsonl, so a nonzero ``input_wait_frac`` can be laid at a
+stage, and records the counters cumulatively as ``pipe_batcher_*``.
 
 The epoch handshake is the reference's: the learner's ``update()`` raises a
 flag and blocks on a one-slot queue; the trainer ends its epoch after the
-next step and hands over a CPU copy of its params (never the live
+next pull and hands over a CPU copy of its params (never the live
 tensors).  The lr is ``3e-8 * lr_scale * data_cnt_ema / (1 + steps *
 1e-5)``, held for an epoch; the data-count EMA moves at the epoch's end
-from the steps that were applied.
+from the updates that were applied.
 """
 
 from __future__ import annotations
 
 import queue
+import sys
 import threading
 import time
 import traceback
@@ -41,14 +46,39 @@ from .replay import EpisodeStore
 # the pipeline's cumulative stage timings, diffed per epoch into pipe_<key>
 PIPE_STAT_KEYS = ("sample_s", "assemble_s", "free_wait_s", "ready_wait_s", "put_s")
 
+# the shm plane's supervision events (batcher deaths, respawns, the degrade
+# to threads), recorded cumulatively as pipe_<key>: a nonzero value anywhere
+# in a run means the assembly plane took a fault
+PIPE_EVENT_KEYS = ("batcher_deaths", "batcher_restarts", "batcher_fallback")
+
 
 def host_copy(tree):
     """A copy of a (nested) state dict with every tensor detached on the CPU."""
     return tree_map(lambda x: x.detach().to("cpu", copy=True) if torch.is_tensor(x) else x, tree)
 
 
+def make_pipeline(args: Dict[str, Any], store: EpisodeStore, ctx: TrainContext,
+                  stop_event: Optional[threading.Event] = None):
+    """The configured batch-assembly pipeline: ``batch_pipeline: shm`` with
+    ``num_batchers > 0`` forks batcher processes writing into shared memory
+    (runtime/shm_batch.py); ``thread``, ``num_batchers: 0``, or an shm
+    plane that cannot be built, the threaded pipeline.  Both expose
+    start()/batch()/stop()/stats()."""
+    if args.get("batch_pipeline", "shm") == "shm" and int(args.get("num_batchers", 0)) > 0:
+        try:
+            from .shm_batch import ShmBatchPipeline
+
+            return ShmBatchPipeline(args, store, ctx, stop_event)
+        except Exception:
+            traceback.print_exc()
+            print("[handyrl_tpu_torch] shared-memory batch pipeline unavailable (above); "
+                  "using threaded batchers", file=sys.stderr)
+    return BatchPipeline(args, store, ctx, stop_event)
+
+
 class BatchPipeline:
-    """Threaded replay -> numpy batch -> device batch pipeline."""
+    """Threaded replay -> numpy batch -> device batch pipeline; with
+    ``fused_steps`` k > 1 each device item stacks k batches."""
 
     mode = "thread"
 
@@ -64,7 +94,9 @@ class BatchPipeline:
         self._started = False
         self._stats_lock = threading.Lock()
         self._stats: Dict[str, float] = {k: 0.0 for k in PIPE_STAT_KEYS}
+        self._stats.update({k: 0.0 for k in PIPE_EVENT_KEYS})
         self._stats.update(batches=0.0, device_queue_depth_sum=0.0, gets=0.0)
+        self.fused = max(1, int(args.get("fused_steps", 1)))
 
     def start(self) -> None:
         if self._started:
@@ -128,11 +160,17 @@ class BatchPipeline:
         try:
             while not self.stop_event.is_set():
                 t0 = time.perf_counter()
-                batch = self._get(self._host_queue)
+                group = []
+                while len(group) < self.fused:
+                    batch = self._get(self._host_queue)
+                    if batch is None:
+                        return
+                    group.append(batch)
                 t1 = time.perf_counter()
-                if batch is None:
-                    return
-                device_batch = self.ctx.put_batch(batch, non_blocking=True)
+                if self.fused > 1:
+                    device_batch = self.ctx.put_batches(group, non_blocking=True)
+                else:
+                    device_batch = self.ctx.put_batch(group[0], non_blocking=True)
                 ready = None
                 if self.ctx.device.type == "cuda":
                     # the copies were enqueued, not finished: the step waits
@@ -142,7 +180,7 @@ class BatchPipeline:
                 with self._stats_lock:
                     self._stats["ready_wait_s"] += t1 - t0
                     self._stats["put_s"] += time.perf_counter() - t1
-                    self._stats["batches"] += 1
+                    self._stats["batches"] += len(group)
                 self._put(self._device_queue, (device_batch, ready))
         except Exception:
             traceback.print_exc()
@@ -174,15 +212,18 @@ class BatchPipeline:
 
 class Trainer:
     """The SGD loop, run on a daemon thread by the learner; epoch handoff
-    through ``update()``.  ``train_epoch(n)`` also takes ``n`` steps
-    synchronously, from batches drawn on the calling thread."""
+    through ``update()``.  Each pull of the pipeline brings ``fused_steps``
+    batches, taken as that many updates in a row.  ``train_epoch(n)`` also
+    takes ``n`` single steps synchronously, from batches drawn on the
+    calling thread."""
 
     def __init__(self, args: Dict[str, Any], module, device=None):
         self.args = args
         self.ctx = TrainContext(module, args, device)
         self.store = EpisodeStore(args["maximum_episodes"])
         self.stop_event = threading.Event()
-        self.batcher = BatchPipeline(args, self.store, self.ctx, self.stop_event)
+        self.fused = max(1, int(args.get("fused_steps", 1)))
+        self.batcher = make_pipeline(args, self.store, self.ctx, self.stop_event)
         self._pipe_stats0: Dict[str, Any] = {}
         # the run's first batch wait is the pipeline's warm-up, reported
         # apart from the steady-state input_wait_frac
@@ -253,13 +294,15 @@ class Trainer:
         return make_batch(windows, a)
 
     def train_epoch(self, num_steps: Optional[int] = None) -> List[Dict[str, float]]:
-        """One epoch at one lr; returns the steps' metrics.  With
-        ``num_steps`` None, steps take the pipeline's batches until the
-        learner flags the epoch's end (after at least one step) or the
-        trainer stops; otherwise ``num_steps`` steps take batches drawn
-        here.  Either way the epoch ends with the EMA update and the stats."""
+        """One epoch at one lr; returns the metrics of each pull (summed over
+        its ``fused_steps`` updates).  With ``num_steps`` None, pulls take
+        the pipeline's batches until the learner flags the epoch's end
+        (after at least one pull) or the trainer stops; otherwise
+        ``num_steps`` single steps take batches drawn here.  Either way the
+        epoch ends with the EMA update and the stats."""
         lr = self.lr
         history: List[Dict[str, float]] = []
+        updates = 0
         wait_s = warmup_wait_s = 0.0
         t_epoch = time.perf_counter()
         while num_steps is None or len(history) < num_steps:
@@ -276,15 +319,22 @@ class Trainer:
                     wait_s += waited
                 if batch is None:  # stopping
                     break
+                k = self.fused
             else:
-                batch = self.sample_batch()
-            history.append(self.ctx.train_step(batch, lr))
-            self.steps += 1
+                batch, k = self.sample_batch(), 1
+            if k > 1:
+                history.append(self.ctx.train_steps(batch, lr))
+            else:
+                history.append(self.ctx.train_step(batch, lr))
+            updates += k
+            self.steps += k
         if history:
-            self._finish_epoch(history, time.perf_counter() - t_epoch, wait_s, warmup_wait_s)
+            self._finish_epoch(history, updates, time.perf_counter() - t_epoch, wait_s,
+                               warmup_wait_s)
         return history
 
-    def _finish_epoch(self, history, elapsed: float, wait_s: float, warmup_wait_s: float) -> None:
+    def _finish_epoch(self, history, updates: int, elapsed: float, wait_s: float,
+                      warmup_wait_s: float) -> None:
         skipped = int(sum(m.get("sentinel_bad", 0.0) for m in history))
         self.sentinel_skipped_steps += skipped
         data_cnt = sum(m["dcnt"] for m in history)
@@ -292,22 +342,24 @@ class Trainer:
         print("loss = %s" % " ".join(f"{k}:{v:.3f}" for k, v in self.last_loss.items()))
         elapsed = max(elapsed, 1e-9)
         self.stats = {
-            "train_steps_per_sec": len(history) / elapsed,
+            "train_steps_per_sec": updates / elapsed,
             "input_wait_frac": wait_s / elapsed,
             "sentinel_skipped_steps": self.sentinel_skipped_steps,  # cumulative
         }
         if warmup_wait_s:
             self.stats["input_wait_warmup_s"] = round(warmup_wait_s, 4)
         cur, prev = self.batcher.stats(), self._pipe_stats0
-        for key in PIPE_STAT_KEYS:
+        for key in PIPE_STAT_KEYS + ("batches",):
             self.stats["pipe_" + key] = round(cur[key] - prev.get(key, 0.0), 4)
+        for key in PIPE_EVENT_KEYS:  # cumulative, not diffed
+            self.stats["pipe_" + key] = cur.get(key, 0.0)
         gets = cur["gets"] - prev.get("gets", 0.0)
         if gets > 0:
             self.stats["pipe_device_queue_depth"] = round(
                 (cur["device_queue_depth_sum"] - prev.get("device_queue_depth_sum", 0.0)) / gets, 3)
         self._pipe_stats0 = cur
         # skipped steps added nothing to data_cnt, so they leave the divisor
-        applied = len(history) - skipped
+        applied = updates - skipped
         if applied > 0:
             self.data_cnt_ema = self.data_cnt_ema * 0.8 + data_cnt / (1e-2 + applied) * 0.2
 

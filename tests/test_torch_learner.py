@@ -59,7 +59,7 @@ def test_end_to_end_training(tmp_path, monkeypatch):
     assert ckpt.verify_state("models", 2)
     records = _records()
     assert [r["epoch"] for r in records] == [0, 1]
-    assert records[-1]["steps"] > 0 and records[-1]["pipeline"] == "thread"
+    assert records[-1]["steps"] > 0 and records[-1]["pipeline"] == "shm"
     assert learner.num_returned_episodes >= 25
     for key in ("loss", "episodes_per_sec", "updates_per_sec", "train_steps_per_sec",
                 "input_wait_frac", "pipe_sample_s", "pipe_assemble_s", "pipe_put_s",

@@ -163,9 +163,7 @@ def test_config_subset_keeps_the_jax_defaults_and_refuses_what_is_not_ported():
     from handyrl_tpu_torch.config import DEFAULT_TRAIN_ARGS
 
     for key, value in DEFAULT_TRAIN_ARGS.items():
-        if key == "batch_pipeline":  # the port's one deliberate difference
-            assert value == "thread" and JAX_DEFAULTS[key] == "shm"
-        elif isinstance(value, dict):  # a subset of the JAX package's section
+        if isinstance(value, dict):  # a subset of the JAX package's section
             assert {k: JAX_DEFAULTS[key][k] for k in value} == value, key
         else:
             assert JAX_DEFAULTS[key] == value, key
@@ -180,10 +178,16 @@ def test_config_subset_keeps_the_jax_defaults_and_refuses_what_is_not_ported():
                 {"restart_epoch": -2}, {"eval_rate": 1.5}, {"update_episodes": 0}):
         with pytest.raises(ValueError):
             normalize_args({"env_args": env, "train_args": bad})
-    for mode, roadmap in (("shm", "A5"), ("device", "A7")):
-        with pytest.raises(ValueError, match=roadmap):
-            normalize_args({"env_args": env, "train_args": {"batch_pipeline": mode}})
-    with pytest.raises(ValueError, match="only 'thread'"):
+    # the JAX package's default pipeline and the batcher knobs, with its defaults
+    assert DEFAULT_TRAIN_ARGS["batch_pipeline"] == JAX_DEFAULTS["batch_pipeline"] == "shm"
+    for key in ("shm_slots", "batcher_max_restarts", "batcher_stall_timeout", "fused_steps"):
+        assert DEFAULT_TRAIN_ARGS[key] == JAX_DEFAULTS[key], key
+    for mode in ("shm", "thread"):
+        assert normalize_args({"env_args": env, "train_args": {"batch_pipeline": mode}})[
+            "train_args"]["batch_pipeline"] == mode
+    with pytest.raises(ValueError, match="A7"):
+        normalize_args({"env_args": env, "train_args": {"batch_pipeline": "device"}})
+    with pytest.raises(ValueError, match="not one of"):
         normalize_args({"env_args": env, "train_args": {"batch_pipeline": "bogus"}})
     with pytest.raises(ValueError):
         normalize_args({"train_args": {}})
