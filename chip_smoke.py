@@ -77,8 +77,31 @@ Phases, each of which fails the run when it fails:
    SIGKILLed mid-run: respawned, batches flow, the learner ends, the
    segment is unlinked; (e) no batcher pid holds a CUDA context.  Alone:
    ``python3 -c "import chip_smoke as cs; cs.phase_assembly({})"``.
+11. on-device self-play and evaluation, random weights from seed 0, full
+   width: (a) each rollout alone: HungryGeese (``GeeseNet``, 256 lanes x 32
+   steps), Geister (the DRC ``GeisterNet``, ``observation: true``, 128
+   lanes x 32 steps), TicTacToe (``SimpleConvNet``, episodic, 2048 games),
+   ParallelTicTacToe (256 lanes): env-steps/s, player-steps/s and
+   episodes/s over a timed window with the episode assembly inside it; a
+   generate's host launch, device (events), wait and assembly ms; the
+   launches per game step from one profiled call (HungryGeese, Geister);
+   (b) gates: 64 episodes per env replayed through the port's host env
+   (every action legal, every observation and outcome equal), one step of
+   each streaming twin on the card equal to the CPU's from the same state
+   and noise, ties taken first by argmax/argmin and the rule-based twin on
+   the card, every rollout tensor on the card; (c) HungryGeese through
+   ``--train`` with ``device_rollout_games: 256`` and ``device_eval_games:
+   64`` against rulebase, 2 epochs (1000 + 2000 episodes): updates/s,
+   the pipeline's stages, episodes/s from the device
+   and from host workers, ``device_mean_episode_len``, the device-rulebase
+   win rate, ``input_wait_frac``; every epoch on the fused plane with its
+   device-rulebase win rate, no failed device evaluation, no watchdog
+   stall, no batcher fallback; (d) Geister's DRC through
+   ``Learner(args).run()`` with ``device_rollout_games: 128``, cut as 8a:
+   finite losses, every epoch on the fused plane, no watchdog stall.  Alone:
+   ``python3 -c "import chip_smoke as cs; cs.phase_selfplay({})"``.
 
-Every learner phase (7a, 7b, 8a, 8b, 9a, 9b) runs on the port's default
+Every learner phase (7a, 7b, 8a, 8b, 9a, 9b, 11c, 11d) runs on the port's default
 ``batch_pipeline: shm`` and fails unless every epoch's live pipeline mode
 is ``shm``, the codec accelerator and the C fill are loaded, and no
 batcher died or fell back; it prints the pipeline's stage seconds and the
@@ -87,8 +110,8 @@ process of the port outlives it.
 
 Phases 4, 5-6, 7b and 9b are the paths through the port's kernels: each
 starts with every launch count at 0, and its kernel's count is read at its
-end; phase 8a is read the same way and launches neither kernel (8b, 9a and
-9c run in processes of their own).
+end; phases 8a and 11 are read the same way and launch neither kernel (8b,
+9a, 9c and 11c run in processes of their own).
 The last two lines are a JSON ``kernels`` record and the verdict
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or of handyrl_tpu is
 imported.  Weights are random, made from a seed.
@@ -1709,6 +1732,481 @@ def phase_assembly(results):
     print(f"[assembly] phase 10 in {times[-1] - t0:.1f} s: {parts}, (e) within (d)")
 
 
+# -- phase 11: on-device self-play and evaluation ----------------------------
+
+# (a)'s rollouts at full width: env, train args, lanes (games for the
+# episodic TicTacToe rollout); bench.py's device self-play configurations
+SELFPLAY = (
+    ("HungryGeese", {"turn_based_training": False, "observation": False}, 256),
+    ("Geister", {"observation": True}, 128),
+    ("TicTacToe", {}, 2048),
+    ("ParallelTicTacToe", {"turn_based_training": False, "observation": False}, 256),
+)
+SELFPLAY_WINDOW = 3.0    # seconds of each rollout's timed window in 11(a)
+REPLAY_EPISODES = 64     # episodes per env replayed through the host env in 11(b)
+# 11(c): 8b's HungryGeese configuration with device self-play and evaluation
+DEVICE_GEESE = {
+    "turn_based_training": False, "observation": False, "epochs": 2,
+    "minimum_episodes": 1000, "update_episodes": 2000,
+    "device_rollout_games": 256, "device_eval_games": 64,
+    "eval": {"opponent": ["rulebase"]}, "seed": SEED,
+}
+
+
+def card_generator():
+    import torch
+
+    return torch.Generator(device="cuda").manual_seed(SEED)
+
+
+def episode_columns(episode):
+    """An episode's blocks, decompressed and concatenated over time."""
+    from handyrl_tpu_torch.runtime import decompress_block
+    from handyrl_tpu_torch.utils import tree_concat
+
+    return tree_concat([decompress_block(b) for b in episode["blocks"]])
+
+
+def same_obs(got, want):
+    import numpy as np
+
+    if isinstance(want, dict):
+        return sorted(got) == sorted(want) and all(same_obs(got[k], want[k]) for k in want)
+    return np.array_equal(np.asarray(got), np.asarray(want, np.float32))
+
+
+def _legal_set(amask_row):
+    import numpy as np
+
+    return sorted(np.flatnonzero(amask_row == 0).tolist())
+
+
+def _replay_turns(env, cols, T, tag):
+    """TicTacToe and Geister: one acting player per step, in turn."""
+    for t in range(T):
+        p = env.turn()
+        check(int(cols["turn"][t]) == p and cols["tmask"][t, p] == 1 and cols["tmask"][t].sum() == 1,
+              f"{tag} step {t}: the acting player is not the host's turn player {p}")
+        for q in env.players():
+            obs_q = {k: v[t, q] for k, v in cols["obs"].items()} if isinstance(cols["obs"], dict) \
+                else cols["obs"][t, q]
+            if cols["omask"][t, q] > 0:
+                check(same_obs(obs_q, env.observation(q)),
+                      f"{tag} step {t}: player {q}'s observation differs from the host env's")
+        legal = sorted(env.legal_actions(p))
+        check(_legal_set(cols["amask"][t, p]) == legal, f"{tag} step {t}: the legal set differs")
+        a = int(cols["action"][t, p])
+        check(a in legal, f"{tag} step {t}: illegal action {a}")
+        env.play(a, p)
+    return env
+
+
+def _replay_parallel(env, cols, T, tag):
+    """ParallelTicTacToe: both players act; the move played is read off
+    the next board, the last step's chooser from the outcome."""
+    import copy
+
+    import numpy as np
+
+    obs = cols["obs"]
+    for t in range(T):
+        check((cols["tmask"][t] == 1).all(), f"{tag} step {t}: a player did not act")
+        legal = sorted(env.legal_actions(0))
+        for p in env.players():
+            check(same_obs(obs[t, p], env.observation(p)),
+                  f"{tag} step {t}: player {p}'s observation differs from the host env's")
+            check(_legal_set(cols["amask"][t, p]) == legal and int(cols["action"][t, p]) in legal,
+                  f"{tag} step {t}: player {p}'s legal set or action")
+        if t + 1 < T:
+            diff = (obs[t + 1, 0, 1] - obs[t + 1, 0, 2]).ravel() - (obs[t, 0, 1] - obs[t, 0, 2]).ravel()
+            placed = np.flatnonzero(diff)
+            check(len(placed) == 1, f"{tag} step {t}: {len(placed)} stones placed")
+            chooser = 0 if diff[placed[0]] > 0 else 1
+            check(int(cols["action"][t, chooser]) == placed[0], f"{tag} step {t}: the played move")
+            env._apply(int(placed[0]), chooser)
+            check(not env.terminal(), f"{tag} step {t}: the host game ended early")
+        else:
+            ends = []
+            for chooser in env.players():
+                trial = copy.deepcopy(env)
+                trial._apply(int(cols["action"][t, chooser]), chooser)
+                if trial.terminal():
+                    ends.append(trial)
+            match = [e for e in ends if e.outcome() == cols["_outcome"]]
+            check(ends, f"{tag}: no chooser's last move ends the host game")
+            env = (match or ends)[0]
+    return env
+
+
+def _replay_geese(env, cols, T, tag):
+    """HungryGeese: every active goose acts; the device's food spawns are
+    put into the host env after each step, once the food both kept agrees
+    (spawn positions are the only randomness)."""
+    import numpy as np
+
+    obs, omask = cols["obs"], cols["omask"]
+
+    def food_at(t):
+        p = int(np.flatnonzero(omask[t])[0])
+        return {int(c) for c in np.flatnonzero(obs[t, p, 16].ravel())}
+
+    env.reset()
+    env.geese = [[int(np.flatnonzero(obs[0, p, 0].ravel())[0])] for p in env.players()]
+    env.food = sorted(food_at(0))
+    for t in range(T):
+        for p in env.players():
+            check(bool(cols["tmask"][t, p]) == env.active[p], f"{tag} step {t}: goose {p} activity")
+            if omask[t, p] > 0:
+                check(same_obs(obs[t, p], env.observation(p)),
+                      f"{tag} step {t}: goose {p}'s observation differs from the host env's")
+            else:
+                check(not obs[t, p].any(), f"{tag} step {t}: an unobserved view is not zero")
+        actions = {p: int(cols["action"][t, p]) for p in env.turns()}
+        check(all(a in env.legal_actions(p) for p, a in actions.items()), f"{tag} step {t}: illegal")
+        before = set(env.food)
+        env.step(actions)
+        if t + 1 < T:
+            after = food_at(t + 1)
+            check(set(env.food) & before == after & before and len(env.food) == len(after),
+                  f"{tag} step {t}: the food kept or its count differs")
+            env.food = sorted(after)
+    return env
+
+
+def replay_episode(env_name, episode, tag=""):
+    """Replay one device episode through the port's host env: every action
+    legal, every recorded observation equal to the host env's, the same
+    outcome.  Returns the steps replayed."""
+    from handyrl_tpu_torch.envs import make_env
+
+    cols = episode_columns(episode)
+    cols["_outcome"] = episode["outcome"]
+    T = episode["steps"]
+    replay = {"TicTacToe": _replay_turns, "Geister": _replay_turns,
+              "ParallelTicTacToe": _replay_parallel, "HungryGeese": _replay_geese}[env_name]
+    env = replay(make_env({"env": env_name}), cols, T, tag or env_name)
+    check(env.terminal(), f"{tag or env_name}: the host game has not ended after {T} steps")
+    want = env.outcome()
+    check(all(abs(want[p] - episode["outcome"][p]) < 1e-6 for p in want),
+          f"{tag or env_name}: outcome {episode['outcome']} against the host's {want}")
+    return T
+
+
+def selfplay_rollout(env_name, train_args, lanes, device=None):
+    """(roll, args) for one of (a)'s rollouts, random weights from SEED."""
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models import init_variables
+    from handyrl_tpu_torch.runtime.device_rollout import make_device_rollout
+
+    cfg = normalize_args({"env_args": {"env": env_name}, "train_args": train_args})
+    args = dict(cfg["train_args"], env=cfg["env_args"])
+    env = make_env(cfg["env_args"])
+    module = init_variables(env.net(), SEED)
+    return make_device_rollout(env.vector_env(), module, args, lanes, device=device), args
+
+
+def profile_launches(fn):
+    """(wall ms, device ms, launches) of one call of fn under torch.profiler;
+    launches are the device-side events (kernels and copies)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "#" not in e.key]
+    return (wall_ms, sum(e.self_device_time_total for e in events) / 1e3,
+            sum(e.count for e in events))
+
+
+def selfplay_rates(env_name, train_args, lanes, gen):
+    """11(a) for one rollout: a warm-up, the timed window (episode assembly
+    inside it, as bench.py's streaming bench), the split of a generate, and
+    the launches per game step from one profiled call.  Returns the
+    episodes of the window."""
+    import numpy as np
+
+    roll, _ = selfplay_rollout(env_name, train_args, lanes)
+    streaming = hasattr(roll, "k_steps")
+    episodes = roll.generate(None, gen) + roll.generate(None, gen)   # builds and warms
+    steps0, psteps0 = getattr(roll, "game_steps", 0), getattr(roll, "player_steps", 0)
+    window, timings = [], []
+    t0 = time.perf_counter()
+    while True:
+        dt = time.perf_counter() - t0
+        if dt >= SELFPLAY_WINDOW and (window or dt >= 4 * SELFPLAY_WINDOW):
+            break
+        window += roll.generate(None, gen)
+        timings.append(dict(roll.timing))
+    dt = time.perf_counter() - t0
+    if streaming:
+        roll.drain()
+        env_steps, player_steps = roll.game_steps - steps0, roll.player_steps - psteps0
+        shape = f"{lanes} lanes x {roll.k_steps} steps"
+    else:
+        env_steps = player_steps = sum(ep["steps"] for ep in window)
+        shape = f"{lanes} games x {roll.venv.max_steps} plies"
+    split = {key: np.mean([t[key] for t in timings if t.get(key) is not None])
+             for key in ("launch_ms", "device_ms", "wait_ms", "assemble_ms")}
+    print(f"[selfplay] {env_name} {type(roll.module).__name__} {shape}: "
+          f"{env_steps / dt:.1f} env-steps/s, {player_steps / dt:.1f} player-steps/s, "
+          f"{len(window) / dt:.2f} episodes/s over {dt:.2f} s ({len(timings)} generate calls, "
+          f"{len(window)} episodes, mean length {np.mean([e['steps'] for e in window]):.1f})")
+    print(f"[selfplay] {env_name} one generate, means: host launch {split['launch_ms']:.1f} ms, "
+          f"device {split['device_ms']:.1f} ms (events, its block), wait for the block "
+          f"{split['wait_ms']:.1f} ms, host assembly {split['assemble_ms']:.1f} ms")
+    if env_name in ("HungryGeese", "Geister"):
+        wall, device_ms, launches = profile_launches(lambda: roll.generate(None, gen))
+        per_step = launches / roll.k_steps
+        print(f"[selfplay] {env_name} one generate under the profiler: wall {wall:.1f} ms, "
+              f"device {device_ms:.1f} ms ({device_ms / wall:.1%} busy), {launches} launches, "
+              f"{per_step:.1f} per game step")
+        check(per_step > 0, f"{env_name}: the profiler saw no launch")
+    check_on_card(env_name, roll)
+    return roll, episodes + window
+
+
+def check_on_card(env_name, roll):
+    """11(b): every tensor of the rollout (lanes, hidden state, module) is on
+    the card."""
+    import torch
+
+    from handyrl_tpu_torch.utils import tree_leaves
+
+    tensors = list(roll.module.parameters()) + list(roll.module.buffers())
+    if hasattr(roll, "k_steps"):
+        tensors += tree_leaves(roll._state) + [h for h in tree_leaves(roll._hidden) if h is not None]
+    check(tensors and all(isinstance(t, torch.Tensor) and t.is_cuda for t in tensors),
+          f"{env_name}: a rollout tensor is not on the card")
+
+
+def twin_cpu_gate(env_name, roll, gen):
+    """11(b): one step of a streaming twin on the card and on the CPU from
+    the same state with the same injected noise: equal states, observations,
+    legal masks (and rule-based choices for HungryGeese)."""
+    import importlib
+
+    import torch
+
+    venv = roll.venv
+    mod = importlib.import_module(venv.__module__)
+    state = roll._state
+    cpu = {k: v.cpu() for k, v in state.items()}
+    legal = venv.legal_mask_all(state)
+    actions = torch.argmax(torch.rand(legal.shape, device=legal.device, generator=gen) + legal, -1)
+    B = legal.shape[0]
+    noise = {"HungryGeese": ("_gumbel", [(B, 77), (B, 77)]),
+             "ParallelTicTacToe": ("_bernoulli", [(B,)]), "Geister": (None, [])}[env_name]
+    name, shapes = noise
+    draws = [torch.rand(s, device=legal.device, generator=gen) for s in shapes]
+    if name == "_bernoulli":
+        draws = [d < 0.5 for d in draws]
+    elif name == "_gumbel":
+        draws = [-torch.log(-torch.log(d.clamp(min=torch.finfo(torch.float32).tiny))) for d in draws]
+
+    def stepped(s, a, device):
+        if name is not None:
+            queue = [d.to(device) for d in draws]
+            saved = getattr(mod, name)
+            setattr(mod, name, lambda *args, **kw: queue.pop(0))
+        try:
+            with torch.inference_mode():
+                return venv.step(s, a, None)
+        finally:
+            if name is not None:
+                setattr(mod, name, saved)
+
+    pairs = [("step", stepped(state, actions, state["done"].device), stepped(cpu, actions.cpu(), "cpu")),
+             ("observation", venv.observation(state), venv.observation(cpu)),
+             ("legal", {"mask": legal}, {"mask": venv.legal_mask_all(cpu)})]
+    if env_name == "HungryGeese":
+        g = [torch.rand((B, 4, 4), device=legal.device, generator=gen).clamp(min=1e-30)]
+        noise_cpu = [g[0].cpu()]
+        saved = mod._gumbel
+        try:
+            mod._gumbel = lambda *a, **k: g[0]
+            card_rule = venv.rule_based_action_all(state, None)
+            mod._gumbel = lambda *a, **k: noise_cpu[0]
+            cpu_rule = venv.rule_based_action_all(cpu, None)
+        finally:
+            mod._gumbel = saved
+        pairs.append(("rule_based_action_all", {"a": card_rule}, {"a": cpu_rule}))
+    for what, card_tree, cpu_tree in pairs:
+        card_tree = card_tree if isinstance(card_tree, dict) else {"x": card_tree}
+        cpu_tree = cpu_tree if isinstance(cpu_tree, dict) else {"x": cpu_tree}
+        for key in card_tree:
+            check(torch.equal(card_tree[key].cpu(), cpu_tree[key]),
+                  f"{env_name} {what}: {key} differs between the card and the CPU")
+    print(f"[selfplay gate] {env_name}: one step of the twin on the card equals the CPU's "
+          f"({B} lanes, {int(state['done'].sum())} of them finished): every state leaf, "
+          f"{', '.join(w for w, _, _ in pairs[1:])}")
+
+
+def ties_gate():
+    """11(b): on the card, argmax and argmin take the first of tied values,
+    and the rule-based twin picks the first tied direction (as the JAX
+    twin and the host agent)."""
+    import torch
+
+    from handyrl_tpu_torch.envs.vector_hungry_geese import VectorHungryGeese
+
+    x = torch.zeros(64, 9, device="cuda")
+    x[:, 4:] = 1.0
+    check((torch.argmax(x, -1) == 4).all() and (torch.argmin(x, -1) == 0).all(),
+          "argmax/argmin on the card do not take the first of tied values")
+    g = card_generator()
+    state = VectorHungryGeese.init(2, g, "cuda")
+    centre = 3 * 11 + 5
+    cases = {(centre - 22, centre + 22): 0, (centre - 2, centre + 2): 2,
+             (centre + 22, centre + 2): 1, (centre - 12, centre + 12): 0}
+    for food, first in cases.items():
+        s = {k: v.clone() for k, v in state.items()}
+        s["cells"].zero_()
+        s["cells"][:, 0, 0] = centre
+        s["length"].zero_()
+        s["length"][:, 0] = 1
+        s["occ"].zero_()
+        s["occ"][:, 0, centre] = 1
+        s["active"].zero_()
+        s["active"][:, 0] = True
+        s["food"].zero_()
+        for cell in food:
+            s["food"][:, cell] = 1
+        got = VectorHungryGeese.rule_based_action_all(s, g)
+        check(int(got[0, 0]) == first, f"tie {food}: the card's rule-based twin picked {int(got[0, 0])}")
+    print("[selfplay gate] argmax / argmin and the rule-based twin take the first tied value on "
+          "the card")
+
+
+def phase_selfplay(results):
+    """11: on-device self-play and evaluation (no kernel on these paths)."""
+    import torch
+
+    print(f"[selfplay] {card_line()}")
+    t0 = time.perf_counter()
+    gen = card_generator()
+    for env_name, train_args, lanes in SELFPLAY:
+        roll, episodes = selfplay_rates(env_name, train_args, lanes, gen)
+        for _ in range(16):   # long games (Geister's) may need more blocks
+            if len(episodes) >= REPLAY_EPISODES:
+                break
+            episodes += roll.generate(None, gen)
+        check(len(episodes) >= REPLAY_EPISODES,
+              f"{env_name}: {len(episodes)} episodes, fewer than {REPLAY_EPISODES} to replay")
+        steps = sum(replay_episode(env_name, ep, f"{env_name} episode {i}")
+                    for i, ep in enumerate(episodes[:REPLAY_EPISODES]))
+        print(f"[selfplay gate] {env_name}: {REPLAY_EPISODES} device episodes ({steps} steps) "
+              "replay through the host env: every action legal, every observation and outcome "
+              "equal")
+        if hasattr(roll, "k_steps"):
+            twin_cpu_gate(env_name, roll, gen)
+        del roll, episodes
+    ties_gate()
+    t1 = time.perf_counter()
+    device_geese_cli()
+    t2 = time.perf_counter()
+    device_drc_learner()
+    t3 = time.perf_counter()
+    print(f"[selfplay] phase 11 in {t3 - t0:.1f} s: (a)+(b) {t1 - t0:.1f} s, (c) {t2 - t1:.1f} s, "
+          f"(d) {t3 - t2:.1f} s")
+
+
+def check_plane(tag, record):
+    """An epoch of a learner with device self-play ran on the fused plane
+    with no watchdog stall (a watchdog that gave up records plane none)."""
+    check(record.get("plane") == "fused", f"{tag} epoch {record['epoch']}: plane "
+          f"{record.get('plane')!r}, not 'fused'")
+    check(record.get("plane_watchdog_stalls") == 0, f"{tag} epoch {record['epoch']}: "
+          f"{record.get('plane_watchdog_stalls')} watchdog stalls")
+
+
+def device_geese_cli():
+    """11(c): HungryGeese through ``python -m handyrl_tpu_torch.main
+    --train`` with device self-play and device evaluation vs rulebase."""
+    import yaml
+
+    with tempfile.TemporaryDirectory() as tmp:
+        Path(tmp, "config.yaml").write_text(yaml.safe_dump(
+            {"env_args": {"env": "HungryGeese"}, "train_args": DEVICE_GEESE}))
+        train_out, train_s = run_cli(tmp, "--train")
+        records = read_records(os.path.join(tmp, "metrics.jsonl"))
+        print_epochs("device geese", records, "rulebase")
+        check(len(records) == DEVICE_GEESE["epochs"] and records[-1]["steps"] > 0,
+              f"metrics.jsonl: {len(records)} records, expected {DEVICE_GEESE['epochs']} "
+              "with steps > 0 on the last")
+        check_shm("device geese", records, train_out)
+        check("device eval failed" not in train_out, "the device evaluation failed: "
+              + "; ".join(line for line in train_out.splitlines() if "device eval failed" in line))
+        episodes0 = 0
+        for r in records:
+            check_plane("device geese", r)
+            check(math.isfinite((r.get("loss") or {}).get("total", 0.0)), "non-finite epoch loss")
+            n = r["episodes"] - episodes0
+            episodes0 = r["episodes"]
+            device = r.get("device_episodes", 0)
+            share = device / n if n else 0.0
+            # the learner names each opponent under device evaluation: only
+            # games the device evaluator filed count here
+            win = (r.get("win_rate") or {}).get("device-rulebase")
+            check(win is not None, f"epoch {r['epoch']}: no device-rulebase win rate")
+            print(f"[device geese] epoch {r['epoch']}: {r['updates_per_sec']:.2f} updates/s, "
+                  f"episodes/s {r['episodes_per_sec'] * share:.1f} from the device and "
+                  f"{r['episodes_per_sec'] * (1 - share):.1f} from host workers ({device} of {n}), "
+                  f"device_mean_episode_len {r.get('device_mean_episode_len', float('nan')):.2f}, "
+                  f"win rate vs device-rulebase {win:.3f}, "
+                  f"input_wait_frac {r.get('input_wait_frac', float('nan')):.1%}, watchdog "
+                  f"stalls {r['plane_watchdog_stalls']} restarts {r['plane_watchdog_restarts']}")
+        check(any(r.get("device_episodes") for r in records), "no device episode reached the store")
+        print(f"[device geese] --train {DEVICE_GEESE['epochs']} epochs with "
+              f"device_rollout_games {DEVICE_GEESE['device_rollout_games']}, device_eval_games "
+              f"{DEVICE_GEESE['device_eval_games']} in {train_s:.1f} s")
+
+
+def device_drc_learner():
+    """11(d): Geister with the DRC GeisterNet through ``Learner(args).run()``
+    with device self-play, cut as 8a."""
+    import torch
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.runtime.learner import Learner
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = normalize_args({
+            "env_args": {"env": "Geister"},
+            "train_args": dict(DRC_TRAIN_ARGS, minimum_episodes=DRC_EPISODES,
+                               update_episodes=DRC_EPISODES, epochs=2,
+                               worker={"num_parallel": 8}, seed=SEED, device_rollout_games=128,
+                               model_dir=os.path.join(tmp, "models"),
+                               metrics_path=os.path.join(tmp, "metrics.jsonl")),
+        })
+        gc.collect()
+        learner = Learner(cfg)
+        t0 = time.perf_counter()
+        learner.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        records = read_records(cfg["train_args"]["metrics_path"])
+        losses = [r["loss"]["total"] for r in records if "loss" in r]
+        check(losses and all(math.isfinite(x) for x in losses), f"non-finite or no loss: {losses}")
+        for r in records:
+            check_plane("device drc", r)
+        check(any(r.get("device_episodes") for r in records), "no device episode reached the store")
+        check_shm("device drc", records)
+        for r in records:
+            print(f"[device drc] epoch {r['epoch']}: {r['updates_per_sec']:.2f} updates/s, "
+                  f"{r['episodes_per_sec']:.2f} episodes/s, device episodes "
+                  f"{r.get('device_episodes', 0)} of the epoch's, device_mean_episode_len "
+                  f"{r.get('device_mean_episode_len', float('nan')):.1f}, loss {r['loss']['total'] if 'loss' in r else None}")
+        print(f"[device drc] Geister DRC B{cfg['train_args']['batch_size']} with "
+              f"device_rollout_games 128: {learner.trainer.steps} steps, "
+              f"{learner.num_returned_episodes} episodes in {run_s:.1f} s")
+
+
 def leftovers(shm_before):
     """Shared-memory segments and processes of the port alive now: segments
     made since ``shm_before``, this process's children, and CLI processes
@@ -1809,6 +2307,11 @@ def main(argv):
             phase_remote(results)
             # the batch-assembly plane under the learners (no kernel)
             phase_assembly(results)
+            # on-device self-play and evaluation (no kernel on these paths)
+            reset_launches()
+            phase_selfplay(results)
+            print(f"[selfplay] kernel launches in phase 11: masked {MASKED_FLASH.launches}, "
+                  f"flash {FLASH.launches}")
             segments, procs = leftovers(shm_before)
             check(not segments and not procs,
                   f"outlived their runs: segments {segments}, processes {procs}")

@@ -8,7 +8,9 @@ untouched, except those that select a plane the port lacks: a non-default
 value of one of ``NOT_PORTED_KEYS`` is refused, naming the ROADMAP item
 that ports it, not quietly run on the plain loop.  Every default is the
 JAX package's, ``batch_pipeline: shm`` included; ``device``, the one
-assembly plane not ported, is refused too.
+assembly plane not ported, is refused too.  On-device self-play and
+evaluation (``device_rollout_games``, ``device_eval_games``) are ported, on
+the fused plane of one card.
 """
 
 from __future__ import annotations
@@ -114,6 +116,19 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     "lr_scale": 1.0,
     # the network battle server's port (--eval-server / --eval-client)
     "battle_port": 9876,
+    # on-device self-play: > 0 runs this many persistent lanes (episodic
+    # games for a twin without the streaming hooks) of the env's device
+    # twin on the card, beside the host actors (runtime/device_rollout.py)
+    "device_rollout_games": 0,
+    # on-device evaluation at each epoch boundary: > 0 plays this many
+    # games of the net against eval.opponent's first entry (rulebase or
+    # random) on the card (runtime/device_eval.py)
+    "device_eval_games": 0,
+    # the rollout thread's watchdog: a thread that dies, or makes no
+    # progress for plane_stall_timeout seconds after its first block, is
+    # restarted up to plane_max_restarts times
+    "plane_stall_timeout": 120.0,
+    "plane_max_restarts": 2,
 }
 
 DEFAULT_WORKER_ARGS: Dict[str, Any] = {
@@ -135,11 +150,13 @@ DEFAULT_WORKER_ARGS: Dict[str, Any] = {
 # keys of the JAX package that select a plane the port lacks: the key's
 # path in train_args, its JAX default, and the ROADMAP item that ports it
 NOT_PORTED_KEYS = (
-    (("device_rollout_games",), 0, "A7 (the device data plane)"),
     (("device_replay",), False, "A7 (the device data plane)"),
-    (("device_eval_games",), 0, "A7 (the device data plane)"),
     (("plane",), "fused", "A7 (the device data plane)"),
     (("obs_int8",), False, "A7 (the device data plane)"),
+    # acts only under plane: split
+    (("plane_param_lag_bound",), 0, "A7 (the device data plane)"),
+    # verifies an autovec-lifted twin, and the port has no autovec
+    (("autovec_verify_games",), 0, "A7 (the device data plane)"),
     (("distributed", "num_processes"), 1, "A8 (multiple GPUs)"),
     (("flywheel", "enabled"), False, "A10 (serving and the rest)"),
     (("trace", "enabled"), False, "A8 (the learner's fault machinery and tracing)"),
@@ -240,6 +257,14 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
         )
     if train["lr_scale"] <= 0:
         raise ValueError(f"train_args.lr_scale must be > 0, got {train['lr_scale']}")
+    if train["device_rollout_games"] < 0:
+        raise ValueError("train_args.device_rollout_games must be >= 0")
+    if train["device_eval_games"] < 0:
+        raise ValueError("train_args.device_eval_games must be >= 0")
+    if train["plane_stall_timeout"] <= 0:
+        raise ValueError("train_args.plane_stall_timeout must be > 0")
+    if train["plane_max_restarts"] < 0:
+        raise ValueError("train_args.plane_max_restarts must be >= 0")
     for path, default, item in NOT_PORTED_KEYS:
         value = train
         for key in path:

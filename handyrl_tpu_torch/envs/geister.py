@@ -15,7 +15,8 @@ board-of-codes + counts bookkeeping.
 
 The port's copy of ``handyrl_tpu/envs/geister.py``, rule for rule.  Its
 default net is the DRC ``GeisterNet``; ``net: transformer`` picks the memory
-transformer.  The device twin (``vector_env``) is not ported.
+transformer.  ``vector_env()`` returns its device twin
+(envs/vector_geister.py).
 """
 
 from __future__ import annotations
@@ -330,6 +331,14 @@ class Environment(BaseEnvironment):
 
     def action_size(self):
         return 214  # 144 move + 70 layout logits
+
+    @staticmethod
+    def vector_env():
+        """The device-resident twin (streaming on-device self-play with the
+        recurrent DRC net, runtime/device_rollout.py)."""
+        from .vector_geister import VectorGeister
+
+        return VectorGeister
 
     def transformer_spec(self):
         return {"num_actions": self.action_size(), "with_return": True}

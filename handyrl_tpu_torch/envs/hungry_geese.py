@@ -16,7 +16,8 @@ a standalone numpy implementation of the kaggle rules:
 
 Observation: 17 planes (7, 11): head, tail tip, whole body and previous
 head of each goose, rotated so that the acting player's channels come
-first, then food.  The device twin (``vector_env``) is not ported.
+first, then food.  ``vector_env()`` returns its device twin
+(envs/vector_hungry_geese.py).
 """
 
 from __future__ import annotations
@@ -254,6 +255,14 @@ class Environment(BaseEnvironment):
 
     def action_size(self):
         return 4
+
+    @staticmethod
+    def vector_env():
+        """The device-resident twin (streaming on-device self-play and
+        evaluation, runtime/device_rollout.py and device_eval.py)."""
+        from .vector_hungry_geese import VectorHungryGeese
+
+        return VectorHungryGeese
 
     def default_net(self):
         from ..models import GeeseNet

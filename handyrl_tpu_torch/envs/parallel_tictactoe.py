@@ -4,7 +4,8 @@ The port's copy of ``handyrl_tpu/envs/parallel_tictactoe.py``: both players
 submit an action every step, and one of the submitted actions, chosen
 uniformly with ``random``, is played for its submitter.  It exercises the
 simultaneous-move path (``turns()`` lists every player) with TicTacToe's
-net.  The device twin (``vector_env``) is not ported.
+net.  ``vector_env()`` returns its device twin
+(envs/vector_parallel_tictactoe.py).
 """
 
 from __future__ import annotations
@@ -56,6 +57,13 @@ class Environment(TicTacToe):
 
     def turns(self):
         return self.players()
+
+    @staticmethod
+    def vector_env():
+        """The device-resident twin (streaming on-device self-play)."""
+        from .vector_parallel_tictactoe import VectorParallelTicTacToe
+
+        return VectorParallelTicTacToe
 
     def observation(self, player=None):
         """Per-player view: [a plane of ones (every player acts), my stones,

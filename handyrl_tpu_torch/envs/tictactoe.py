@@ -2,8 +2,8 @@
 
 The port's copy of the host environment of ``handyrl_tpu/envs/tictactoe.py``
 (actions 0..8 = row * 3 + col, 'A1'-style strings, three 3x3 observation
-planes), on a flat 9-cell board with a table of the winning lines.  The
-device twin (``vector_env``) is not ported.
+planes), on a flat 9-cell board with a table of the winning lines.
+``vector_env()`` returns its device twin (envs/vector_tictactoe.py).
 """
 
 from __future__ import annotations
@@ -96,6 +96,14 @@ class Environment(BaseEnvironment):
 
     def players(self):
         return [0, 1]
+
+    @staticmethod
+    def vector_env():
+        """The device-resident twin (batched tensor transitions), for
+        episodic on-device self-play (runtime/device_rollout.py)."""
+        from .vector_tictactoe import VectorTicTacToe
+
+        return VectorTicTacToe
 
     def observation(self, player=None):
         """3 planes (C, 3, 3): [is-my-turn-view, my stones, opponent stones]."""

@@ -17,9 +17,21 @@ arrive on one queue that the server loop consumes.  With ``remote=True``
 (``--train-server``) the actors run on worker machines instead, served over
 TCP by ``runtime/server.py``'s ``WorkerServer``: a gather asks for ``n``
 assignments at once and uploads lists, a vanished connection's jobs come
-back as ``jobs_lost``, and the drain waits for the live connections.  The
-JAX package's distributed learner, fault injection, tracing, data flywheel,
-device planes and preemption drain are not ported (ROADMAP).
+back as ``jobs_lost``, and the drain waits for the live connections.
+
+With ``device_rollout_games > 0`` a rollout thread plays self-play games of
+the env's device twin on the card (runtime/device_rollout.py, the fused
+plane of one card): it runs a module of its own, loaded from the model
+server's published snapshot when the epoch changes, pauses once the
+epoch's episode budget is met, and hands its episodes to the server loop,
+which stores them and counts them as generation jobs, so host workers tilt
+towards evaluation.  A watchdog restarts the thread when it dies or stalls.
+With ``device_eval_games > 0`` each epoch boundary first plays that many
+games of the published model against ``rulebase`` or ``random`` on the
+card (runtime/device_eval.py), filed as opponent ``device-<name>``.  The
+JAX package's distributed learner, fault injection, tracing, data
+flywheel, device replay, split plane and preemption drain are not ported
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -32,7 +44,10 @@ import sys
 import threading
 import time
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeoutError
 from typing import Any, Dict, List, Optional
+
+import torch
 
 from ..envs import make_env, prepare_env
 from ..models import init_variables
@@ -88,6 +103,9 @@ class Learner:
         if self.model_epoch > 0:
             self.module.load_state_dict(
                 load_verified_params(self.model_dir, self.model_epoch, pre_verified=auto_resumed))
+        # the device planes are set up before anything starts, so a
+        # misconfiguration fails the run here
+        self._setup_device_planes()
 
         self.generation_results: Dict[int, tuple] = {}
         self.num_episodes = 0
@@ -133,6 +151,63 @@ class Learner:
         self._epoch_episodes0 = 0
         self._trainer_thread: Optional[threading.Thread] = None
         self._metrics_tail_checked = False
+        self._next_update_episodes = self.args["minimum_episodes"] + update_episodes
+
+    def _vector_env(self, key: str):
+        vector_env = getattr(self.env, "vector_env", None)
+        if vector_env is None:
+            raise ValueError(f"{key} set but env {self.args['env'].get('env')} exposes no "
+                             "vector_env()")
+        return vector_env()
+
+    def _setup_device_planes(self) -> None:
+        """The rollout and the evaluator of the device twin, each
+        with a copy of the module on this learner's device."""
+        self._device_games = int(self.args["device_rollout_games"])
+        self._device_roll = None
+        self._device_eval = None
+        self._rollout_thread: Optional[threading.Thread] = None
+        self._rollout_gen = 0
+        self._rollout_progress_t = time.monotonic()
+        self._rollout_dispatched = False
+        self._watchdog_events = {"plane_watchdog_stalls": 0, "plane_watchdog_restarts": 0}
+        # the epoch records' plane: "none" once the watchdog has given up
+        self._plane = "fused"
+        # device episodes and their game steps this epoch
+        self._device_epoch_eps = 0
+        self._device_epoch_steps = 0
+        if self._device_games > 0:
+            venv = self._vector_env("device_rollout_games")
+            if self.args["observation"] and not hasattr(venv, "observe_mask"):
+                raise ValueError(
+                    "device_rollout_games with observation: true requires a vector env that "
+                    f"records observer views (an observe_mask hook); {venv.__name__} records "
+                    "acting players only; use host actors instead"
+                )
+            from .device_rollout import make_device_rollout
+
+            self._device_roll = make_device_rollout(venv, self.module, self.args,
+                                                    self._device_games, device=self.device)
+        n_eval = int(self.args["device_eval_games"])
+        if n_eval > 0:
+            venv = self._vector_env("device_eval_games")
+            opp_list = self.args["eval"].get("opponent") or ["random"]
+            if not isinstance(opp_list, list):
+                opp_list = [opp_list]
+            opp = opp_list[0]
+            if opp not in ("random", "rulebase") or (
+                opp == "rulebase" and not hasattr(venv, "rule_based_action_all")
+            ):
+                # loudly: a config asking for rulebase curves would otherwise
+                # quietly chart another opponent
+                print(f"[handyrl_tpu_torch] device eval: opponent '{opp}' unavailable for this "
+                      "vector env; evaluating vs 'random' instead")
+                opp = "random"
+            from .device_eval import DeviceEvaluator
+
+            # DeviceEvaluator refuses an episodic twin at construction
+            self._device_eval = DeviceEvaluator(venv, self.module, n_lanes=min(64, max(8, n_eval)),
+                                                opponent=opp, device=self.device)
 
     # -- request plumbing ---------------------------------------------------
 
@@ -178,10 +253,29 @@ class Learner:
         n, r, _ = stats
         return (r / (n + 1e-6) + 1) / 2, n
 
+    def _feed_device_eval(self) -> None:
+        """Batched on-device matches of the published snapshot, filed in
+        the same books as the workers' evaluation results."""
+        epoch, params = self.model_server.latest_snapshot()
+        counts = self._device_eval.evaluate(params, int(self.args["device_eval_games"]),
+                                            self.args["seed"] + 0xE7A1 + self.model_epoch)
+        opponent = "device-" + self._device_eval.opponent
+        self.feed_results([
+            {"args": {"player": [0], "model_id": {0: epoch}},
+             "result": {0: outcome}, "opponent": opponent}
+            for outcome, n in counts.items() for _ in range(n)
+        ])
+
     def update(self) -> None:
         print()
         print("epoch %d" % self.model_epoch)
         record: Dict[str, Any] = {"epoch": self.model_epoch}
+
+        if self._device_eval is not None:
+            try:
+                self._feed_device_eval()
+            except Exception as exc:  # an evaluation never kills the boundary
+                print(f"device eval failed: {type(exc).__name__}: {exc}")
 
         if self.model_epoch not in self.results:
             print("win rate = n/a (0 games)")
@@ -194,7 +288,10 @@ class Learner:
                 record.setdefault("win_rate", {})[name or "total"] = wr
 
             per_opp = self.results_per_opponent.get(self.model_epoch, {})
-            if len(self.args["eval"].get("opponent", [])) <= 1 and len(per_opp) <= 1:
+            # under device evaluation the record always names each opponent,
+            # so a device-<name> rate is told from the host workers' games
+            if (self._device_eval is None and len(self.args["eval"].get("opponent", [])) <= 1
+                    and len(per_opp) <= 1):
                 output_wp("", self.results[self.model_epoch])
             else:
                 output_wp("total", self.results[self.model_epoch])
@@ -243,6 +340,14 @@ class Learner:
             episodes_per_sec=(self.num_returned_episodes - self._epoch_episodes0) / dt,
             updates_per_sec=(steps - epoch_steps0) / dt,
         )
+        if self._device_epoch_eps:
+            record["device_episodes"] = self._device_epoch_eps
+            record["device_mean_episode_len"] = self._device_epoch_steps / self._device_epoch_eps
+            self._device_epoch_eps = 0
+            self._device_epoch_steps = 0
+        if self._device_games > 0:  # the plane and the watchdog's cumulative events
+            record["plane"] = self._plane
+            record.update(self._watchdog_events)
         if self.model_server.substituted_snapshots:
             record["serve_snapshot_substituted"] = self.model_server.substituted_snapshots
         if self.remote:  # the remote actor plane's books, cumulative
@@ -348,6 +453,13 @@ class Learner:
             return [self._assign_role() for _ in range(int(data))]
         if req == "episode":
             self.feed_episodes(data if isinstance(data, list) else [data])
+        elif req == "device_episodes":
+            # on-device generation bypasses role assignment; counting its
+            # episodes as generation jobs keeps the eval_rate balance
+            self.feed_episodes(data)
+            self.num_episodes += len(data)
+            self._device_epoch_eps += len(data)
+            self._device_epoch_steps += sum(ep["steps"] for ep in data)
         elif req == "result":
             self.feed_results(data if isinstance(data, list) else [data])
         elif req == "jobs_lost":
@@ -361,7 +473,6 @@ class Learner:
 
     def server(self) -> None:
         print("started server")
-        next_update_episodes = self.args["minimum_episodes"] + self.args["update_episodes"]
         self._shutdown_t0 = 0.0
         try:
             while self._workers_active() or not self.shutdown_flag:
@@ -373,8 +484,8 @@ class Learner:
                     continue
                 fut.set_result(self._serve_request(req, data))
 
-                if self.num_returned_episodes >= next_update_episodes and not self.shutdown_flag:
-                    next_update_episodes += self.args["update_episodes"]
+                if self.num_returned_episodes >= self._next_update_episodes and not self.shutdown_flag:
+                    self._next_update_episodes += self.args["update_episodes"]
                     self.update()
                     if 0 <= self.args["epochs"] <= self.model_epoch:
                         self.shutdown_flag = True
@@ -396,6 +507,112 @@ class Learner:
                 self._trainer_thread.join(timeout=60.0)
         print("finished server")
 
+    # -- the device rollout thread and its watchdog --------------------------
+
+    def _start_rollout_thread(self) -> threading.Thread:
+        """(Re)start the rollout thread under a new generation token; a
+        superseded generation exits at its next liveness check."""
+        self._rollout_gen += 1
+        gen = self._rollout_gen
+        self._rollout_progress_t = time.monotonic()
+        # stall detection arms after this generation's first block: its
+        # first call builds the lanes and warms the allocator
+        self._rollout_dispatched = False
+        thread = threading.Thread(target=self._device_rollout_loop, args=(gen,), daemon=True,
+                                  name=f"device-rollout-{gen}")
+        self._rollout_thread = thread
+        thread.start()
+        return thread
+
+    def _rollout_live(self, gen: int) -> bool:
+        return not self.shutdown_flag and self._rollout_gen == gen
+
+    def _rollout_beat(self) -> None:
+        """The watchdog's heartbeat: every block, backpressure sleep and
+        wait on the server loop counts as progress."""
+        self._rollout_progress_t = time.monotonic()
+
+    def _watchdog_loop(self) -> None:
+        """Restart a rollout thread that died, or made no progress for
+        plane_stall_timeout seconds, up to plane_max_restarts times; past
+        that, give up on device generation loudly: the host actors go on,
+        and every later epoch record says ``plane: "none"``."""
+        timeout = float(self.args["plane_stall_timeout"])
+        max_restarts = int(self.args["plane_max_restarts"])
+        restarts = 0
+        tick = max(0.05, min(1.0, timeout / 4.0))
+        while not self.shutdown_flag:
+            time.sleep(tick)
+            thread = self._rollout_thread
+            if self.shutdown_flag or thread is None:
+                continue
+            dead = not thread.is_alive()
+            stall_s = time.monotonic() - self._rollout_progress_t
+            stalled = stall_s > timeout and self._rollout_dispatched
+            if not (dead or stalled):
+                continue
+            reason = ("thread died" if dead
+                      else f"no progress for {stall_s:.1f}s (> plane_stall_timeout)")
+            self._watchdog_events["plane_watchdog_stalls"] += 1
+            print(f"[handyrl_tpu_torch] plane watchdog: rollout plane unhealthy ({reason})",
+                  file=sys.stderr)
+            if restarts >= max_restarts:
+                print("[handyrl_tpu_torch] plane watchdog: restart budget exhausted; giving up on "
+                      "the rollout thread (host actors keep generating)", file=sys.stderr)
+                self._plane = "none"
+                return
+            restarts += 1
+            self._watchdog_events["plane_watchdog_restarts"] += 1
+            print(f"[handyrl_tpu_torch] plane watchdog: restarting rollout thread "
+                  f"({restarts}/{max_restarts})", file=sys.stderr)
+            self._start_rollout_thread()
+
+    def _device_rollout_loop(self, gen: int) -> None:
+        """Generate device self-play blocks up to each epoch boundary.
+        ``gen`` is the thread's generation token; a restarted generation
+        draws another stream than the one it replaces."""
+        rng = torch.Generator(device=self.device).manual_seed(
+            self.args["seed"] + 0x5EED + 0x1009 * (gen - 1))
+        roll = self._device_roll
+        try:
+            # grad mode is per thread
+            with torch.inference_mode():
+                self._device_rollout_inner(roll, rng, gen)
+        finally:
+            if hasattr(roll, "drain") and self._rollout_gen == gen:
+                roll.drain()
+
+    def _device_rollout_inner(self, roll, rng: torch.Generator, gen: int) -> None:
+        loaded = None
+        while self._rollout_live(gen):
+            if self.num_returned_episodes >= self._next_update_episodes:
+                # backpressure: the epoch's budget is met; let the trainer run
+                time.sleep(0.02)
+                self._rollout_beat()
+                continue
+            epoch, params = self.model_server.latest_snapshot()
+            episodes = roll.generate(params if epoch != loaded else None, rng)
+            loaded = epoch
+            self._rollout_dispatched = True
+            self._rollout_beat()
+            for ep in episodes:
+                ep["args"]["model_id"] = {p: epoch for p in ep["players"]}
+            if not self._rollout_live(gen):
+                return
+            if not episodes:
+                continue
+            # submit once and wait on the same future: the server loop can be
+            # busy for a long time at an epoch boundary, which is no stall
+            fut: Future = Future()
+            self._requests.put(("device_episodes", episodes, fut))
+            while not fut.done():
+                try:
+                    fut.result(timeout=5.0)
+                except FutureTimeoutError:
+                    if not self._rollout_live(gen):
+                        return  # the server loop has ended; nothing to feed
+                self._rollout_beat()
+
     def run(self) -> int:
         """Train to ``epochs`` epochs (or until stopped); returns 0."""
         self._trainer_thread = threading.Thread(target=self.trainer.run, daemon=True,
@@ -408,7 +625,16 @@ class Learner:
             raise
         if not self.remote:
             self._active_workers = len(self.worker.threads)
-        self.server()
+        if self._device_roll is not None:
+            self._start_rollout_thread()
+            threading.Thread(target=self._watchdog_loop, daemon=True, name="plane-watchdog").start()
+        try:
+            self.server()
+        finally:
+            self.shutdown_flag = True
+            if self._rollout_thread is not None:
+                # let the block in flight finish and its copies land
+                self._rollout_thread.join(timeout=120.0)
         return 0
 
 

@@ -52,7 +52,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "runtime/learner.py", "runtime/trainer.py", "runtime/worker.py",
         "runtime/connection.py", "runtime/server.py", "runtime/battle.py",
         "league/matchmaker.py", "envs/connect_four.py", "runtime/shm_batch.py",
-        "runtime/_codec_build.py", "runtime/codec.py", "runtime/batch.py"} <= checked
+        "runtime/_codec_build.py", "runtime/codec.py", "runtime/batch.py",
+        "envs/vector_common.py", "envs/vector_tictactoe.py", "envs/vector_parallel_tictactoe.py",
+        "envs/vector_hungry_geese.py", "envs/vector_geister.py", "runtime/device_rollout.py",
+        "runtime/device_eval.py"} <= checked
     offenders = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN) for p in files}
     assert not {k: v for k, v in offenders.items() if v}
 
@@ -89,6 +92,46 @@ def test_new_nets_refuse_to_fall_back_to_cpu(monkeypatch, entry, env_args, train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
     build(device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["device_rollout", "streaming_rollout", "make_device_rollout",
+                                   "device_evaluator", "learner_device_planes"])
+def test_device_planes_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path, entry):
+    """On-device self-play and evaluation run on the card; without one they
+    raise, and run on the CPU only when asked."""
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.runtime.device_eval import DeviceEvaluator
+    from handyrl_tpu_torch.runtime.device_rollout import (
+        DeviceRollout, StreamingDeviceRollout, make_device_rollout,
+    )
+    from handyrl_tpu_torch.runtime.learner import Learner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ttt, geese = make_env({"env": "TicTacToe"}), make_env({"env": "HungryGeese"})
+    args = {"observation": False, "compress_steps": 4, "gamma": 0.8}
+    cfg = normalize_args({"env_args": {"env": "HungryGeese"}, "train_args": {
+        "turn_based_training": False, "observation": False, "device_rollout_games": 8,
+        "device_eval_games": 8, "worker": {"num_parallel": 1},
+        "model_dir": str(tmp_path / "models"), "metrics_path": str(tmp_path / "m.jsonl")}})
+    build = {
+        "device_rollout": lambda device=None: DeviceRollout(
+            ttt.vector_env(), ttt.net(), args, 4, device=device),
+        "streaming_rollout": lambda device=None: StreamingDeviceRollout(
+            geese.vector_env(), geese.net(), args, 4, device=device),
+        "make_device_rollout": lambda device=None: make_device_rollout(
+            geese.vector_env(), geese.net(), args, 4, device=device),
+        "device_evaluator": lambda device=None: DeviceEvaluator(
+            geese.vector_env(), geese.net(), 4, device=device),
+        "learner_device_planes": lambda device=None: Learner(cfg, device=device),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
+    built = build(device="cpu")
+    if entry == "learner_device_planes":
+        assert built._device_roll.device.type == built._device_eval.device.type == "cpu"
+        built.model_server.stop()
+    else:
+        assert next(built.module.parameters()).device.type == "cpu"
 
 
 LOOP_CONFIG = {"env_args": {"env": "TicTacToe"},

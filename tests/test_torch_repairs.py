@@ -95,8 +95,8 @@ def _value(path, value):
 
 
 NON_DEFAULT = {
-    "device_rollout_games": 64, "device_replay": True, "device_eval_games": 32,
-    "plane": "split", "obs_int8": True, "num_processes": 2, "flywheel": True, "trace": True,
+    "device_replay": True, "plane": "split", "obs_int8": True, "plane_param_lag_bound": 5,
+    "autovec_verify_games": 4, "num_processes": 2, "flywheel": True, "trace": True,
     "profile_dir": "profiles",
 }
 
@@ -109,6 +109,25 @@ def test_keys_of_planes_not_ported_are_refused(path, default, item):
     bad = NON_DEFAULT[path[0] if path[0] in NON_DEFAULT else path[-1]]
     with pytest.raises(ValueError, match=f"ROADMAP {item.split()[0]}"):
         normalize_args({"env_args": env, "train_args": _value(path, bad)})
+
+
+@pytest.mark.parametrize("key,value", [("device_rollout_games", 64), ("device_eval_games", 32)])
+def test_device_plane_keys_pass_both_packages_alike(key, value):
+    """On-device self-play and evaluation are ported: both packages'
+    normalize_args take the key, with the same result for it and for the
+    watchdog keys, and both refuse a negative count."""
+    from handyrl_tpu.config import normalize_args as jax_normalize_args
+
+    raw = {"env_args": {"env": "HungryGeese"}, "train_args": {key: value}}
+    port, jax_args = normalize_args(raw)["train_args"], jax_normalize_args(raw)["train_args"]
+    for name in ("device_rollout_games", "device_eval_games", "plane_stall_timeout",
+                 "plane_max_restarts"):
+        assert port[name] == jax_args[name], name
+    assert port[key] == value
+    bad = {"env_args": {"env": "HungryGeese"}, "train_args": {key: -1}}
+    for normalize in (normalize_args, jax_normalize_args):
+        with pytest.raises(ValueError, match=key):
+            normalize(bad)
 
 
 def test_not_ported_keys_name_the_jax_defaults():
