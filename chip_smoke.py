@@ -100,18 +100,43 @@ Phases, each of which fails the run when it fails:
    ``Learner(args).run()`` with ``device_rollout_games: 128``, cut as 8a:
    finite losses, every epoch on the fused plane, no watchdog stall.  Alone:
    ``python3 -c "import chip_smoke as cs; cs.phase_selfplay({})"``.
+12. the device data plane (rings on the card, ``device_replay`` and
+   ``batch_pipeline: device``), random weights from seed 0, full width:
+   (a) HungryGeese ``GeeseNet`` in ff mode, bench.py's north-star loop: 128
+   lanes x 32 steps per rollout launch into 512-slot rings, 16 train calls
+   of fused_steps 8 (B128 x T16) per launch, a 10 s window after a prefill:
+   updates/s, trained and self-play env-steps/s, the rollout's share of
+   the window, launches per ingest and per train call, the rings' bytes,
+   peak memory; (b) Geister's DRC in turn mode (64 lanes, B16, burn-in 4 +
+   forward 8, UPGO, fused 4, 2 train calls per launch), the same numbers;
+   (c) the transformer above in turn mode from rings (32 lanes, 1024 slots)
+   through B1: one train call's ms and peak memory, B1 launched n_layers
+   times per update, the loss finite and held against the einsum path on
+   one sampled batch; (d) 11(c)'s HungryGeese through ``--train`` and
+   11(d)'s DRC through ``Learner(args).run()`` with ``device_replay:
+   true``, 2 epochs each: updates/s, ``device_episodes``,
+   ``device_mean_episode_len``, the device-rulebase rate and
+   ``input_wait_frac`` beside 11(c)/(d)'s; finite losses, no watchdog
+   stall, every returned episode a device one (host workers only
+   evaluate); (e) 8b's and 8a's learners under ``batch_pipeline: device``
+   and ``shm`` in turns, one epoch each: updates/s, input wait, the stage's
+   assemble/put seconds; every device epoch live in mode ``device``;
+   (f) gates: every ring tensor on the card, one ingest on the card equal
+   to the CPU's bit for bit, one sampled batch equal to the CPU's from the
+   same rings and draws, nothing of the port outliving the phase.  Alone:
+   ``python3 -c "import chip_smoke as cs; cs.phase_device_data({})"``.
 
-Every learner phase (7a, 7b, 8a, 8b, 9a, 9b, 11c, 11d) runs on the port's default
+Every learner phase (7a, 7b, 8a, 8b, 9a, 9b, 11c, 11d; 12(e)'s shm runs) runs on the port's default
 ``batch_pipeline: shm`` and fails unless every epoch's live pipeline mode
 is ``shm``, the codec accelerator and the C fill are loaded, and no
 batcher died or fell back; it prints the pipeline's stage seconds and the
 put's ms per batch.  The script fails if a shared-memory segment or a
 process of the port outlives it.
 
-Phases 4, 5-6, 7b and 9b are the paths through the port's kernels: each
-starts with every launch count at 0, and its kernel's count is read at its
-end; phases 8a and 11 are read the same way and launch neither kernel (8b,
-9a, 9c and 11c run in processes of their own).
+Phases 4, 5-6, 7b, 9b and 12(c) are the paths through the port's kernels:
+each starts with every launch count at 0, and its kernel's count is read
+at its end; phases 8a and 11 are read the same way and launch neither
+kernel (8b, 9a, 9c, 11c and 12(d)'s CLI run in processes of their own).
 The last two lines are a JSON ``kernels`` record and the verdict
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or of handyrl_tpu is
 imported.  Weights are random, made from a seed.
@@ -648,16 +673,28 @@ def phase_training(results, env_args, module, episodes):
     profile_call("one train step", lambda: trainer.train_epoch(1))
 
     # the path's output against its reference: the same batch through the
-    # einsum attention (no kernel), forward only
-    batch = trainer.ctx.put_batch(trainer.sample_batch())
+    # einsum attention (no kernel)
+    flash_vs_einsum("training", module, trainer.ctx.put_batch(trainer.sample_batch()), args)
+
+
+def flash_vs_einsum(tag, module, batch, args):
+    """One batch through the masked flash kernel and through the einsum
+    attention (no kernel), forward and loss in bf16.  bf16 activations
+    through 8 layers: the two attentions round at other places (the kernel
+    keeps probabilities in fp32, the einsum casts them to bf16), so they
+    are held to 5% of the outputs' scale."""
+    import torch
+
+    from handyrl_tpu_torch.ops import compute_loss_from_outputs
+    from handyrl_tpu_torch.parallel.train_step import forward_prediction, trim_burn_in
+
     with torch.no_grad():
         params = {n: p.to(torch.bfloat16) for n, p in module.named_parameters()}
         outs = [forward_prediction(module, params, batch, dict(args, seq_attention=mode))
                 for mode in ("flash", "einsum")]
-    # bf16 activations through 8 layers: the two attentions round at other
-    # places (the kernel keeps probabilities in fp32, the einsum casts them
-    # to bf16), so hold them to 5% of the outputs' scale
-    acting = batch["turn_mask"][..., 0] > 0
+        trimmed = trim_burn_in(batch, args["burn_in_steps"])
+        losses = [compute_loss_from_outputs(o, trimmed, args)[0]["total"].item() for o in outs]
+    acting = batch["turn_mask"][:, args["burn_in_steps"]:][..., 0] > 0
     for key in ("value", "return", "policy"):
         a, b = outs[0][key], outs[1][key]
         if key == "policy":  # legal logits of acting steps (illegal ones are -1e32 on both)
@@ -665,9 +702,14 @@ def phase_training(results, env_args, module, episodes):
             legal = b > -1e30
             a, b = a[legal], b[legal]
         err, scale = (a - b).abs().max().item(), max(1.0, b.abs().max().item())
-        print(f"[training] kernel vs einsum path, one batch in bf16: {key} max_abs_err {err:.3e} "
+        print(f"[{tag}] kernel vs einsum path, one batch in bf16: {key} max_abs_err {err:.3e} "
               f"(tolerance {5e-2 * scale:.3e})")
-        check(err <= 5e-2 * scale, f"training forward disagrees with the einsum path on {key}")
+        check(err <= 5e-2 * scale, f"{tag}: the forward disagrees with the einsum path on {key}")
+    err, scale = abs(losses[0] - losses[1]), max(1.0, abs(losses[1]))
+    print(f"[{tag}] kernel vs einsum path: loss {losses[0]:.5f} against {losses[1]:.5f} "
+          f"(tolerance {5e-2 * scale:.3e})")
+    check(math.isfinite(losses[0]) and err <= 5e-2 * scale,
+          f"{tag}: the loss disagrees with the einsum path")
 
 
 def launches_per_step(args):
@@ -1571,10 +1613,11 @@ def put_lines(args, windows, tag, ff):
         shm.unlink()
 
 
-def turn_run(config, pipeline, tmp):
-    """One learner of 10(c) in-process for 2 epochs under ``pipeline``: its
-    second epoch's record (the first holds the trainer's warm-up: its first
-    batch and the first step's one-off costs)."""
+def turn_run(config, pipeline, tmp, epochs=2):
+    """One learner in-process under ``pipeline``: 8a's DRC, 8b's HungryGeese
+    or 7a's config.yaml.  Returns its last epoch's record (of 2, 10(c): the
+    first holds the trainer's warm-up, its first batch and the first step's
+    one-off costs), its pipeline's stats and its seconds."""
     import torch
     import yaml
 
@@ -1582,13 +1625,17 @@ def turn_run(config, pipeline, tmp):
     from handyrl_tpu_torch.runtime.learner import Learner
 
     run_dir = os.path.join(tmp, f"{config}_{pipeline}_{time.monotonic_ns()}")
-    paths = dict(epochs=2, batch_pipeline=pipeline, seed=SEED,
+    paths = dict(epochs=epochs, batch_pipeline=pipeline, seed=SEED,
                  model_dir=os.path.join(run_dir, "models"),
                  metrics_path=os.path.join(run_dir, "metrics.jsonl"))
     if config == "8a":
         cfg = normalize_args({"env_args": {"env": "Geister"}, "train_args": dict(
             DRC_TRAIN_ARGS, minimum_episodes=DRC_EPISODES, update_episodes=TURN_EPISODES["8a"],
             worker={"num_parallel": 8}, **paths)})
+    elif config == "8b":
+        cfg = normalize_args({"env_args": {"env": "HungryGeese"}, "train_args": dict(
+            turn_based_training=False, observation=False, minimum_episodes=GEESE_EPISODES,
+            update_episodes=GEESE_EPISODES, eval={"opponent": ["rulebase"]}, **paths)})
     else:  # 7a: config.yaml
         raw = yaml.safe_load((ROOT / "config.yaml").read_text())
         raw["train_args"].update(minimum_episodes=TURN_EPISODES["7a"],
@@ -1600,9 +1647,10 @@ def turn_run(config, pipeline, tmp):
     learner.run()
     torch.cuda.synchronize()
     records = read_records(cfg["train_args"]["metrics_path"])
-    check(len(records) == 2 and "loss" in records[1] and records[1]["pipeline"] == pipeline,
+    check(len(records) == epochs and "loss" in records[-1]
+          and records[-1]["pipeline"] == pipeline and math.isfinite(records[-1]["loss"]["total"]),
           f"{config} {pipeline}: records {[(r['epoch'], r.get('pipeline')) for r in records]}")
-    return records[1], time.perf_counter() - t0
+    return records[-1], learner.trainer.batcher.stats(), time.perf_counter() - t0
 
 
 def assembly_turns():
@@ -1612,7 +1660,7 @@ def assembly_turns():
         for config in ("8a", "7a"):
             runs = []
             for pipeline in ("thread", "shm", "shm", "thread"):
-                r, run_s = turn_run(config, pipeline, tmp)
+                r, _, run_s = turn_run(config, pipeline, tmp)
                 if pipeline == "shm":
                     check_shm(f"turns {config}", [r])
                 runs.append((pipeline, r))
@@ -1751,6 +1799,8 @@ DEVICE_GEESE = {
     "device_rollout_games": 256, "device_eval_games": 64,
     "eval": {"opponent": ["rulebase"]}, "seed": SEED,
 }
+# 11(c)'s and 11(d)'s epoch records, printed beside 12(d)'s
+SELFPLAY_RECORDS = {}
 
 
 def card_generator():
@@ -1907,8 +1957,10 @@ def selfplay_rollout(env_name, train_args, lanes, device=None):
 
 
 def profile_launches(fn):
-    """(wall ms, device ms, launches) of one call of fn under torch.profiler;
-    launches are the device-side events (kernels and copies)."""
+    """(wall ms, device ms, launches, launch calls) of one call of fn under
+    torch.profiler; launches are the device-side events (kernels and
+    copies), launch calls the host's CUDA runtime calls that enqueue work
+    (kernels, copies, memsets), counted on the host side."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1918,10 +1970,13 @@ def profile_launches(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    events = [e for e in averages
               if e.device_type == torch.autograd.DeviceType.CUDA and "#" not in e.key]
+    calls = sum(e.count for e in averages if e.key.startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")))
     return (wall_ms, sum(e.self_device_time_total for e in events) / 1e3,
-            sum(e.count for e in events))
+            sum(e.count for e in events), calls)
 
 
 def selfplay_rates(env_name, train_args, lanes, gen):
@@ -1961,7 +2016,7 @@ def selfplay_rates(env_name, train_args, lanes, gen):
           f"device {split['device_ms']:.1f} ms (events, its block), wait for the block "
           f"{split['wait_ms']:.1f} ms, host assembly {split['assemble_ms']:.1f} ms")
     if env_name in ("HungryGeese", "Geister"):
-        wall, device_ms, launches = profile_launches(lambda: roll.generate(None, gen))
+        wall, device_ms, launches, _ = profile_launches(lambda: roll.generate(None, gen))
         per_step = launches / roll.k_steps
         print(f"[selfplay] {env_name} one generate under the profiler: wall {wall:.1f} ms, "
               f"device {device_ms:.1f} ms ({device_ms / wall:.1%} busy), {launches} launches, "
@@ -2135,6 +2190,7 @@ def device_geese_cli():
             {"env_args": {"env": "HungryGeese"}, "train_args": DEVICE_GEESE}))
         train_out, train_s = run_cli(tmp, "--train")
         records = read_records(os.path.join(tmp, "metrics.jsonl"))
+        SELFPLAY_RECORDS["11(c)"] = records
         print_epochs("device geese", records, "rulebase")
         check(len(records) == DEVICE_GEESE["epochs"] and records[-1]["steps"] > 0,
               f"metrics.jsonl: {len(records)} records, expected {DEVICE_GEESE['epochs']} "
@@ -2191,6 +2247,7 @@ def device_drc_learner():
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         records = read_records(cfg["train_args"]["metrics_path"])
+        SELFPLAY_RECORDS["11(d)"] = records
         losses = [r["loss"]["total"] for r in records if "loss" in r]
         check(losses and all(math.isfinite(x) for x in losses), f"non-finite or no loss: {losses}")
         for r in records:
@@ -2205,6 +2262,407 @@ def device_drc_learner():
         print(f"[device drc] Geister DRC B{cfg['train_args']['batch_size']} with "
               f"device_rollout_games 128: {learner.trainer.steps} steps, "
               f"{learner.num_returned_episodes} episodes in {run_s:.1f} s")
+
+
+# -- phase 12: the device data plane ------------------------------------------
+
+# (a) the JAX package's north-star loop on 8b's args (bench.py:928-1050) and
+# (b) its Geister turn mode with the DRC (bench.py:1452-1489): env args,
+# train args, lanes, steps per rollout launch, ring slots, train calls per
+# rollout launch
+DATA_LOOPS = {
+    "12(a) geese ff": ({"env": "HungryGeese"}, {
+        "turn_based_training": False, "observation": False, "batch_size": 128,
+        "forward_steps": 16, "fused_steps": 8, "seed": SEED}, 128, 32, 512, 16),
+    "12(b) drc turn": ({"env": "Geister"}, {
+        "observation": True, "batch_size": 16, "forward_steps": 8, "burn_in_steps": 4,
+        "policy_target": "UPGO", "value_target": "UPGO", "fused_steps": 4, "seed": SEED},
+        64, 32, 512, 2),
+}
+DATA_WINDOW = 10.0       # seconds of (a)'s and (b)'s timed windows
+DATA_LR = 1e-5           # bench.py's lr for these loops
+# (c) the transformer of phases 5-7 in turn mode from rings: lanes, slots,
+# and the finished episodes the rings hold before the train calls
+DATA_TRANSFORMER = (32, 1024, 16)
+# (d): 11(c)'s and 11(d)'s learners with device_replay: true
+DATA_GEESE_CLI = dict(DEVICE_GEESE, device_replay=True, device_rollout_games=128)
+# (e): 8b's and 8a's learners, one epoch each, device and shm in turns
+DATA_TURNS = ("device", "shm", "shm", "device")
+
+
+def ring_bytes(replay):
+    from handyrl_tpu_torch.utils import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(replay.rings)
+               if hasattr(t, "numel"))
+
+
+def check_rings_on_card(tag, replay):
+    """(f): every ring tensor lives on the card."""
+    from handyrl_tpu_torch.utils import tree_leaves
+
+    tensors = [t for t in tree_leaves(replay.rings) if hasattr(t, "is_cuda")]
+    check(tensors and all(t.is_cuda for t in tensors), f"{tag}: a ring tensor is not on the card")
+
+
+def data_parts(env_args, train_args, lanes, k_steps, slots):
+    """(args, rollout, replay, trainer context) of one on-card data loop,
+    random weights from SEED, on the card."""
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models import init_variables
+    from handyrl_tpu_torch.parallel import TrainContext
+    from handyrl_tpu_torch.runtime.device_replay import DeviceReplay
+    from handyrl_tpu_torch.runtime.device_rollout import StreamingDeviceRollout
+
+    cfg = normalize_args({"env_args": env_args, "train_args": train_args})
+    args = dict(cfg["train_args"], env=cfg["env_args"])
+    env = make_env(cfg["env_args"])
+    venv = env.vector_env()
+    module = init_variables(env.net(), SEED)
+    roll = StreamingDeviceRollout(venv, module, args, n_lanes=lanes, k_steps=k_steps)
+    replay = DeviceReplay(venv, module, args, lanes, slots=slots)
+    return args, roll, replay, TrainContext(module, args)
+
+
+def prefill(tag, roll, replay, gen, eligible, limit=100):
+    """Rollout launches into the rings until ``eligible`` window starts are
+    sampleable; returns the launches and seconds it took."""
+    import torch
+
+    t0, n = time.perf_counter(), 0
+    while replay.eligible_count() < eligible:
+        check(n < limit, f"{tag}: {replay.eligible_count()} sampleable windows after {n} "
+              "rollout launches")
+        replay.ingest_counted(roll.launch(None, gen))
+        n += 1
+    torch.cuda.synchronize()
+    return n, time.perf_counter() - t0
+
+
+def data_loop(tag, env_args, train_args, lanes, k_steps, slots, calls):
+    """12(a)/(b): rollout launch -> ring ingest -> ``calls`` train calls of
+    fused_steps sample+step updates each, all on the card, timed over a
+    window after a prefill and a warm-up call, as bench.py's loop."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args, roll, replay, ctx = data_parts(env_args, train_args, lanes, k_steps, slots)
+    fused, B, T = args["fused_steps"], args["batch_size"], args["forward_steps"]
+    train = replay.train_fn(ctx, fused)
+    gen = card_generator()
+    launches, fill_s = prefill(tag, roll, replay, gen, B)
+    train(gen, DATA_LR)          # warm-up: the allocator, cuDNN's algorithm search
+    torch.cuda.synchronize()
+    steps0, episodes0 = replay.counters["game_steps"], replay.counters["episodes"]
+    updates, losses, rollout_s, spans = 0, [], 0.0, []
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < DATA_WINDOW:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        replay.ingest_counted(roll.launch(None, gen), defer=True)
+        end.record()
+        rollout_s += time.perf_counter() - t1
+        spans.append((start, end))
+        for _ in range(calls):
+            m = train(gen, DATA_LR)
+            check(m["sentinel_bad"] == 0 and math.isfinite(m["total"]),
+                  f"{tag}: a non-finite or skipped update: {m}")
+            losses.append(m["total"] / max(m["dcnt"], 1))
+            updates += fused
+    replay.flush_counted()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rollout_card_s = sum(s.elapsed_time(e) for s, e in spans) / 1e3
+    selfplay = replay.counters["game_steps"] - steps0
+    episodes = replay.counters["episodes"] - episodes0
+    check_rings_on_card(tag, replay)
+    records = roll.launch(None, gen)
+    torch.cuda.synchronize()
+    _, ingest_ms, ingest_events, ingest_launches = profile_launches(lambda: replay.ingest(records))
+    wall_ms, train_ms, train_events, train_launches = profile_launches(lambda: train(gen, DATA_LR))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[data] {tag}: {type(roll.module).__name__}, {lanes} lanes x {k_steps} steps per "
+          f"rollout launch, {slots} slots, B{B} x T{args['burn_in_steps']}+{T}, fused_steps "
+          f"{fused}, {calls} train calls per rollout launch; prefill {launches} launches in "
+          f"{fill_s:.2f} s")
+    print(f"[data] {tag}: {updates / dt:.2f} updates/s, {updates * B * T / dt:.0f} trained "
+          f"env-steps/s, {selfplay / dt:.1f} self-play env-steps/s ({episodes} episodes) over "
+          f"{dt:.2f} s ({len(spans)} rollout launches, {updates} updates); the rollout's share of "
+          f"the window {rollout_s / dt:.1%} on the host, {rollout_card_s / dt:.1%} by events on "
+          f"the card; mean loss per sample {sum(losses) / len(losses):.4f}")
+    print(f"[data] {tag}: launches per ingest {ingest_launches} ({ingest_events} device events, "
+          f"{ingest_ms:.2f} ms of card time), per train call {train_launches} ({train_events} "
+          f"device events, {train_ms:.1f} ms of card time in "
+          f"{wall_ms:.1f} ms of wall, {train_ms / wall_ms:.1%} busy, {fused} updates); rings "
+          f"{ring_bytes(replay) / 1e6:.1f} MB, peak memory {peak_gb:.2f} GB")
+    return args, roll, replay, gen
+
+
+def same_leaves(tag, what, got, want, float_tol=0.0):
+    """Leaf by leaf: ints and bools equal, floats within ``float_tol``;
+    returns the largest float difference."""
+    import torch
+
+    from handyrl_tpu_torch.utils import tree_leaves
+
+    worst = 0.0
+    for key in sorted(want):
+        a, b = tree_leaves(got[key]), tree_leaves(want[key])
+        check(len(a) == len(b), f"{tag} {what}: {key} has another structure")
+        for x, y in zip(a, b):
+            if not torch.is_tensor(y):
+                check(x == y, f"{tag} {what}: {key} {x} != {y}")
+                continue
+            x = x.cpu()
+            check(x.dtype == y.dtype and x.shape == y.shape, f"{tag} {what}: {key} dtype/shape")
+            if y.is_floating_point():
+                err = (x - y).abs().max().item() if y.numel() else 0.0
+                worst = max(worst, err)
+                check(err <= float_tol, f"{tag} {what}: {key} differs by {err:.3e}")
+            else:
+                check(torch.equal(x, y), f"{tag} {what}: {key} differs")
+    return worst
+
+
+def data_gates(tag, args, roll, replay, gen):
+    """12(f): one ingest on the card equals the CPU's ingest of the same
+    records, bit for bit; one sampled batch on the card equals the CPU's
+    from the same rings and the same drawn starts and players."""
+    import torch
+
+    from handyrl_tpu_torch.runtime import device_replay
+    from handyrl_tpu_torch.runtime.device_replay import DeviceReplay, _eligibility
+
+    cpu = DeviceReplay(replay.venv, roll.module, replay.args, replay.n_lanes,
+                       slots=replay.slots, device="cpu")
+    rings = replay.rings
+    cpu.rings = {"rec": {k: v.cpu() for k, v in rings["rec"].items()}, "g": rings["g"],
+                 **{k: rings[k].cpu() for k in ("ep_start_g", "ep_end_g", "valid", "cur_start_g")}}
+    records = roll.launch(None, gen)
+    card_stats = replay.ingest(records).numpy()
+    cpu_stats = cpu.ingest({k: v.cpu() for k, v in records.items()}).numpy()
+    same_leaves(tag, "ingest rings", replay.rings, cpu.rings)
+    # the counts exactly; the outcome sums are fp32 reductions in another
+    # order, equal within 1e-5 of their size
+    check(all(int(card_stats[k]) == int(cpu_stats[k])
+              for k in ("episodes", "game_steps", "player_steps"))
+          and all(abs(a - b) <= 1e-5 * max(1.0, abs(b))
+                  for k in ("outcome_sum", "outcome_sq_sum")
+                  for a, b in zip(card_stats[k].reshape(-1).tolist(),
+                                  cpu_stats[k].reshape(-1).tolist())),
+          f"{tag}: the ingest's stats differ between the card and the CPU: {card_stats}, "
+          f"{cpu_stats}")
+    n = 64
+    ok = _eligibility(replay.rings, args["forward_steps"], args["burn_in_steps"]).reshape(-1)
+    flat = device_replay._draw_starts(gen, ok, n)
+    player = device_replay._draw_players(gen, n, replay.venv.num_players, flat.device)
+    draws = (device_replay._draw_starts, device_replay._draw_players)
+    device_replay._draw_starts = lambda g, ok, n: flat.to(ok.device)
+    device_replay._draw_players = lambda g, n, P, device: player.to(device)
+    try:
+        card_batch = replay.sample(gen, n)
+        cpu_batch = cpu.sample(torch.Generator(), n)
+    finally:
+        device_replay._draw_starts, device_replay._draw_players = draws
+    err = same_leaves(tag, "sampled batch", card_batch, cpu_batch, float_tol=1e-6)
+    print(f"[data gate] {tag}: rings on the card; one ingest ({records['done'].shape[0]} x "
+          f"{replay.n_lanes} records) on the card equals the CPU's bit for bit, every ring leaf, "
+          f"and its stats (counts equal, sums within 1e-5 relative); one sampled batch of {n} windows equals the CPU's from the same rings "
+          f"and draws (ints and masks equal, floats within {err:.1e})")
+
+
+def data_transformer(results):
+    """12(c): the memory transformer trained in turn mode from rings through
+    B1: B1 launched n_layers times per update, the loss finite and held
+    against the einsum path on one sampled batch.  Returns B1's launches."""
+    import torch
+
+    from handyrl_tpu_torch.ops.flash_attention import MASKED_FLASH
+
+    lanes, slots, finished = DATA_TRANSFORMER
+    gc.collect()
+    torch.cuda.empty_cache()
+    env_args = {"env": "Geister", "net": "transformer", "net_args": NET_ARGS}
+    args, roll, replay, ctx = data_parts(env_args, dict(TRAIN_ARGS, seq_attention="flash"),
+                                         lanes, 32, slots)
+    gen = card_generator()
+    t0 = time.perf_counter()
+    while replay.counters["episodes"] < finished:
+        replay.ingest_counted(roll.launch(None, gen))
+        check(replay.rings["g"] <= 40 * 32, f"12(c): {replay.counters['episodes']} episodes "
+              "after 40 rollout launches")
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    check_rings_on_card("12(c)", replay)
+    train = replay.train_fn(ctx, 1)
+    MASKED_FLASH.launches = 0
+    m0 = train(gen, DATA_LR)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    m1 = train(gen, DATA_LR)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) * 1e3
+    launches = MASKED_FLASH.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = launches_per_step(args)
+    check(launches == 2 * per_step, f"12(c): B1 launched {launches} times in 2 updates, "
+          f"expected {2 * per_step}")
+    check(all(m["sentinel_bad"] == 0 and math.isfinite(m["total"]) for m in (m0, m1)),
+          f"12(c): a non-finite or skipped update: {m0}, {m1}")
+    results.setdefault("masked_flash_attention", {"launches": 0})["launches"] += launches
+    print(f"[data] 12(c) transformer d{NET_ARGS['d_model']} L{NET_ARGS['n_layers']} turn mode "
+          f"from rings ({lanes} lanes, {slots} slots, {replay.counters['episodes']} episodes, "
+          f"{replay.rings['g']} steps in {fill_s:.1f} s): one train call B{args['batch_size']} x "
+          f"T{args['forward_steps']} {args['compute_dtype']} {step_ms:.1f} ms, peak memory {peak_gb:.2f} GB, "
+          f"loss per sample {m0['total'] / m0['dcnt']:.4f}, {m1['total'] / m1['dcnt']:.4f}; B1 "
+          f"launched {launches} times in 2 "
+          f"updates ({per_step} per update); rings {ring_bytes(replay) / 1e6:.1f} MB")
+    flash_vs_einsum("data 12(c)", ctx.module, replay.sample(gen, args["batch_size"]), args)
+    return launches
+
+
+def beside(tag, records, other, key):
+    """``key`` of each epoch of ``records``, with ``other``'s same epoch."""
+    def fmt(r):
+        v = r.get(key)
+        if isinstance(v, float):
+            return f"{v:.1%}" if key.endswith("frac") else f"{v:.2f}"
+        return "n/a" if v is None else str(v)
+
+    rows = [f"epoch {r['epoch']} {fmt(r)}"
+            + (f" (11: {fmt(other[i])})" if other and i < len(other) else "")
+            for i, r in enumerate(records)]
+    print(f"[data] {tag} {key}: " + "; ".join(rows))
+
+
+def data_replay_books(tag, records):
+    """12(d)'s gates on a learner's records under device_replay: finite
+    losses, every epoch on the fused plane with no watchdog stall, and every
+    returned episode a device episode (host workers only evaluate)."""
+    check(len(records) == 2 and records[-1]["steps"] > 0,
+          f"{tag}: {len(records)} records, expected 2 with steps > 0 on the last")
+    check(all(math.isfinite(r["loss"]["total"]) for r in records if "loss" in r),
+          f"{tag}: a non-finite epoch loss")
+    for r in records:
+        check_plane(tag, r)
+    device = sum(r.get("device_episodes", 0) for r in records)
+    check(device == records[-1]["episodes"] > 0,
+          f"{tag}: {device} device episodes of {records[-1]['episodes']} returned")
+
+
+def data_learners():
+    """12(d): 11(c)'s HungryGeese through ``--train`` and 11(d)'s DRC through
+    ``Learner(args).run()``, both with ``device_replay: true``."""
+    import torch
+    import yaml
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.runtime.learner import Learner
+
+    with tempfile.TemporaryDirectory() as tmp:
+        Path(tmp, "config.yaml").write_text(yaml.safe_dump(
+            {"env_args": {"env": "HungryGeese"}, "train_args": DATA_GEESE_CLI}))
+        out, run_s = run_cli(tmp, "--train")
+        records = read_records(os.path.join(tmp, "metrics.jsonl"))
+        data_replay_books("12(d) geese", records)
+        check("device eval failed" not in out, "12(d): the device evaluation failed")
+        other = SELFPLAY_RECORDS.get("11(c)")
+        for r in records + (other or []):
+            r["device_rulebase"] = (r.get("win_rate") or {}).get("device-rulebase")
+        for r in records:
+            check(r["device_rulebase"] is not None,
+                  f"12(d) epoch {r['epoch']}: no device-rulebase win rate")
+        for key in ("updates_per_sec", "device_episodes", "device_mean_episode_len",
+                    "device_rulebase", "input_wait_frac"):
+            beside("12(d) geese --train, device_replay", records, other, key)
+        print(f"[data] 12(d) geese: --train 2 epochs with device_replay, "
+              f"{DATA_GEESE_CLI['device_rollout_games']} lanes, device_eval_games "
+              f"{DATA_GEESE_CLI['device_eval_games']} in {run_s:.1f} s")
+
+        cfg = normalize_args({"env_args": {"env": "Geister"}, "train_args": dict(
+            DRC_TRAIN_ARGS, minimum_episodes=DRC_EPISODES, update_episodes=DRC_EPISODES,
+            epochs=2, worker={"num_parallel": 8}, seed=SEED, device_rollout_games=128,
+            device_replay=True, model_dir=os.path.join(tmp, "drc", "models"),
+            metrics_path=os.path.join(tmp, "drc", "metrics.jsonl"))})
+        gc.collect()
+        learner = Learner(cfg)
+        roles = []
+        assign = learner._assign_role
+        learner._assign_role = lambda: (lambda a: roles.append(a["role"]) or a)(assign())
+        t0 = time.perf_counter()
+        learner.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        records = read_records(cfg["train_args"]["metrics_path"])
+        data_replay_books("12(d) drc", records)
+        check(set(roles) <= {"e"}, f"12(d) drc: host workers were given roles {set(roles)}")
+        check(len(learner.trainer.store) == 0, "12(d) drc: host episodes reached the store")
+        other = SELFPLAY_RECORDS.get("11(d)")
+        for key in ("updates_per_sec", "device_episodes", "device_mean_episode_len",
+                    "input_wait_frac"):
+            beside("12(d) drc Learner, device_replay", records, other, key)
+        print(f"[data] 12(d) drc: Learner(args).run() with device_replay, 128 lanes: "
+              f"{learner.trainer.steps} steps, {learner.num_returned_episodes} episodes, "
+              f"{len(roles)} host jobs, all evaluations, in {run_s:.1f} s")
+
+
+def data_pipeline_turns():
+    """12(e): 8b's and 8a's learners under ``batch_pipeline: device`` and
+    ``shm`` in turns, one epoch each; every device epoch live in mode
+    device (a degrade to shm fails the phase)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for config in ("8b", "8a"):
+            runs = []
+            for pipeline in DATA_TURNS:
+                # one epoch each, of 10(c)'s episode counts
+                r, stats, run_s = turn_run(config, pipeline, tmp, epochs=1)
+                if pipeline == "shm":
+                    check_shm(f"12(e) {config}", [r])
+                else:
+                    check(stats["mode"] == "device" and stats["chunks_flushed"] > 0,
+                          f"12(e) {config}: the device pipeline {stats}")
+                runs.append(r)
+                staged = (f", {stats['episodes_staged']} episodes staged in "
+                          f"{stats['chunks_flushed']} chunks" if pipeline == "device" else "")
+                print(f"[data] 12(e) {config} {pipeline}: {r['updates_per_sec']:.3f} updates/s, "
+                      f"{r['train_steps_per_sec']:.3f} steps/s while training, input wait "
+                      f"{r['input_wait_frac']:.1%}, {r['pipe_batches']:.0f} batches, assemble "
+                      f"{r['pipe_assemble_s']:.3f} s, put {r['pipe_put_s']:.3f} s, sample "
+                      f"{r['pipe_sample_s']:.3f} s{staged}; the run took {run_s:.1f} s")
+
+
+def phase_device_data(results):
+    """12: the device data plane: rings on the card under the north-star
+    loops, the transformer through B1, the learners with ``device_replay``
+    and ``batch_pipeline: device``, and the card-vs-CPU gates."""
+    import torch
+
+    print(f"[data] {card_line()}")
+    shm_before = set(os.listdir("/dev/shm"))
+    times = [time.perf_counter()]
+    for tag, (env_args, train_args, lanes, k_steps, slots, calls) in DATA_LOOPS.items():
+        args, roll, replay, gen = data_loop(tag, env_args, train_args, lanes, k_steps, slots,
+                                            calls)
+        data_gates(tag, args, roll, replay, gen)
+        del args, roll, replay
+    times.append(time.perf_counter())
+    data_transformer(results)
+    torch.cuda.empty_cache()
+    times.append(time.perf_counter())
+    data_learners()
+    times.append(time.perf_counter())
+    data_pipeline_turns()
+    times.append(time.perf_counter())
+    segments, procs = leftovers(shm_before)
+    check(not segments and not procs, f"outlived phase 12: segments {segments}, processes {procs}")
+    parts = ", ".join(f"{tag} {t1 - t:.1f} s"
+                      for tag, t, t1 in zip(("(a)+(b)+(f)", "(c)", "(d)", "(e)"), times, times[1:]))
+    print(f"[data] phase 12 in {times[-1] - times[0]:.1f} s: {parts}")
 
 
 def leftovers(shm_before):
@@ -2312,6 +2770,9 @@ def main(argv):
             phase_selfplay(results)
             print(f"[selfplay] kernel launches in phase 11: masked {MASKED_FLASH.launches}, "
                   f"flash {FLASH.launches}")
+            # the device data plane (12(c) runs the masked kernel)
+            reset_launches()
+            phase_device_data(results)
             segments, procs = leftovers(shm_before)
             check(not segments and not procs,
                   f"outlived their runs: segments {segments}, processes {procs}")

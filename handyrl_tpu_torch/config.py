@@ -7,10 +7,10 @@ package that the port does not read are accepted and passed through
 untouched, except those that select a plane the port lacks: a non-default
 value of one of ``NOT_PORTED_KEYS`` is refused, naming the ROADMAP item
 that ports it, not quietly run on the plain loop.  Every default is the
-JAX package's, ``batch_pipeline: shm`` included; ``device``, the one
-assembly plane not ported, is refused too.  On-device self-play and
-evaluation (``device_rollout_games``, ``device_eval_games``) are ported, on
-the fused plane of one card.
+JAX package's, ``batch_pipeline: shm`` included.  On-device self-play and
+evaluation (``device_rollout_games``, ``device_eval_games``) and the
+device data plane (``device_replay``, ``batch_pipeline: device``) are
+ported, on the fused plane of one card.
 """
 
 from __future__ import annotations
@@ -72,8 +72,16 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     # write columnar batches into shared-memory ring slots, off the
     # learner's GIL (runtime/shm_batch.py); 'thread' runs the batchers as
     # threads of the learner, and is what 'shm' degrades to, loudly, when
-    # its processes cannot run; 'device' is not ported
+    # its processes cannot run; 'device' uploads host-born episodes once
+    # into ring buffers on the card and samples and assembles every batch
+    # there (runtime/device_batch.py), degrading loudly to 'shm'
     "batch_pipeline": "shm",
+    # batch_pipeline: device geometry: episodes queue over this many ring
+    # lanes, each lane holds this many steps, and a chunk of this many
+    # steps per lane is uploaded at once
+    "device_stage_lanes": 8,
+    "device_stage_slots": 1024,
+    "device_stage_chunk": 64,
     # ring depth in slots of one (B, T, P, ...) batch, raised to
     # 2 * fused_steps + 2 (effective_shm_slots)
     "shm_slots": 6,
@@ -124,6 +132,15 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     # games of the net against eval.opponent's first entry (rulebase or
     # random) on the card (runtime/device_eval.py)
     "device_eval_games": 0,
+    # true: keep the self-play data on the card end to end: the rollout's
+    # records go into ring buffers on the card, and every batch is sampled
+    # and assembled there (runtime/device_replay.py); needs
+    # device_rollout_games > 0, and turn_based_training picks the window
+    # mode (one target player, or all players with observation: true)
+    "device_replay": False,
+    # ring length in steps per lane, and game steps per rollout launch
+    "device_replay_slots": 1024,
+    "device_replay_k_steps": 32,
     # the rollout thread's watchdog: a thread that dies, or makes no
     # progress for plane_stall_timeout seconds after its first block, is
     # restarted up to plane_max_restarts times
@@ -150,9 +167,9 @@ DEFAULT_WORKER_ARGS: Dict[str, Any] = {
 # keys of the JAX package that select a plane the port lacks: the key's
 # path in train_args, its JAX default, and the ROADMAP item that ports it
 NOT_PORTED_KEYS = (
-    (("device_replay",), False, "A7 (the device data plane)"),
     (("plane",), "fused", "A7 (the device data plane)"),
-    (("obs_int8",), False, "A7 (the device data plane)"),
+    # needs models/quantize.py
+    (("obs_int8",), False, "A10 (models/quantize.py, int8)"),
     # acts only under plane: split
     (("plane_param_lag_bound",), 0, "A7 (the device data plane)"),
     # verifies an autovec-lifted twin, and the port has no autovec
@@ -202,12 +219,7 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
     if int(train["worker"]["num_parallel"]) < 1:
         raise ValueError("train_args.worker.num_parallel must be >= 1")
     pipeline = train["batch_pipeline"]
-    if pipeline == "device":
-        raise ValueError(
-            "train_args.batch_pipeline='device' is not ported to handyrl_tpu_torch yet: "
-            "ROADMAP A7 (the device data plane)"
-        )
-    if pipeline not in ("shm", "thread"):
+    if pipeline not in ("shm", "thread", "device"):
         raise ValueError(
             f"train_args.batch_pipeline={pipeline!r} not one of ('shm', 'thread', 'device')"
         )
@@ -222,7 +234,7 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
     # the ring depth promised at any fused_steps (the JAX trainer may clamp
     # fused_steps to 1 at run time, so only that floor is checked there too)
     floor_slots = effective_shm_slots(dict(train, fused_steps=1))
-    if pipeline == "shm" and int(train["num_batchers"]) > floor_slots:
+    if pipeline in ("shm", "device") and int(train["num_batchers"]) > floor_slots:  # device degrades to shm
         # a child beyond the ring depth would never be dealt a slot
         raise ValueError(
             f"train_args.num_batchers={train['num_batchers']} exceeds the guaranteed shm "
@@ -230,6 +242,23 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
             "process needs at least one ring slot to hold; raise shm_slots or lower "
             "num_batchers"
         )
+    if pipeline == "device":
+        if train["device_replay"]:
+            raise ValueError(
+                "train_args.batch_pipeline: device is redundant under "
+                "device_replay: true (that path never materializes host "
+                "episodes, so there is nothing for the stage to upload)"
+            )
+        if int(train["device_stage_lanes"]) < 1:
+            raise ValueError("train_args.device_stage_lanes must be >= 1")
+        if int(train["device_stage_chunk"]) < 1:
+            raise ValueError("train_args.device_stage_chunk must be >= 1")
+        min_slots = train["burn_in_steps"] + train["forward_steps"]
+        if int(train["device_stage_slots"]) <= min_slots:
+            raise ValueError(
+                "train_args.device_stage_slots must exceed burn_in_steps + "
+                f"forward_steps = {min_slots}"
+            )
     if train["seq_attention"] not in ("auto", "flash", "einsum"):
         raise ValueError(
             f"train_args.seq_attention={train['seq_attention']!r} not one of "
@@ -261,6 +290,18 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
         raise ValueError("train_args.device_rollout_games must be >= 0")
     if train["device_eval_games"] < 0:
         raise ValueError("train_args.device_eval_games must be >= 0")
+    if train["device_replay"]:
+        if train["device_rollout_games"] <= 0:
+            raise ValueError(
+                "train_args.device_replay needs device_rollout_games > 0 "
+                "(the lane count of the streaming rollout it feeds from)"
+            )
+        # the env, net and window-mode checks are DeviceReplay's, at the
+        # learner's start, where the env and the net are known
+        if train["device_replay_slots"] <= train["forward_steps"]:
+            raise ValueError("train_args.device_replay_slots must exceed forward_steps")
+        if train["device_replay_k_steps"] < 1:
+            raise ValueError("train_args.device_replay_k_steps must be >= 1")
     if train["plane_stall_timeout"] <= 0:
         raise ValueError("train_args.plane_stall_timeout must be > 0")
     if train["plane_max_restarts"] < 0:

@@ -339,6 +339,21 @@ class VectorGeister:
         views, as the host's observation()."""
         return _obs_from_fields(state["board"], state["kind"], state["counts"], state["ply"])
 
+    @staticmethod
+    def view_obs_all(compact):
+        """Both players' {'scalar', 'board'} views rebuilt on the device from
+        gathered record fields with any leading shape (N, T, ...): the
+        device replay's turn-mode hook.  Unmasked: the sampler applies the
+        observation mask."""
+        lead = compact["board"].shape[:-1]                   # (N, T)
+        flat = _obs_from_fields(
+            compact["board"].reshape(-1, NUM_SQUARES),
+            compact["kind"].reshape(-1, 16),
+            compact["counts"].reshape(-1, 2, 2),
+            compact["ply"].reshape(-1),
+        )
+        return {k: v.reshape(tuple(lead) + tuple(v.shape[1:])) for k, v in flat.items()}
+
     # -- streaming-rollout hooks --------------------------------------------
 
     @staticmethod

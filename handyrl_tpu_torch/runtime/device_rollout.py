@@ -461,6 +461,22 @@ class StreamingDeviceRollout(_ModuleHolder):
         self.player_steps = 0        # lifetime per-player acting steps
         self.timing: Dict[str, float] = {}
 
+    def launch(self, params, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+        """Load ``params`` (None: keep the module's weights) and launch the
+        next block of k_steps steps; returns its records, (K, B, ...)
+        tensors on the device (the device replay ingests them there)."""
+        self.load(params)
+        with torch.inference_mode():
+            if self._state is None:
+                self._state = self.venv.init(self.n_lanes, gen, self.device)
+                self._hidden = self.module.initial_state(
+                    (self.n_lanes, self.venv.num_players), self.device)
+            state, hidden, record = self._fn(self._state, self._hidden, gen)
+        # commit only once the whole block is launched: a block that raises
+        # leaves the lanes as they were
+        self._state, self._hidden = state, hidden
+        return record
+
     def generate(self, params, gen: torch.Generator) -> List[Dict[str, Any]]:
         """Load ``params`` (None: keep the module's weights), launch the
         next block of k_steps steps, and return the episodes that finished
@@ -469,17 +485,10 @@ class StreamingDeviceRollout(_ModuleHolder):
         this block is launched, while the card works through it."""
         self.load(params)
         t0 = time.perf_counter()
+        start = _timing_event(self.device)
+        record = self.launch(None, gen)
         with torch.inference_mode():
-            if self._state is None:
-                self._state = self.venv.init(self.n_lanes, gen, self.device)
-                self._hidden = self.module.initial_state(
-                    (self.n_lanes, self.venv.num_players), self.device)
-            start = _timing_event(self.device)
-            state, hidden, record = self._fn(self._state, self._hidden, gen)
             pending = HostRecord(record, start)
-        # commit only once the whole block is launched: a block that raises
-        # leaves the lanes as they were
-        self._state, self._hidden = state, hidden
         prev, self._pending = self._pending, pending
         t1 = time.perf_counter()
         self.timing = {"launch_ms": (t1 - t0) * 1e3}

@@ -28,10 +28,14 @@ which stores them and counts them as generation jobs, so host workers tilt
 towards evaluation.  A watchdog restarts the thread when it dies or stalls.
 With ``device_eval_games > 0`` each epoch boundary first plays that many
 games of the published model against ``rulebase`` or ``random`` on the
-card (runtime/device_eval.py), filed as opponent ``device-<name>``.  The
+card (runtime/device_eval.py), filed as opponent ``device-<name>``.
+With ``device_replay: true`` the rollout thread's records never leave the
+card: each block goes into the rings of runtime/device_replay.py, only
+its counters come back (one block late) to feed the books, the trainer
+samples its batches from the rings, and host workers only evaluate, local
+ones at most ``eval_rate`` of the episodes made.  The
 JAX package's distributed learner, fault injection, tracing, data
-flywheel, device replay, split plane and preemption drain are not ported
-(ROADMAP).
+flywheel, split plane and preemption drain are not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import random
 import sys
 import threading
 import time
+from collections import deque
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from typing import Any, Dict, List, Optional
@@ -62,6 +67,10 @@ from .checkpoint import (
 )
 from .trainer import Trainer
 from .worker import LocalModelServer, LocalWorkerPool
+
+
+# a job request answered later (see Learner._eval_budget_spent)
+_DEFERRED = object()
 
 
 class Learner:
@@ -117,6 +126,7 @@ class Learner:
         self.jobs_lost = {"g": 0, "e": 0}
 
         self.trainer = Trainer(self.args, self.module, self.device)
+        self.trainer.device_replay = self._replay
         # the configured plane; an shm pipeline may still fall back to
         # threads when it starts, so each record reads the live mode.  The
         # codec accelerator is built here, before any batcher is forked
@@ -144,6 +154,7 @@ class Learner:
             self.worker = LocalWorkerPool(self.args, self.handle, self.model_server)
 
         self._requests: queue.Queue = queue.Queue()
+        self._deferred: List[Future] = []   # job requests waiting on the eval budget
         self._active_workers = 0
         self._shutdown_t0 = 0.0
         self._epoch_t0 = time.time()
@@ -165,6 +176,7 @@ class Learner:
         with a copy of the module on this learner's device."""
         self._device_games = int(self.args["device_rollout_games"])
         self._device_roll = None
+        self._replay = None
         self._device_eval = None
         self._rollout_thread: Optional[threading.Thread] = None
         self._rollout_gen = 0
@@ -184,10 +196,24 @@ class Learner:
                     f"records observer views (an observe_mask hook); {venv.__name__} records "
                     "acting players only; use host actors instead"
                 )
-            from .device_rollout import make_device_rollout
+            if self.args["device_replay"]:
+                # the data stays on the card: rollout records -> rings ->
+                # sampled batches; DeviceReplay checks the env, the net and
+                # the window mode here, at startup
+                from .device_replay import DeviceReplay
+                from .device_rollout import StreamingDeviceRollout
 
-            self._device_roll = make_device_rollout(venv, self.module, self.args,
-                                                    self._device_games, device=self.device)
+                self._replay = DeviceReplay(venv, self.module, self.args, self._device_games,
+                                            slots=self.args["device_replay_slots"],
+                                            device=self.device)
+                self._device_roll = StreamingDeviceRollout(
+                    venv, self.module, self.args, n_lanes=self._device_games,
+                    k_steps=self.args["device_replay_k_steps"], device=self.device)
+            else:
+                from .device_rollout import make_device_rollout
+
+                self._device_roll = make_device_rollout(venv, self.module, self.args,
+                                                        self._device_games, device=self.device)
         n_eval = int(self.args["device_eval_games"])
         if n_eval > 0:
             venv = self._vector_env("device_eval_games")
@@ -328,8 +354,9 @@ class Learner:
             record["loss"] = dict(self.trainer.last_loss)
             record.update(self.trainer.stats)
         # the live mode: an shm pipeline that fell back to threads is not
-        # recorded as shm
-        record["pipeline"] = self.trainer.batcher.stats()["mode"]
+        # recorded as shm; under device_replay no host pipeline runs
+        if self._replay is None:
+            record["pipeline"] = self.trainer.batcher.stats()["mode"]
         now = time.time()
         dt = max(now - self._epoch_t0, 1e-6)
         # an epoch closes on returned episodes, not on steps: before the
@@ -420,7 +447,10 @@ class Learner:
     def _assign_role(self) -> Dict[str, Any]:
         args: Dict[str, Any] = {"model_id": {}}
         players = self.env.players()
-        if self.num_results < self.eval_rate * self.num_episodes:
+        # device_replay: generation lives on the card (a host episode could
+        # not enter the rings: it would be stored, never trained on, and
+        # race the epoch cadence), so host workers only evaluate
+        if self._replay is not None or self.num_results < self.eval_rate * self.num_episodes:
             args["role"] = "e"
             me = players[self.num_results % len(players)]
             args["player"] = [me]
@@ -442,6 +472,18 @@ class Learner:
             return self.worker.connection_count() > 0
         return self._active_workers > 0
 
+    def _eval_budget_spent(self) -> bool:
+        """Under device_replay a local worker's job request waits while the
+        evaluations handed out reach ``eval_rate`` of the episodes made (the
+        JAX learner answers every request with an evaluation).  A worker
+        playing a game in Python holds the interpreter between the rollout
+        thread's launches, each of which must take it back: on the card,
+        workers evaluating without pause slowed a Geister rollout launch
+        from ~0.3 s to 15-85 s (PERF.md, PR 9).  Remote workers run in
+        processes of their own and are answered at once."""
+        return (self._replay is not None and not self.remote
+                and self.num_results >= self.eval_rate * self.num_episodes)
+
     def _serve_request(self, req: str, data: Any):
         if req == "args":
             # data None: one local worker; an int n: a gather prefetching n
@@ -449,6 +491,8 @@ class Learner:
                 self._active_workers -= 1
                 return None
             if data is None:
+                if self._eval_budget_spent():
+                    return _DEFERRED
                 return self._assign_role()
             return [self._assign_role() for _ in range(int(data))]
         if req == "episode":
@@ -460,6 +504,18 @@ class Learner:
             self.num_episodes += len(data)
             self._device_epoch_eps += len(data)
             self._device_epoch_steps += sum(ep["steps"] for ep in data)
+        elif req == "device_counts":
+            # device_replay: episodes never reach the host; the rollout
+            # thread reports the rings' ingest counters, which feed the same
+            # books as feed_episodes (cadence, generation stats, eval_rate)
+            n, P = data["episodes"], data["players"]
+            st = self.generation_results.get(data["model_id"], (0, 0, 0))
+            self.generation_results[data["model_id"]] = (
+                st[0] + n * P, st[1] + data["outcome_sum"], st[2] + data["outcome_sq_sum"])
+            self.num_returned_episodes += n
+            self.num_episodes += n
+            self._device_epoch_eps += n
+            self._device_epoch_steps += data["game_steps"]
         elif req == "result":
             self.feed_results(data if isinstance(data, list) else [data])
         elif req == "jobs_lost":
@@ -478,11 +534,17 @@ class Learner:
             while self._workers_active() or not self.shutdown_flag:
                 if self.shutdown_flag and not self._shutdown_t0:
                     self._shutdown_t0 = time.time()
+                while self._deferred and (self.shutdown_flag or not self._eval_budget_spent()):
+                    self._deferred.pop(0).set_result(self._serve_request("args", None))
                 try:
                     req, data, fut = self._requests.get(timeout=0.3)
                 except queue.Empty:
                     continue
-                fut.set_result(self._serve_request(req, data))
+                reply = self._serve_request(req, data)
+                if reply is _DEFERRED:
+                    self._deferred.append(fut)
+                else:
+                    fut.set_result(reply)
 
                 if self.num_returned_episodes >= self._next_update_episodes and not self.shutdown_flag:
                     self._next_update_episodes += self.args["update_episodes"]
@@ -496,6 +558,8 @@ class Learner:
             self.model_server.stop()
             # futures enqueued after the loop's last pass: resolve them so no
             # worker waits forever
+            for fut in self._deferred:
+                fut.set_result(None)
             while True:
                 try:
                     _, _, fut = self._requests.get_nowait()
@@ -577,10 +641,16 @@ class Learner:
         try:
             # grad mode is per thread
             with torch.inference_mode():
-                self._device_rollout_inner(roll, rng, gen)
+                if self._replay is not None:
+                    self._device_replay_inner(roll, rng, gen)
+                else:
+                    self._device_rollout_inner(roll, rng, gen)
         finally:
-            if hasattr(roll, "drain") and self._rollout_gen == gen:
-                roll.drain()
+            if self._rollout_gen == gen:  # a superseded thread's successor owns them
+                if self._replay is not None:
+                    self._replay.drain()
+                elif hasattr(roll, "drain"):
+                    roll.drain()
 
     def _device_rollout_inner(self, roll, rng: torch.Generator, gen: int) -> None:
         loaded = None
@@ -601,17 +671,79 @@ class Learner:
                 return
             if not episodes:
                 continue
-            # submit once and wait on the same future: the server loop can be
-            # busy for a long time at an epoch boundary, which is no stall
-            fut: Future = Future()
-            self._requests.put(("device_episodes", episodes, fut))
-            while not fut.done():
-                try:
-                    fut.result(timeout=5.0)
-                except FutureTimeoutError:
-                    if not self._rollout_live(gen):
-                        return  # the server loop has ended; nothing to feed
+            if not self._submit(("device_episodes", episodes), gen):
+                return
+
+    def _device_replay_inner(self, roll, rng: torch.Generator, gen: int) -> None:
+        """Streaming rollout -> ring ingest on the card; only the ingests'
+        counters reach the host, one ingest late (``ingest_counted(defer=
+        True)``), and go to the server loop for the books.  ``epoch_fifo``
+        holds the model epoch of each ingest in flight, so the counters that
+        come back are booked under the params that played them."""
+        replay = self._replay
+        loaded = None
+        pending_steps = 0   # game steps of ingests that finished no episode
+        epoch_fifo: deque = deque()
+        try:
+            while self._rollout_live(gen):
+                if self.num_returned_episodes >= self._next_update_episodes:
+                    # backpressure: the epoch's budget is met; let the trainer run
+                    time.sleep(0.02)
+                    self._rollout_beat()
+                    continue
+                epoch, params = self.model_server.latest_snapshot()
+                records = roll.launch(params if epoch != loaded else None, rng)
+                loaded = epoch
+                epoch_fifo.append(epoch)
+                stats = replay.ingest_counted(records, defer=True)
+                self._rollout_dispatched = True
                 self._rollout_beat()
+                if not self._rollout_live(gen):
+                    return
+                if stats is None:
+                    continue
+                stats_epoch = epoch_fifo.popleft()
+                n = int(stats["episodes"])
+                pending_steps += int(stats["game_steps"])
+                if n == 0:
+                    continue   # the steps wait in pending_steps for the next report
+                counts = {"episodes": n, "players": roll.venv.num_players,
+                          "model_id": stats_epoch, "game_steps": pending_steps,
+                          "outcome_sum": float(stats["outcome_sum"].sum()),
+                          "outcome_sq_sum": float(stats["outcome_sq_sum"])}
+                pending_steps = 0
+                if not self._submit(("device_counts", counts), gen):
+                    return
+        finally:
+            # settle the deferred tail; book it only while the run is live
+            # (a watchdog restart): at shutdown it could push the books over
+            # the next boundary and conjure an extra epoch
+            try:
+                left = replay.flush_counted()
+            except Exception:
+                left = None
+            if left and not self.shutdown_flag and (left["episodes"] > 0 or pending_steps):
+                self._submit(("device_counts", {
+                    "episodes": int(left["episodes"]), "players": roll.venv.num_players,
+                    "model_id": int(epoch_fifo[0]) if epoch_fifo else self.model_epoch,
+                    "game_steps": pending_steps + int(left["game_steps"]),
+                    "outcome_sum": float(left["outcome_sum"]),
+                    "outcome_sq_sum": float(left["outcome_sq_sum"])}), gen)
+
+    def _submit(self, request, gen: int) -> bool:
+        """Hand ``(req, data)`` to the server loop and wait on its future: the
+        loop can be busy for a long time at an epoch boundary, which is no
+        stall.  False once this generation is no longer live."""
+        fut: Future = Future()
+        self._requests.put(request + (fut,))
+        while not fut.done():
+            try:
+                fut.result(timeout=5.0)
+            except FutureTimeoutError:
+                if not self._rollout_live(gen):
+                    return False  # the server loop has ended; nothing to feed
+            self._rollout_beat()
+        return True
 
     def run(self) -> int:
         """Train to ``epochs`` epochs (or until stopped); returns 0."""

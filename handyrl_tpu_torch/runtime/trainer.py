@@ -61,10 +61,24 @@ def make_pipeline(args: Dict[str, Any], store: EpisodeStore, ctx: TrainContext,
                   stop_event: Optional[threading.Event] = None):
     """The configured batch-assembly pipeline: ``batch_pipeline: shm`` with
     ``num_batchers > 0`` forks batcher processes writing into shared memory
-    (runtime/shm_batch.py); ``thread``, ``num_batchers: 0``, or an shm
-    plane that cannot be built, the threaded pipeline.  Both expose
+    (runtime/shm_batch.py); ``device`` uploads host-born episodes once into
+    rings on the card and samples and assembles every batch there
+    (runtime/device_batch.py), or, when it cannot be built, says so and
+    takes the shm plane; ``thread``, ``num_batchers: 0``, or an shm plane
+    that cannot be built, the threaded pipeline.  All expose
     start()/batch()/stop()/stats()."""
-    if args.get("batch_pipeline", "shm") == "shm" and int(args.get("num_batchers", 0)) > 0:
+    mode = args.get("batch_pipeline", "shm")
+    if mode == "device":
+        try:
+            from .device_batch import DeviceBatchPipeline
+
+            return DeviceBatchPipeline(args, store, ctx, stop_event)
+        except Exception:
+            traceback.print_exc()
+            print("[handyrl_tpu_torch] device batch pipeline unavailable (above); "
+                  "falling back to the shm assembly plane", file=sys.stderr)
+            mode = "shm"
+    if mode == "shm" and int(args.get("num_batchers", 0)) > 0:
         try:
             from .shm_batch import ShmBatchPipeline
 
@@ -237,6 +251,12 @@ class Trainer:
         self.update_flag = False
         self.update_queue: queue.Queue = queue.Queue(maxsize=1)
         self.error: Optional[BaseException] = None
+        # the on-card replay (runtime/device_replay.py), set by the learner
+        # under device_replay: true; the epoch loop then samples, assembles
+        # and steps from its rings, and the batch pipeline is never started
+        self.device_replay = None
+        self._replay_gen = torch.Generator(device=self.ctx.device).manual_seed(
+            int(args.get("seed", 0)) ^ 0x7EA1)
         # host copy of params + optimizer state, replaced at each epoch end
         # on the trainer's thread: what checkpoints and publishing read
         self.state_host = self._snapshot()
@@ -298,40 +318,61 @@ class Trainer:
         its ``fused_steps`` updates).  With ``num_steps`` None, pulls take
         the pipeline's batches until the learner flags the epoch's end
         (after at least one pull) or the trainer stops; otherwise
-        ``num_steps`` single steps take batches drawn here.  Either way the
-        epoch ends with the EMA update and the stats."""
+        ``num_steps`` single steps take batches drawn here.  Under
+        device_replay the pulls sample from the rings instead (see
+        ``_replay_epoch``).  Either way the epoch ends with the EMA update
+        and the stats."""
         lr = self.lr
         history: List[Dict[str, float]] = []
         updates = 0
         wait_s = warmup_wait_s = 0.0
         t_epoch = time.perf_counter()
-        while num_steps is None or len(history) < num_steps:
-            if num_steps is None:
-                if history and self.update_flag:
-                    break
-                t0 = time.perf_counter()
-                batch = self.batcher.batch()
-                waited = time.perf_counter() - t0
-                if self._warmup_wait_pending:
-                    self._warmup_wait_pending = False
-                    warmup_wait_s = waited
+        if self.device_replay is not None and num_steps is None:
+            self._replay_epoch(history, lr)
+            updates = self.fused * len(history)
+        else:
+            while num_steps is None or len(history) < num_steps:
+                if num_steps is None:
+                    if history and self.update_flag:
+                        break
+                    t0 = time.perf_counter()
+                    batch = self.batcher.batch()
+                    waited = time.perf_counter() - t0
+                    if self._warmup_wait_pending:
+                        self._warmup_wait_pending = False
+                        warmup_wait_s = waited
+                    else:
+                        wait_s += waited
+                    if batch is None:  # stopping
+                        break
+                    k = self.fused
                 else:
-                    wait_s += waited
-                if batch is None:  # stopping
-                    break
-                k = self.fused
-            else:
-                batch, k = self.sample_batch(), 1
-            if k > 1:
-                history.append(self.ctx.train_steps(batch, lr))
-            else:
-                history.append(self.ctx.train_step(batch, lr))
-            updates += k
-            self.steps += k
+                    batch, k = self.sample_batch(), 1
+                if k > 1:
+                    history.append(self.ctx.train_steps(batch, lr))
+                else:
+                    history.append(self.ctx.train_step(batch, lr))
+                updates += k
+                self.steps += k
         if history:
             self._finish_epoch(history, updates, time.perf_counter() - t_epoch, wait_s,
                                warmup_wait_s)
         return history
+
+    def _replay_epoch(self, history: List[Dict[str, float]], lr: float) -> None:
+        """The epoch on the card: each pull samples, assembles and steps
+        ``fused_steps`` updates from the replay's rings, until the learner
+        flags the epoch's end (after at least one pull) or the trainer
+        stops.  The step's read of its metrics keeps one update in flight;
+        on the CPU a short sleep per pull hands the replay's lock to the
+        rollout thread, which an unfair lock would otherwise starve."""
+        train = self.device_replay.train_fn(self.ctx, self.fused)
+        on_cpu = self.ctx.device.type == "cpu"
+        while not (history and self.update_flag) and not self.stop_event.is_set():
+            history.append(train(self._replay_gen, lr))
+            self.steps += self.fused
+            if on_cpu:
+                time.sleep(0.02)
 
     def _finish_epoch(self, history, updates: int, elapsed: float, wait_s: float,
                       warmup_wait_s: float) -> None:
@@ -348,6 +389,12 @@ class Trainer:
         }
         if warmup_wait_s:
             self.stats["input_wait_warmup_s"] = round(warmup_wait_s, 4)
+        # skipped steps added nothing to data_cnt, so they leave the divisor
+        applied = updates - skipped
+        if applied > 0:
+            self.data_cnt_ema = self.data_cnt_ema * 0.8 + data_cnt / (1e-2 + applied) * 0.2
+        if self.device_replay is not None:  # no host pipeline runs
+            return
         cur, prev = self.batcher.stats(), self._pipe_stats0
         for key in PIPE_STAT_KEYS + ("batches",):
             self.stats["pipe_" + key] = round(cur[key] - prev.get(key, 0.0), 4)
@@ -358,12 +405,12 @@ class Trainer:
             self.stats["pipe_device_queue_depth"] = round(
                 (cur["device_queue_depth_sum"] - prev.get("device_queue_depth_sum", 0.0)) / gets, 3)
         self._pipe_stats0 = cur
-        # skipped steps added nothing to data_cnt, so they leave the divisor
-        applied = updates - skipped
-        if applied > 0:
-            self.data_cnt_ema = self.data_cnt_ema * 0.8 + data_cnt / (1e-2 + applied) * 0.2
 
     def _warmed_up(self) -> bool:
+        """``minimum_episodes`` in the store, or under device_replay (the
+        store bypassed) ingested into the rings."""
+        if self.device_replay is not None:
+            return self.device_replay.counters["episodes"] >= self.args["minimum_episodes"]
         return len(self.store) >= self.args["minimum_episodes"]
 
     def update(self):
@@ -393,7 +440,8 @@ class Trainer:
             while not self._warmed_up():
                 if self.stop_event.wait(0.5):
                     return
-            self.batcher.start()
+            if self.device_replay is None:
+                self.batcher.start()
             print("started training")
             while not self.stop_event.is_set():
                 self.train_epoch()

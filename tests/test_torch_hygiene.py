@@ -55,7 +55,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "runtime/_codec_build.py", "runtime/codec.py", "runtime/batch.py",
         "envs/vector_common.py", "envs/vector_tictactoe.py", "envs/vector_parallel_tictactoe.py",
         "envs/vector_hungry_geese.py", "envs/vector_geister.py", "runtime/device_rollout.py",
-        "runtime/device_eval.py"} <= checked
+        "runtime/device_eval.py", "runtime/device_replay.py", "runtime/device_batch.py"} <= checked
     offenders = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN) for p in files}
     assert not {k: v for k, v in offenders.items() if v}
 
@@ -95,12 +95,14 @@ def test_new_nets_refuse_to_fall_back_to_cpu(monkeypatch, entry, env_args, train
 
 
 @pytest.mark.parametrize("entry", ["device_rollout", "streaming_rollout", "make_device_rollout",
-                                   "device_evaluator", "learner_device_planes"])
+                                   "device_evaluator", "learner_device_planes", "device_replay",
+                                   "device_stage", "learner_device_replay"])
 def test_device_planes_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path, entry):
     """On-device self-play and evaluation run on the card; without one they
     raise, and run on the CPU only when asked."""
     from handyrl_tpu_torch.config import normalize_args
     from handyrl_tpu_torch.runtime.device_eval import DeviceEvaluator
+    from handyrl_tpu_torch.runtime.device_replay import DeviceEpisodeStage, DeviceReplay
     from handyrl_tpu_torch.runtime.device_rollout import (
         DeviceRollout, StreamingDeviceRollout, make_device_rollout,
     )
@@ -113,6 +115,8 @@ def test_device_planes_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path, entry):
         "turn_based_training": False, "observation": False, "device_rollout_games": 8,
         "device_eval_games": 8, "worker": {"num_parallel": 1},
         "model_dir": str(tmp_path / "models"), "metrics_path": str(tmp_path / "m.jsonl")}})
+    replay_cfg = normalize_args({"env_args": {"env": "HungryGeese"}, "train_args": dict(
+        cfg["train_args"], device_replay=True)})
     build = {
         "device_rollout": lambda device=None: DeviceRollout(
             ttt.vector_env(), ttt.net(), args, 4, device=device),
@@ -123,13 +127,23 @@ def test_device_planes_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path, entry):
         "device_evaluator": lambda device=None: DeviceEvaluator(
             geese.vector_env(), geese.net(), 4, device=device),
         "learner_device_planes": lambda device=None: Learner(cfg, device=device),
+        "device_replay": lambda device=None: DeviceReplay(
+            geese.vector_env(), geese.net(), dict(args, turn_based_training=False,
+                                                  forward_steps=4), 4, slots=16, device=device),
+        "device_stage": lambda device=None: DeviceEpisodeStage(
+            geese.net(), dict(args, turn_based_training=False, forward_steps=4), device=device),
+        "learner_device_replay": lambda device=None: Learner(replay_cfg, device=device),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
     built = build(device="cpu")
-    if entry == "learner_device_planes":
+    if entry in ("learner_device_planes", "learner_device_replay"):
         assert built._device_roll.device.type == built._device_eval.device.type == "cpu"
+        if entry == "learner_device_replay":
+            assert built._replay.device.type == built.trainer.ctx.device.type == "cpu"
         built.model_server.stop()
+    elif entry in ("device_replay", "device_stage"):
+        assert built.device.type == "cpu"
     else:
         assert next(built.module.parameters()).device.type == "cpu"
 

@@ -95,7 +95,7 @@ def _value(path, value):
 
 
 NON_DEFAULT = {
-    "device_replay": True, "plane": "split", "obs_int8": True, "plane_param_lag_bound": 5,
+    "plane": "split", "obs_int8": True, "plane_param_lag_bound": 5,
     "autovec_verify_games": 4, "num_processes": 2, "flywheel": True, "trace": True,
     "profile_dir": "profiles",
 }
@@ -111,22 +111,51 @@ def test_keys_of_planes_not_ported_are_refused(path, default, item):
         normalize_args({"env_args": env, "train_args": _value(path, bad)})
 
 
-@pytest.mark.parametrize("key,value", [("device_rollout_games", 64), ("device_eval_games", 32)])
-def test_device_plane_keys_pass_both_packages_alike(key, value):
-    """On-device self-play and evaluation are ported: both packages'
-    normalize_args take the key, with the same result for it and for the
-    watchdog keys, and both refuse a negative count."""
+REPLAY = {"device_replay": True, "device_rollout_games": 8}
+STAGE = {"batch_pipeline": "device"}
+# the key, a config that sets it, a config both packages refuse, and the
+# refusal's words: the device planes of PRs 8 and 9
+DEVICE_PLANE_KEYS = [
+    ("device_rollout_games", {"device_rollout_games": 64}, {"device_rollout_games": -1},
+     "device_rollout_games"),
+    ("device_eval_games", {"device_eval_games": 32}, {"device_eval_games": -1},
+     "device_eval_games"),
+    ("device_replay", REPLAY, {"device_replay": True}, "device_rollout_games > 0"),
+    ("device_replay_slots", dict(REPLAY, device_replay_slots=64),
+     dict(REPLAY, device_replay_slots=16), "device_replay_slots must exceed forward_steps"),
+    ("device_replay_k_steps", dict(REPLAY, device_replay_k_steps=16),
+     dict(REPLAY, device_replay_k_steps=0), "device_replay_k_steps"),
+    ("batch_pipeline", STAGE, dict(STAGE, **REPLAY), "redundant under device_replay"),
+    ("device_stage_lanes", dict(STAGE, device_stage_lanes=4), dict(STAGE, device_stage_lanes=0),
+     "device_stage_lanes"),
+    ("device_stage_slots", dict(STAGE, device_stage_slots=256),
+     dict(STAGE, device_stage_slots=16), "device_stage_slots must exceed"),
+    ("device_stage_chunk", dict(STAGE, device_stage_chunk=32), dict(STAGE, device_stage_chunk=0),
+     "device_stage_chunk"),
+]
+DEVICE_PLANE_NAMES = ("device_rollout_games", "device_eval_games", "plane_stall_timeout",
+                      "plane_max_restarts", "device_replay", "device_replay_slots",
+                      "device_replay_k_steps", "batch_pipeline", "device_stage_lanes",
+                      "device_stage_slots", "device_stage_chunk")
+
+
+@pytest.mark.parametrize("key,train_args,bad,match", DEVICE_PLANE_KEYS,
+                         ids=[f"{k}-{t[k]}" for k, t, _, _ in DEVICE_PLANE_KEYS])
+def test_device_plane_keys_pass_both_packages_alike(key, train_args, bad, match):
+    """On-device self-play and evaluation and the device data plane are
+    ported: both packages' normalize_args take the key, with the same
+    result for it and for every other key of those planes, and both refuse
+    the same misconfiguration with the same words."""
     from handyrl_tpu.config import normalize_args as jax_normalize_args
 
-    raw = {"env_args": {"env": "HungryGeese"}, "train_args": {key: value}}
+    raw = {"env_args": {"env": "HungryGeese"}, "train_args": train_args}
     port, jax_args = normalize_args(raw)["train_args"], jax_normalize_args(raw)["train_args"]
-    for name in ("device_rollout_games", "device_eval_games", "plane_stall_timeout",
-                 "plane_max_restarts"):
+    for name in DEVICE_PLANE_NAMES:
         assert port[name] == jax_args[name], name
-    assert port[key] == value
-    bad = {"env_args": {"env": "HungryGeese"}, "train_args": {key: -1}}
+    assert port[key] == train_args[key]
+    bad = {"env_args": {"env": "HungryGeese"}, "train_args": bad}
     for normalize in (normalize_args, jax_normalize_args):
-        with pytest.raises(ValueError, match=key):
+        with pytest.raises(ValueError, match=match):
             normalize(bad)
 
 

@@ -182,11 +182,12 @@ def test_config_subset_keeps_the_jax_defaults_and_refuses_what_is_not_ported():
     assert DEFAULT_TRAIN_ARGS["batch_pipeline"] == JAX_DEFAULTS["batch_pipeline"] == "shm"
     for key in ("shm_slots", "batcher_max_restarts", "batcher_stall_timeout", "fused_steps"):
         assert DEFAULT_TRAIN_ARGS[key] == JAX_DEFAULTS[key], key
-    for mode in ("shm", "thread"):
+    for mode in ("shm", "thread", "device"):
         assert normalize_args({"env_args": env, "train_args": {"batch_pipeline": mode}})[
             "train_args"]["batch_pipeline"] == mode
-    with pytest.raises(ValueError, match="A7"):
-        normalize_args({"env_args": env, "train_args": {"batch_pipeline": "device"}})
+    with pytest.raises(ValueError, match="redundant under device_replay"):
+        normalize_args({"env_args": env, "train_args": {
+            "batch_pipeline": "device", "device_replay": True, "device_rollout_games": 8}})
     with pytest.raises(ValueError, match="not one of"):
         normalize_args({"env_args": env, "train_args": {"batch_pipeline": "bogus"}})
     with pytest.raises(ValueError):
