@@ -125,6 +125,29 @@ Phases, each of which fails the run when it fails:
    to the CPU's bit for bit, one sampled batch equal to the CPU's from the
    same rings and draws, nothing of the port outliving the phase.  Alone:
    ``python3 -c "import chip_smoke as cs; cs.phase_device_data({})"``.
+13. the inference serving plane, random weights from seeds: (a) bench.py's
+   serving legs on the port (TicTacToe ``SimpleConvNet`` served on the card
+   by this process, 8 connections x 8 outstanding, max_batch 64, buckets
+   1-64 warmed): a 10 s closed loop (saturation QPS, the client's p50/p99),
+   a hot swap under load (warm ms, the first reply from the new model,
+   dropped), an open loop at 0.25x and 2x saturation against a 25 ms SLO
+   (shed rates); gates: nothing dropped, the flip seen, less shed at the
+   low load than at the high, no error frame; (b) ``python -m
+   handyrl_tpu_torch.main --serve`` from a config.yaml: Geister with the
+   training slice's transformer at full width from a verified seed-0
+   snapshot, 256 sessions resident, 1024 spilled: 8 connections x 64
+   sessions (256 games of the model against itself, a session per seat)
+   for 20 s, session steps/s,
+   p50/p99, mean batch, restores and evictions (both > 0), a seed-1
+   snapshot entered into the manifest mid-run and swapped in by the
+   watcher, the hidden state's D2H and H2D ms per batch of 64, one batch
+   under the profiler, the card's peak memory, and SIGTERM: the draining
+   notice, the sessions exported, exit 75 inside the deadline; (c) 4
+   sessions x 4 steps through the server against the ``InferenceModel`` on
+   the card with an explicit hidden state at the same bucket: the
+   transformer within 2e-2 of the outputs' scale, the DRC ``GeisterNet`` in
+   fp32 (served by this process) within 1e-4.  Alone: ``python3 -c "import
+   chip_smoke as cs; cs.phase_serving({})"``.
 
 Every learner phase (7a, 7b, 8a, 8b, 9a, 9b, 11c, 11d; 12(e)'s shm runs) runs on the port's default
 ``batch_pipeline: shm`` and fails unless every epoch's live pipeline mode
@@ -135,8 +158,9 @@ process of the port outlives it.
 
 Phases 4, 5-6, 7b, 9b and 12(c) are the paths through the port's kernels:
 each starts with every launch count at 0, and its kernel's count is read
-at its end; phases 8a and 11 are read the same way and launch neither
-kernel (8b, 9a, 9c, 11c and 12(d)'s CLI run in processes of their own).
+at its end; phases 8a, 11 and 13 are read the same way and launch neither
+kernel (8b, 9a, 9c, 11c, 12(d)'s CLI and 13(b)'s server run in processes
+of their own).
 The last two lines are a JSON ``kernels`` record and the verdict
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or of handyrl_tpu is
 imported.  Weights are random, made from a seed.
@@ -2665,6 +2689,617 @@ def phase_device_data(results):
     print(f"[data] phase 12 in {times[-1] - times[0]:.1f} s: {parts}")
 
 
+# ---------------------------------------------------------------------------
+# 13: the inference serving plane (--serve)
+# ---------------------------------------------------------------------------
+
+SERVE_CLIENTS = 8        # 13(a): closed-loop connections (bench.py's SERVING_CLIENTS)
+SERVE_WINDOW = 8         # outstanding requests per connection
+SERVE_SLO_MS = 25.0      # the open-loop legs' SLO
+SERVE_LOOP_S = 10.0      # the closed-loop window; each open-loop leg takes half of it
+SERVE_BUCKETS = [1, 2, 4, 8, 16, 32, 64]
+SESSION_CONNS = 8        # 13(b): connections, each playing SESSION_GAMES games at once,
+SESSION_GAMES = 32       # both seats of a game served, each by a session of its own
+SESSION_RUN_S = 20.0
+SESSION_SERVING = {
+    "port": 0, "max_batch": 64, "warm_buckets": SERVE_BUCKETS, "shed_policy": "none",
+    "session_capacity": 256, "session_spill": 1024, "watch_interval": 1, "stats_interval": 0,
+}
+DRAIN_DEADLINE_S = 10
+CHECK_SESSIONS = 4       # 13(c): sessions replayed on the card, CHECK_STEPS steps each
+CHECK_STEPS = 4
+# 13(c)'s DRC leg: fp32 on both sides, the same bucket, the same card
+DRC_SERVE_TOLERANCE = 1e-4
+
+
+def serve_bench(tmp):
+    """13(a): bench.py's serving legs on the port, TicTacToe with
+    ``SimpleConvNet`` served on the card by this process: a closed loop
+    (saturation QPS, the client's p50/p99), a hot swap under load, then an
+    open loop at 0.25x and at 2x saturation against a 25 ms SLO."""
+    import torch
+
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models import init_variables
+    from handyrl_tpu_torch.serving import ModelRouter, ServingClient, ServingError, ServingServer
+    from handyrl_tpu_torch.serving.batcher import percentiles_ms
+
+    env = make_env({"env": "TicTacToe"})
+    env.reset()
+    obs = env.observation(0)
+    module = env.net()
+    p1 = {k: v.clone() for k, v in init_variables(module, 1).state_dict().items()}
+    p2 = {k: v.clone() for k, v in init_variables(module, 2).state_dict().items()}
+    base_cfg = {
+        "port": 0, "max_models": 4, "slo_ms": 1000.0, "shed_policy": "none", "max_batch": 64,
+        "max_wait_ms": 1.0, "warm_buckets": SERVE_BUCKETS, "queue_bound": 8192,
+        "recv_timeout": 0.0, "watch_interval": 0.0, "stats_interval": 0.0,
+    }
+
+    def start_server(**overrides):
+        cfg = dict(base_cfg, **overrides)
+        router = ModelRouter(module, obs, cfg, model_dir=tmp)   # on the card
+        router.publish(1, p1)
+        check(router._engines[1].device.type == "cuda", "13(a): the engine is not on the card")
+        return ServingServer(router, cfg).run()
+
+    def closed_loop(port, dur, lat, counts, models=None, stop=None):
+        """One connection keeping SERVE_WINDOW requests outstanding."""
+        client = ServingClient("127.0.0.1", port)
+        inflight = []
+        end = time.perf_counter() + dur
+        try:
+            while time.perf_counter() < end and not (stop and stop.is_set()):
+                while len(inflight) < SERVE_WINDOW:
+                    inflight.append((time.perf_counter(), client.submit(obs)))
+                t0, fut = inflight.pop(0)
+                try:
+                    reply = fut.result(timeout=120)
+                    lat.append((time.perf_counter() - t0) * 1000.0)
+                    counts["ok"] += 1
+                    if models is not None:
+                        models.append((time.perf_counter(), reply["model"]))
+                except Exception:
+                    counts["err"] += 1
+            for _t0, fut in inflight:
+                try:
+                    fut.result(timeout=120)
+                    counts["ok"] += 1
+                except Exception:
+                    counts["err"] += 1
+        finally:
+            client.close()
+
+    def join_all(threads):
+        for t in threads:
+            t.join(180)
+        check(not any(t.is_alive() for t in threads), "13(a): a load thread did not end")
+
+    out = {}
+    server = start_server()
+    lats = [[] for _ in range(SERVE_CLIENTS)]
+    counts = [dict(ok=0, err=0) for _ in range(SERVE_CLIENTS)]
+    threads = [threading.Thread(target=closed_loop, daemon=True,
+                                args=(server.bound_port, SERVE_LOOP_S, lats[i], counts[i]))
+               for i in range(SERVE_CLIENTS)]
+    before = server.stats_record()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    join_all(threads)
+    elapsed = time.perf_counter() - t0
+    after = server.stats_record()
+    pct = percentiles_ms([x for l in lats for x in l])
+    out["saturation_qps"] = sum(c["ok"] for c in counts) / elapsed
+    out["p50_ms"], out["p99_ms"] = pct[50], pct[99]
+    out["load_errors"] = sum(c["err"] for c in counts)
+    out["mean_batch"] = ((after["serve_replies"] - before["serve_replies"])
+                         / max(1, after["serve_batches"] - before["serve_batches"]))
+
+    # a hot swap under load, on the same warm server
+    stop = threading.Event()
+    swap_models = [[] for _ in range(SERVE_CLIENTS // 2)]
+    swap_counts = [dict(ok=0, err=0) for _ in swap_models]
+    threads = [threading.Thread(target=closed_loop, daemon=True,
+                                args=(server.bound_port, 120.0, [], swap_counts[i],
+                                      swap_models[i], stop))
+               for i in range(len(swap_models))]
+    for t in threads:
+        t.start()
+    time.sleep(1.0)
+    admin = ServingClient("127.0.0.1", server.bound_port)
+    t_swap = time.perf_counter()
+    swap = admin.swap(2, params=p2)
+    time.sleep(1.0)
+    stop.set()
+    join_all(threads)
+    admin.close()
+    events = sorted(e for l in swap_models for e in l)
+    new_times = [t for t, m in events if m == 2]
+    out["swap_warm_ms"] = swap["warm_ms"]
+    out["swap_ttfr_ms"] = (new_times[0] - t_swap) * 1000.0 if new_times else None
+    out["swap_dropped"] = sum(c["err"] for c in swap_counts)
+    out["swap_flip_observed"] = {m for _, m in events} == {1, 2}
+    out["server_errors"] = server.stats_record()["serve_errors"]
+    server.shutdown()
+
+    def open_loop(port, rate, dur, counters):
+        """Paced offered load over several connections; callbacks sort the
+        outcomes."""
+        clients = [ServingClient("127.0.0.1", port) for _ in range(SERVE_CLIENTS // 2)]
+        lock = threading.Lock()
+        pending = [0]
+
+        def cb(fut):
+            try:
+                fut.result()
+                kind = "ok"
+            except ServingError as exc:
+                kind = "shed" if exc.kind in ("shed", "deadline") else "err"
+            except Exception:
+                kind = "err"
+            with lock:
+                counters[kind] = counters.get(kind, 0) + 1
+                pending[0] -= 1
+
+        start, sent = time.perf_counter(), 0
+        try:
+            while time.perf_counter() - start < dur:
+                due = int((time.perf_counter() - start) * rate) - sent
+                for _ in range(min(max(due, 0), 512)):
+                    with lock:
+                        pending[0] += 1
+                    fut = clients[sent % len(clients)].submit(obs, slo_ms=SERVE_SLO_MS)
+                    fut.add_done_callback(cb)
+                    sent += 1
+                time.sleep(0.002)
+            counters["offered"] = sent
+            deadline = time.perf_counter() + 60.0
+            while time.perf_counter() < deadline:
+                with lock:
+                    if pending[0] == 0:
+                        break
+                time.sleep(0.005)
+        finally:
+            for client in clients:
+                client.close()
+
+    sat = max(out["saturation_qps"], 1.0)
+    server = start_server(shed_policy="deadline", slo_ms=SERVE_SLO_MS)
+    for tag, rate in (("low", 0.25 * sat), ("high", 2.0 * sat)):
+        counters = {}
+        open_loop(server.bound_port, rate, SERVE_LOOP_S / 2, counters)
+        offered = max(counters.get("offered", 0), 1)
+        out[f"offered_{tag}_qps"] = counters.get("offered", 0) / (SERVE_LOOP_S / 2)
+        out[f"shed_rate_{tag}"] = counters.get("shed", 0) / offered
+        out[f"errors_{tag}"] = counters.get("err", 0)
+    server.shutdown()
+    torch.cuda.empty_cache()
+    return out
+
+
+def geister_games(n, steps, seed):
+    """``n`` sequences of ``steps`` observations of random Geister play,
+    each the turn player's view."""
+    from handyrl_tpu_torch.envs import make_env
+
+    random.seed(seed)
+    seqs = []
+    for _ in range(n):
+        env = make_env({"env": "Geister"})
+        env.reset()
+        seq = []
+        for _ in range(steps):
+            seq.append(env.observation(env.turn()))
+            env.play(random.choice(env.legal_actions(env.turn())))
+        seqs.append(seq)
+    return seqs
+
+
+def session_replay_check(tag, client, model, model_id, tol, seed):
+    """13(c): CHECK_SESSIONS sessions through the server, CHECK_STEPS steps
+    each, sent together so that they batch at one bucket; the same
+    observations through ``model`` (an ``InferenceModel`` on the card) with
+    an explicit hidden state, at that bucket.  Every output is held within
+    ``tol`` of its scale.  Returns the sids, left open."""
+    import numpy as np
+    import torch
+
+    from handyrl_tpu_torch.models import fetch_outputs
+    from handyrl_tpu_torch.utils import tree_stack
+
+    seqs = geister_games(CHECK_SESSIONS, CHECK_STEPS, seed)
+    sids = [client.open_session() for _ in seqs]
+    served = []
+    for step in range(CHECK_STEPS):
+        futs = [client.submit(seq[step], model=model_id, sid=sid) for seq, sid in zip(seqs, sids)]
+        served.append([f.result(timeout=120) for f in futs])
+    check(all(r["model"] == model_id for step in served for r in step),
+          f"{tag}: a session step was not served by model {model_id}")
+    worst = 0.0
+    with torch.inference_mode():
+        hidden = model.module.initial_state((len(seqs),), model.device)
+        for step in range(CHECK_STEPS):
+            out = model.inference_batch_async(tree_stack([seq[step] for seq in seqs]), hidden)
+            hidden = out.pop("hidden")
+            want = fetch_outputs(out)
+            for i, reply in enumerate(served[step]):
+                check(set(reply["out"]) == set(want), f"{tag}: output keys {sorted(reply['out'])}")
+                for key, ref in want.items():
+                    got = np.asarray(reply["out"][key])
+                    check(got.shape == ref[i].shape and np.isfinite(got).all(),
+                          f"{tag}: bad {key} {got.shape}")
+                    err = float(np.abs(got - ref[i]).max())
+                    worst = max(worst, err / max(1.0, float(np.abs(ref[i]).max())))
+    print(f"[serving] {tag}: {len(seqs)} sessions x {CHECK_STEPS} steps through the server "
+          f"against the InferenceModel on the card with an explicit hidden state at bucket "
+          f"{len(seqs)}: max_abs_err {worst:.3e} of the outputs' scale (tolerance {tol:.0e})")
+    check(worst <= tol, f"{tag}: the served session outputs disagree with the replay")
+    return sids
+
+
+class SessionPlayer:
+    """One connection of 13(b): ``games`` Geister games at once, played by
+    the served model against itself, each seat with a session of its own
+    (2 x ``games`` sessions); the mover's session has the game's one
+    request outstanding, and the action is sampled from the returned
+    policy under the legal mask.  A finished game closes its sessions and
+    opens new ones."""
+
+    def __init__(self, port, games, seed):
+        import queue
+
+        import numpy as np
+
+        from handyrl_tpu_torch.serving import ServingClient
+
+        self.client = ServingClient("127.0.0.1", port)
+        self.games = games
+        self.rng = np.random.default_rng(seed)
+        self.done = queue.Queue()
+        self.latency, self.models = [], []
+        self.steps = self.errors = self.finished = 0
+
+    def _new_game(self):
+        from handyrl_tpu_torch.envs import make_env
+
+        env = make_env({"env": "Geister"})
+        env.reset()
+        return env, {p: self.client.open_session() for p in env.players()}
+
+    def _close(self, game):
+        for sid in game[1].values():
+            self.client.close_session(sid)
+
+    def _submit(self, i, game):
+        env, sids = game
+        turn = env.turn()
+        t0 = time.perf_counter()
+        self.client.submit(env.observation(turn), sid=sids[turn]).add_done_callback(
+            lambda f, i=i, t0=t0: self.done.put((i, f, t0)))
+
+    def run(self, end_t):
+        import numpy as np
+
+        from handyrl_tpu_torch.agents import masked_policy_logits, sample_logits
+
+        games = {i: self._new_game() for i in range(self.games)}
+        for i, game in games.items():
+            self._submit(i, game)
+        outstanding = len(games)
+        while outstanding:
+            i, fut, t0 = self.done.get(timeout=120)
+            outstanding -= 1
+            env = games[i][0]
+            try:
+                reply = fut.result()
+            except Exception:
+                self.errors += 1
+                self._close(games[i])
+                continue
+            self.latency.append((time.perf_counter() - t0) * 1000.0)
+            self.models.append((time.perf_counter(), reply["model"]))
+            turn = env.turn()
+            logits = masked_policy_logits(np.reshape(reply["out"]["policy"], -1),
+                                          env.legal_actions(turn))
+            env.play(sample_logits(logits, 1.0, self.rng), turn)
+            self.steps += 1
+            if env.terminal() or time.perf_counter() >= end_t:
+                self.finished += env.terminal()
+                self._close(games[i])
+                if time.perf_counter() >= end_t:
+                    continue
+                games[i] = self._new_game()
+            self._submit(i, games[i])
+            outstanding += 1
+        self.client.close()
+
+
+class CardMemory:
+    """The card's used memory (nvidia-smi), sampled every half second on a
+    thread until the block ends; ``peak_mib`` is the largest sample."""
+
+    def __enter__(self):
+        self.samples, self._stop = [], threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def _loop(self):
+        while not self._stop.is_set():
+            smi = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=60)
+            if smi.returncode == 0:
+                self.samples.append(float(smi.stdout.strip().splitlines()[0]))
+            self._stop.wait(0.5)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(60)
+        self.peak_mib = max(self.samples, default=float("nan"))
+
+
+def hidden_round_trip(model):
+    """The hidden state's two copies per batch of max_batch sessions, as the
+    server makes them: ``fetch_outputs`` brings the batch's next states to
+    the host (D2H) and ``SessionCache.store`` copies each session's back to
+    the card (H2D); then one whole batch (stack, forward, fetch) under the
+    profiler."""
+    import torch
+
+    from handyrl_tpu_torch.fleet import SessionCache
+    from handyrl_tpu_torch.models import fetch_outputs
+    from handyrl_tpu_torch.serving import ContinuousBatcher
+    from handyrl_tpu_torch.utils import tree_leaves, tree_map, tree_stack
+
+    n = SESSION_SERVING["max_batch"]
+    obs_list = [seq[0] for seq in geister_games(n, 1, SEED)]
+    obs = tree_stack(obs_list)
+    cache = SessionCache(capacity=n, spill_capacity=0, device=model.device)
+    sids = [cache.open() for _ in range(n)]
+    d2h, h2d = [], []
+    with torch.inference_mode():
+        hidden = model.module.initial_state((n,), model.device)
+        for _ in range(5):
+            hidden = model.inference_batch_async(obs, hidden)["hidden"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = fetch_outputs({"hidden": hidden})["hidden"]
+            d2h.append((time.perf_counter() - t0) * 1e3)
+            rows = [tree_map(lambda x: x[i, ...], host) for i in range(n)]
+            t0 = time.perf_counter()
+            for sid, row in zip(sids, rows):
+                cache.store(sid, row)
+            torch.cuda.synchronize()
+            h2d.append((time.perf_counter() - t0) * 1e3)
+    mb = sum(x.nbytes for x in tree_leaves(host)) / 1e6
+    d2h_ms, h2d_ms = sorted(d2h)[2], sorted(h2d)[2]
+    print(f"[serving] 13(b) the hidden state's round trip per batch of {n} sessions "
+          f"({mb:.1f} MB): D2H (fetch_outputs) {d2h_ms:.2f} ms ({mb / d2h_ms:.2f} GB/s), H2D "
+          f"(SessionCache.store, {n} sessions) {h2d_ms:.2f} ms ({mb / h2d_ms:.2f} GB/s); "
+          "medians of 5")
+    engine = ContinuousBatcher(model, [model.device], max_batch=n)
+    hid_list = [cache.lookup(sid)[0] for sid in sids]
+    with torch.inference_mode():
+        engine._run(obs_list, hid_list, n)
+        profile_call(f"one serving batch of {n} sessions (stack, forward, fetch)",
+                     lambda: engine._run(obs_list, hid_list, n))
+
+
+def wait_for_line(kids, tag, pattern, timeout):
+    """The first match of ``pattern`` in a child's log, waiting for it."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        m = re.search(pattern, kids.output(tag))
+        if m:
+            return m
+        if not kids.running(tag):
+            break
+        time.sleep(0.2)
+    print(kids.output(tag)[-3000:])
+    check(False, f"{tag}: no line matching {pattern!r}")
+
+
+def serve_sessions(tmp):
+    """13(b) and the transformer leg of 13(c): ``python -m
+    handyrl_tpu_torch.main --serve`` on the training slice's transformer at
+    full width, 512 sessions over 256 Geister games, a swap from disk and the
+    SIGTERM drain."""
+    import signal
+    import zlib
+
+    import torch
+
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models import build_inference_model, init_variables
+    from handyrl_tpu_torch.runtime import checkpoint as ckpt
+    from handyrl_tpu_torch.serving import ServingClient
+    from handyrl_tpu_torch.serving.batcher import percentiles_ms
+
+    env_args = {"env": "Geister", "net": "transformer", "net_args": NET_ARGS}
+    config = {"env_args": env_args, "train_args": {
+        "model_dir": "models", "metrics_path": "metrics.jsonl", "compute_dtype": "bfloat16",
+        "drain_deadline_seconds": DRAIN_DEADLINE_S, "serving": SESSION_SERVING}}
+    Path(tmp, "config.yaml").write_text(json.dumps(config))   # JSON is YAML
+    model_dir = os.path.join(tmp, "models")
+    t0 = time.perf_counter()
+    module = make_env(env_args).net()
+    params0 = {k: v.clone() for k, v in init_variables(module, SEED).state_dict().items()}
+    ckpt.save_epoch_snapshot(model_dir, 1, params0, {"steps": 0}, 0)
+    # seed 1 as 2.ckpt, written now and entered into the manifest mid-run
+    blob = ckpt.to_bytes(init_variables(module, SEED + 1).state_dict())
+    ckpt.atomic_write_bytes(ckpt.model_path(model_dir, 2), blob)
+    digest = (zlib.crc32(blob), len(blob))
+    del blob
+    n_params = sum(p.numel() for p in module.parameters())
+    print(f"[serving] 13(b) snapshots: seed {SEED} as epoch 1 (verified), seed {SEED + 1} "
+          f"staged as 2.ckpt; {n_params} parameters, {digest[1] / 1e9:.2f} GB each, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    replay = build_inference_model(module, params0)   # on the card
+    del module, params0
+    draining = threading.Event()
+    with Children(tmp) as kids, CardMemory() as memory:
+        t0 = time.perf_counter()
+        proc = kids.start("serve", "--serve")
+        port = int(wait_for_line(kids, "serve", r"serving: listening on port (\d+)", 600).group(1))
+        check("(model 1," in kids.output("serve") and "device cuda" in kids.output("serve"),
+              "13(b): the server did not publish snapshot 1 on the card")
+        print(f"[serving] 13(b) --serve up in {time.perf_counter() - t0:.1f} s "
+              "(import, snapshot load, engine build, 7 buckets warmed)")
+        client = ServingClient("127.0.0.1", port, on_notice=lambda *_: draining.set())
+        sids = session_replay_check("13(c) transformer", client, replay, 1,
+                                    tolerance(torch.bfloat16), SEED)
+        before = client.stats()
+        players = [SessionPlayer(port, SESSION_GAMES, SEED + i) for i in range(SESSION_CONNS)]
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=p.run, args=(t0 + SESSION_RUN_S,), daemon=True)
+                   for p in players]
+        for t in threads:
+            t.start()
+        time.sleep(SESSION_RUN_S / 2)
+        ckpt.record_snapshot(model_dir, 2, 0, {"2.ckpt": digest})   # the watcher's swap
+        t_publish = time.perf_counter()
+        for t in threads:
+            t.join(SESSION_RUN_S + 300)
+        check(not any(t.is_alive() for t in threads), "13(b): a session player did not end")
+        window = time.perf_counter() - t0
+        after = client.stats()
+        steps = sum(p.steps for p in players)
+        pct = percentiles_ms([x for p in players for x in p.latency])
+        batches = after["serve_batches"] - before["serve_batches"]
+        events = sorted(e for p in players for e in p.models)
+        flipped = [t for t, m in events if m == 2]
+        print(f"[serving] 13(b) {SESSION_CONNS} connections x {2 * SESSION_GAMES} sessions "
+              f"({SESSION_CONNS * SESSION_GAMES} Geister games at once, both seats served, "
+              f"{sum(p.finished for p in players)} finished) for {window:.1f} s: "
+              f"{steps / window:.1f} session steps/s, p50 {pct[50]:.2f} ms, p99 {pct[99]:.2f} ms "
+              f"(client), mean batch {(after['serve_replies'] - before['serve_replies']) / max(1, batches):.2f}; "
+              f"session_restored {after['session_restored']}, evictions "
+              f"{after['session_evictions']}, spill drops {after['session_spill_drops']}, "
+              f"affinity misses {after['session_affinity_miss']}; errors "
+              f"{sum(p.errors for p in players)} (server {after['serve_errors']})")
+        check(sum(p.errors for p in players) == 0 and after["serve_errors"] == 0,
+              "13(b): error replies under the session load")
+        check(after["session_restored"] > 0 and after["session_evictions"] > 0,
+              f"13(b): {2 * SESSION_CONNS * SESSION_GAMES} sessions over a capacity of "
+              f"{SESSION_SERVING['session_capacity']} restored or evicted nothing")
+        swap_line = wait_for_line(kids, "serve", r"hot-swapped to verified snapshot 2", 120)
+        probe = geister_games(1, 1, SEED)[0][0]
+        deadline = time.monotonic() + 120
+        while client.infer(probe, timeout=120)["model"] != 2:
+            check(time.monotonic() < deadline, "13(b): the replies never came from model 2")
+            time.sleep(0.2)
+        check(swap_line and "refresh failed" not in kids.output("serve"),
+              "13(b): the watcher's refresh failed")
+        print(f"[serving] 13(b) swap from disk: seed {SEED + 1} entered the manifest as epoch 2 "
+              f"at {t_publish - t0:.1f} s; the watcher swapped it in, "
+              + (f"the first reply from model 2 {(flipped[0] - t_publish) * 1e3:.0f} ms later, "
+                 f"{len(flipped)} replies from it in the window"
+                 if flipped else "after the window")
+              + f"; hot swaps {client.stats()['serve_hot_swaps']}, errors 0")
+        hidden_round_trip(replay)
+        # the drain: only 13(c)'s sessions are still open
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        check(draining.wait(30), "13(b): no draining notice after SIGTERM")
+        exported = client.export_sessions(timeout=60)
+        check(exported["count"] == len(sids) and set(sids) <= set(exported["sessions"]),
+              f"13(b): the drain exported {exported['count']} sessions, not {len(sids)}")
+        try:
+            code = proc.wait(timeout=DRAIN_DEADLINE_S + 30)
+        except subprocess.TimeoutExpired:
+            code = None
+        drain_s = time.perf_counter() - t_term
+        client.close()
+        log = kids.output("serve")
+        check(code == 75 and "serving: SIGTERM — draining sessions" in log
+              and "sessions handed off: True" in log,
+              f"13(b): the SIGTERM drain exited {code}:\n{log[-2000:]}")
+        check(drain_s <= DRAIN_DEADLINE_S, f"13(b): the drain took {drain_s:.1f} s")
+        peak = re.search(r"serving: peak device memory .*", log)
+        print(f"[serving] 13(b) SIGTERM: draining notice, {exported['count']} sessions exported "
+              f"({sum(x.nbytes for h in exported['sessions'].values() for x in _leaves(h)) / 1e6:.1f} MB), "
+              f"exit {code} {drain_s:.2f} s after the signal (deadline {DRAIN_DEADLINE_S} s); "
+              f"{peak.group(0) if peak else 'no peak memory line'}")
+    print(f"[serving] 13(b) card memory used (nvidia-smi), peak over the leg: "
+          f"{memory.peak_mib:.0f} MiB, this process's share included")
+    del replay
+    torch.cuda.empty_cache()
+
+
+def drc_session_check(tmp):
+    """13(c)'s DRC leg: the DRC ``GeisterNet`` at its defaults in fp32 (the
+    session model of bench.py's fleet stage) served on the card by this
+    process."""
+    import torch
+
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models import build_inference_model, init_variables
+    from handyrl_tpu_torch.serving import ModelRouter, ServingClient, ServingServer
+
+    env = make_env({"env": "Geister"})
+    env.reset()
+    module = init_variables(env.net(), SEED)
+    params = module.state_dict()
+    # max_wait 50 ms: the four sessions of a step gather into one bucket
+    cfg = dict(SESSION_SERVING, max_batch=CHECK_SESSIONS, warm_buckets=[1, CHECK_SESSIONS],
+               max_wait_ms=50.0, watch_interval=0)
+    router = ModelRouter(module, env.observation(0), cfg, model_dir=tmp)
+    router.publish(1, params)
+    server = ServingServer(router, cfg).run()
+    client = ServingClient("127.0.0.1", server.bound_port)
+    try:
+        before = router.stats()["batches_served"]
+        session_replay_check("13(c) DRC GeisterNet fp32", client,
+                             build_inference_model(module, params), 1, DRC_SERVE_TOLERANCE,
+                             SEED + 2)
+        print(f"[serving] 13(c) DRC: {router.stats()['batches_served'] - before} batches for "
+              f"{CHECK_STEPS} steps of {CHECK_SESSIONS} sessions")
+    finally:
+        client.close()
+        server.shutdown()
+    torch.cuda.empty_cache()
+
+
+def phase_serving(results):
+    """13: the inference serving plane: (a) bench.py's serving legs, (b)
+    ``--serve`` with the transformer's KV-cache sessions at full width, (c)
+    served sessions against a replay on the card.  No kernel on this path."""
+    print(f"[serving] {card_line()}")
+    times = [time.perf_counter()]
+    with tempfile.TemporaryDirectory() as tmp:
+        a = serve_bench(tmp)
+        print(f"[serving] 13(a) TicTacToe SimpleConvNet, closed loop {SERVE_CLIENTS} connections "
+              f"x {SERVE_WINDOW} outstanding for {SERVE_LOOP_S:.0f} s: "
+              f"{a['saturation_qps']:.1f} req/s, p50 {a['p50_ms']:.2f} ms, p99 "
+              f"{a['p99_ms']:.2f} ms (client), mean batch {a['mean_batch']:.2f}; errors "
+              f"{a['load_errors']}")
+        print(f"[serving] 13(a) hot swap under load: warm {a['swap_warm_ms']:.1f} ms, first reply "
+              f"from the new model {a['swap_ttfr_ms'] or float('nan'):.1f} ms after the swap "
+              f"call, dropped "
+              f"{a['swap_dropped']}, flip observed {a['swap_flip_observed']}")
+        print(f"[serving] 13(a) open loop against a {SERVE_SLO_MS:.0f} ms SLO: 0.25x "
+              f"({a['offered_low_qps']:.1f} req/s offered) shed {a['shed_rate_low']:.4f}, 2x "
+              f"({a['offered_high_qps']:.1f} req/s offered) shed {a['shed_rate_high']:.4f}; "
+              f"errors {a['errors_low']} / {a['errors_high']}")
+        check(a["swap_dropped"] == 0 and a["swap_flip_observed"], "13(a): the hot swap failed")
+        check(a["shed_rate_low"] < a["shed_rate_high"], "13(a): shedding did not follow the load")
+        check(a["load_errors"] == a["server_errors"] == a["errors_low"] == a["errors_high"] == 0,
+              "13(a): error frames")
+        times.append(time.perf_counter())
+        serve_sessions(tmp)
+        times.append(time.perf_counter())
+        drc_session_check(tmp)
+        times.append(time.perf_counter())
+    parts = ", ".join(f"{tag} {t1 - t:.1f} s"
+                      for tag, t, t1 in zip(("(a)", "(b)+(c) transformer", "(c) DRC"),
+                                            times, times[1:]))
+    print(f"[serving] phase 13 in {times[-1] - times[0]:.1f} s: {parts}")
+
+
+
+
 def leftovers(shm_before):
     """Shared-memory segments and processes of the port alive now: segments
     made since ``shm_before``, this process's children, and CLI processes
@@ -2773,6 +3408,11 @@ def main(argv):
             # the device data plane (12(c) runs the masked kernel)
             reset_launches()
             phase_device_data(results)
+            # the inference serving plane (no kernel on its path)
+            reset_launches()
+            phase_serving(results)
+            print(f"[serving] kernel launches in phase 13: masked {MASKED_FLASH.launches}, "
+                  f"flash {FLASH.launches}")
             segments, procs = leftovers(shm_before)
             check(not segments and not procs,
                   f"outlived their runs: segments {segments}, processes {procs}")

@@ -10,7 +10,8 @@ that ports it, not quietly run on the plain loop.  Every default is the
 JAX package's, ``batch_pipeline: shm`` included.  On-device self-play and
 evaluation (``device_rollout_games``, ``device_eval_games``) and the
 device data plane (``device_replay``, ``batch_pipeline: device``) are
-ported, on the fused plane of one card.
+ported, on the fused plane of one card, and so is the ``serving`` block of
+``--serve`` (its int8 weights excepted).
 """
 
 from __future__ import annotations
@@ -146,6 +147,47 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     # restarted up to plane_max_restarts times
     "plane_stall_timeout": 120.0,
     "plane_max_restarts": 2,
+    # --serve's SIGTERM drain: the server pushes a draining notice to every
+    # peer, waits this long for its sessions to be pulled, and exits 75
+    "drain_deadline_seconds": 60.0,
+    # the inference serving plane (serving/, --serve)
+    "serving": {
+        # TCP port of the serving front (0 = a free one)
+        "port": 9997,
+        # resident snapshot engines beyond which the LRU non-latest engine
+        # is retired (drained, never dropped); the latest is always kept
+        "max_models": 4,
+        # default per-request latency budget (not imposed under
+        # shed_policy: none; a request's own slo_ms always holds)
+        "slo_ms": 200.0,
+        # 'deadline' sheds on a predicted SLO miss (queue waves x the EMA
+        # batch time), 'queue' only at queue_bound, 'none' never
+        "shed_policy": "deadline",
+        # the largest power-of-two bucket of one device batch
+        "max_batch": 64,
+        # straggler wait once a batch's first request arrived
+        "max_wait_ms": 2.0,
+        # buckets each engine runs once before it serves (and before a hot
+        # swap flips to it)
+        "warm_buckets": [1, 8],
+        # queued requests per engine (both shed policies enforce it)
+        "queue_bound": 1024,
+        # a silent client is dropped after this many seconds (0 = never)
+        "recv_timeout": 0.0,
+        # seconds between manifest polls for an automatic hot swap to a
+        # newer verified snapshot (0 = swap only when asked)
+        "watch_interval": 0.0,
+        # seconds between serve_* records appended to metrics_path (0 = off)
+        "stats_interval": 30.0,
+        # server-resident sessions: hidden states kept on the device before
+        # the LRU spills to the host (0 turns sessions off)
+        "session_capacity": 1024,
+        # the host spill ring beyond session_capacity; past it the oldest
+        # spilled session is dropped (its next infer is an affinity miss)
+        "session_spill": 4096,
+        # engine weights: 'float32' ('int8' needs models/quantize.py)
+        "weight_dtype": "float32",
+    },
 }
 
 DEFAULT_WORKER_ARGS: Dict[str, Any] = {
@@ -176,6 +218,7 @@ NOT_PORTED_KEYS = (
     (("autovec_verify_games",), 0, "A7 (the device data plane)"),
     (("distributed", "num_processes"), 1, "A8 (multiple GPUs)"),
     (("flywheel", "enabled"), False, "A10 (serving and the rest)"),
+    (("serving", "weight_dtype"), "float32", "A10 (models/quantize.py, int8)"),
     (("trace", "enabled"), False, "A8 (the learner's fault machinery and tracing)"),
     (("profile_dir",), None, "A8 (the learner's fault machinery and tracing)"),
 )
@@ -306,6 +349,9 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
         raise ValueError("train_args.plane_stall_timeout must be > 0")
     if train["plane_max_restarts"] < 0:
         raise ValueError("train_args.plane_max_restarts must be >= 0")
+    if train["drain_deadline_seconds"] <= 0:
+        raise ValueError("train_args.drain_deadline_seconds must be > 0")
+    _validate_serving(train["serving"])
     for path, default, item in NOT_PORTED_KEYS:
         value = train
         for key in path:
@@ -321,6 +367,54 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
     if "env" not in args.get("env_args", {}):
         raise ValueError("env_args.env is required")
     return args
+
+
+def _validate_serving(serving: Dict[str, Any]) -> None:
+    if serving["shed_policy"] not in ("deadline", "queue", "none"):
+        raise ValueError(
+            f"train_args.serving.shed_policy={serving['shed_policy']!r} "
+            "not one of ('deadline', 'queue', 'none')"
+        )
+    if int(serving["max_models"]) < 1:
+        raise ValueError("train_args.serving.max_models must be >= 1")
+    if float(serving["slo_ms"]) <= 0:
+        raise ValueError("train_args.serving.slo_ms must be > 0")
+    if int(serving["max_batch"]) < 1:
+        raise ValueError("train_args.serving.max_batch must be >= 1")
+    if float(serving["max_wait_ms"]) < 0:
+        raise ValueError("train_args.serving.max_wait_ms must be >= 0")
+    if int(serving["queue_bound"]) < 1:
+        raise ValueError("train_args.serving.queue_bound must be >= 1")
+    buckets = serving["warm_buckets"]
+    if not isinstance(buckets, (list, tuple)) or not buckets:
+        raise ValueError("train_args.serving.warm_buckets must be a non-empty list of bucket sizes")
+    for b in buckets:
+        if not isinstance(b, int) or b < 1 or (b & (b - 1)):
+            raise ValueError(
+                "train_args.serving.warm_buckets entries must be powers of two >= 1 "
+                f"(the engine's batch shapes), got {b!r}"
+            )
+        if b > int(serving["max_batch"]):
+            raise ValueError(
+                f"train_args.serving.warm_buckets entry {b} exceeds serving.max_batch "
+                f"{serving['max_batch']} — it would warm a shape the engine never runs"
+            )
+    for key in ("recv_timeout", "watch_interval", "stats_interval"):
+        if float(serving[key]) < 0:
+            raise ValueError(f"train_args.serving.{key} must be >= 0 (0 = off)")
+    if not isinstance(serving["port"], int) or not 0 <= serving["port"] <= 65535:
+        raise ValueError(f"train_args.serving.port={serving['port']!r} must be a TCP port (0 = a free one)")
+    for key in ("session_capacity", "session_spill"):
+        if int(serving[key]) < 0:
+            raise ValueError(
+                f"train_args.serving.{key} must be >= 0 (session_capacity 0 disables the "
+                "session cache)"
+            )
+    if serving["weight_dtype"] not in ("float32", "int8"):
+        raise ValueError(
+            f"train_args.serving.weight_dtype={serving['weight_dtype']!r} "
+            "not one of ('float32', 'int8')"
+        )
 
 
 def normalize_args(raw: Dict[str, Any]) -> Dict[str, Any]:

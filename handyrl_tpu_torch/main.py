@@ -6,13 +6,15 @@
     python -m handyrl_tpu_torch.main --eval MODELS NUM_GAMES NUM_WORKERS
     python -m handyrl_tpu_torch.main --eval-server [NUM_GAMES]
     python -m handyrl_tpu_torch.main --eval-client AGENT [HOST] [N_GAMES]
+    python -m handyrl_tpu_torch.main --serve            # the inference serving plane
 
 It reads the config.yaml the JAX package's ``main.py`` reads (``--worker``
 reads ``worker_args.server_address`` and the entry port; ``--eval-server``
-and ``--eval-client`` ``train_args.battle_port``) and runs on the card.
-``main(argv, device="cpu")`` runs on the CPU from Python; the command line
-has no device flag.  The JAX CLI's serving, fleet and league modes are not
-ported yet: each exits 1 saying so.
+and ``--eval-client`` ``train_args.battle_port``; ``--serve`` the
+``serving`` block) and runs on the card.  ``main(argv, device="cpu")``
+runs on the CPU from Python; the command line has no device flag.
+``--serve`` exits 75 after a SIGTERM drain.  The JAX CLI's fleet, edge and
+league modes are not ported yet: each exits 1 saying so.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ from typing import Any, Dict, List, Optional
 from .config import normalize_args
 
 NOT_PORTED = {
-    "--serve": "ROADMAP A10", "-s": "ROADMAP A10",
     "--fleet": "ROADMAP A10", "-f": "ROADMAP A10",
     "--edge": "ROADMAP A10",
     "--league": "ROADMAP A10", "-l": "ROADMAP A10",
@@ -73,6 +74,10 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
 
         eval_client_main(load_args(), argv[1:], device=device)
         return 0
+    if mode in ("--serve", "-s"):
+        from .serving.server import serve_main
+
+        return serve_main(load_args(), device=device)
     if mode in NOT_PORTED:
         print(f"mode {mode} is not ported to handyrl_tpu_torch yet ({NOT_PORTED[mode]})")
         return 1

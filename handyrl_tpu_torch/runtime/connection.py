@@ -84,6 +84,10 @@ class FramedConnection:
         self.default_timeout = timeout
         self._send_lock = threading.Lock()
         self._recv_lock = threading.Lock()
+        # frame bytes (headers included) each way, counted under that
+        # direction's lock: the serving plane reads them per request
+        self.bytes_sent = 0
+        self.bytes_received = 0
 
     def close(self) -> None:
         try:
@@ -145,6 +149,7 @@ class FramedConnection:
                 hard_deadline, gap = time.monotonic() + gap, None
             (length,) = _HEADER.unpack(self._recv_exact(4, gap, hard_deadline))
             payload = self._recv_exact(length, gap, hard_deadline) if length else b""
+            self.bytes_received += 4 + length
         return codec.loads(payload)
 
     @staticmethod
@@ -175,6 +180,7 @@ class FramedConnection:
 
     def _send_parts(self, parts: List[bytes], gap: Optional[float], hard: bool = False) -> None:
         """Write one frame; the caller holds the send lock."""
+        self.bytes_sent += sum(len(part) for part in parts)
         if gap is None:
             for part in parts:
                 self.conn.sendall(part)

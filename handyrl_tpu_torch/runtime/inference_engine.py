@@ -13,7 +13,9 @@ The engine, the trainer and the batch pipeline share the card's default
 stream, so device work is ordered across the threads as it is enqueued.
 
 The JAX engine pads batches to power-of-two buckets so XLA compiles a few
-shapes; torch does not recompile, so the port runs the batch as it is.
+shapes; torch does not recompile, so this engine runs the batch as it is.
+The serving plane's batcher pads to the buckets of ``next_bucket``; both
+stack through ``stack_padded``.
 """
 
 from __future__ import annotations
@@ -26,12 +28,43 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from ..models.inference import split_outputs
+from ..models.inference import as_device_tensor, split_outputs
 from ..utils import tree_map, tree_stack
 
 
 class EngineStopped(RuntimeError):
     """Raised to waiters when the engine is stopped with requests pending."""
+
+
+def next_bucket(n: int, max_batch: int) -> int:
+    """Smallest power of two >= n, capped at max_batch: the batch shapes
+    the serving batcher runs and warms."""
+    b = 1
+    while b < n:
+        b *= 2
+    return min(b, max_batch)
+
+
+def stack_padded(obs_list, hid_list, bucket: int, hidden_template):
+    """Pad to ``bucket`` rows and stack into one batch.  Pad rows replicate
+    real entries (the first observation, the initial state), so every row
+    is a valid input.  Observations stack on the host (numpy), to be copied
+    to the device once; hidden leaves stack on the device of the
+    template's leaf with ``torch.stack``, numpy leaves copied there first.
+    ``hid_list`` entries of None take ``hidden_template``, the model's
+    initial state; a None template means a stateless model (no hidden
+    batch)."""
+    obs_list = list(obs_list)
+    obs_list += [obs_list[0]] * (bucket - len(obs_list))
+    obs_batch = tree_stack(obs_list)
+    hidden_batch = None
+    if hidden_template is not None:
+        hid_list = [h if h is not None else hidden_template for h in hid_list]
+        hid_list += [hidden_template] * (bucket - len(hid_list))
+        hidden_batch = tree_map(
+            lambda t, *leaves: torch.stack([as_device_tensor(x, t.device) for x in leaves]),
+            hidden_template, *hid_list)
+    return obs_batch, hidden_batch
 
 
 class BatchedInferenceClient:
@@ -158,13 +191,10 @@ class BatchedInferenceEngine:
         self._fail_pending()
 
     def _serve(self, requests: List) -> None:
-        obs_batch = tree_stack([r[0] for r in requests])
         with self._model_lock:
-            template = self.model.init_hidden()
-            hidden_batch = None
-            if template is not None:
-                hidden_batch = tree_map(lambda *hs: torch.stack(hs),
-                                        *[r[1] if r[1] is not None else template for r in requests])
+            obs_batch, hidden_batch = stack_padded(
+                [r[0] for r in requests], [r[1] for r in requests], len(requests),
+                self.model.init_hidden())
             outputs = self.model.inference_batch(obs_batch, hidden_batch)
             rows = split_outputs(outputs, len(requests))
         for (_, _, fut), row in zip(requests, rows):

@@ -154,7 +154,7 @@ def test_cli_trains_and_evaluates(tmp_path, monkeypatch, capsys):
     assert main(["--eval", "models/latest.ckpt", "10", "2"], device="cpu") == 0
     assert "total =" in capsys.readouterr().out
     assert main(["--eval", "models/1.ckpt:random", "4", "1"], device="cpu") == 0
-    assert main(["--serve"], device="cpu") == 1
+    assert main(["--fleet"], device="cpu") == 1
     assert "not ported" in capsys.readouterr().out
     assert main(["--bogus"], device="cpu") == 1 and main([], device="cpu") == 1
 

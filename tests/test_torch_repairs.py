@@ -97,7 +97,7 @@ def _value(path, value):
 NON_DEFAULT = {
     "plane": "split", "obs_int8": True, "plane_param_lag_bound": 5,
     "autovec_verify_games": 4, "num_processes": 2, "flywheel": True, "trace": True,
-    "profile_dir": "profiles",
+    "profile_dir": "profiles", "weight_dtype": "int8",
 }
 
 
