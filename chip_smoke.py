@@ -148,6 +148,32 @@ Phases, each of which fails the run when it fails:
    transformer within 2e-2 of the outputs' scale, the DRC ``GeisterNet`` in
    fp32 (served by this process) within 1e-4.  Alone: ``python3 -c "import
    chip_smoke as cs; cs.phase_serving({})"``.
+14. the fleet tier and the learner's fault machinery, random weights from
+   seeds: (a) ``python -m handyrl_tpu_torch.main --fleet`` over two
+   ``--serve`` processes (TicTacToe ``SimpleConvNet``, 13(a)'s load shape),
+   closed loops in turns through the fleet and direct to one replica
+   (req/s, p50/p99: the router's cost per request), a fleet-wide swap under
+   load (0 dropped, both replicas flipped), SIGTERM: the fleet exits 0, the
+   replicas 75; (b) the training slice's transformer at full width in two
+   ``--serve`` processes behind a ``FleetRouter`` in this process, 256
+   sessions of Geister self-play, one replica SIGTERMing itself
+   (``HANDYRL_FAULT_SIGTERM_REPLICA``) mid-load: its sessions migrate to
+   the survivor with no error and no affinity miss, it exits 75; session
+   steps/s before and after, the migration's ms and MB, notice-to-exit
+   seconds, each replica's peak memory; 4 migrated sessions against a
+   replay on the card (2e-2 of scale); (c) ``fleet.autoscale`` over
+   ``ProcessReplicaFactory`` replicas (spawned processes on the card,
+   TicTacToe at max_batch 1) under an open loop above one replica's
+   saturation: the new replica takes its first request only once admitted
+   warm (decision-to-admission and first-request seconds, shed rates before
+   and after), calm retires it through the migration with no session lost;
+   (d) config.yaml's learner (episodes cut) through the CLI with
+   ``HANDYRL_FAULT_NAN_AT_STEP`` (skips, rolls back, finite losses) plus
+   ``trace.enabled`` (spans read back) and ``profile_dir`` (CUDA kernel
+   events in the trace), with ``HANDYRL_FAULT_SIGTERM_AT_STEP`` (exit 75, a
+   verified drain checkpoint, a ``restart_epoch: -1`` relaunch resuming
+   there), and updates/s with tracing on and off in turns.  Alone:
+   ``python3 -c "import chip_smoke as cs; cs.phase_fleet({})"``.
 
 Every learner phase (7a, 7b, 8a, 8b, 9a, 9b, 11c, 11d; 12(e)'s shm runs) runs on the port's default
 ``batch_pipeline: shm`` and fails unless every epoch's live pipeline mode
@@ -158,9 +184,9 @@ process of the port outlives it.
 
 Phases 4, 5-6, 7b, 9b and 12(c) are the paths through the port's kernels:
 each starts with every launch count at 0, and its kernel's count is read
-at its end; phases 8a, 11 and 13 are read the same way and launch neither
-kernel (8b, 9a, 9c, 11c, 12(d)'s CLI and 13(b)'s server run in processes
-of their own).
+at its end; phases 8a, 11, 13 and 14 are read the same way and launch
+neither kernel (8b, 9a, 9c, 11c, 12(d)'s CLI, 13(b)'s server and 14's
+replicas, fleet and CLI learners run in processes of their own).
 The last two lines are a JSON ``kernels`` record and the verdict
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or of handyrl_tpu is
 imported.  Weights are random, made from a seed.
@@ -751,17 +777,19 @@ def cli_env():
         p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
 
 
-def run_cli(cwd, *argv, timeout=600):
+def run_cli(cwd, *argv, timeout=600, env=None, code=0):
     """``python -m handyrl_tpu_torch.main ARGV`` in ``cwd``, as a user runs
-    it; fails the phase on a nonzero exit, printing the output's tail."""
+    it, with ``env`` added to this environment; fails the phase on another
+    exit than ``code``, printing the output's tail."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "handyrl_tpu_torch.main", *argv], cwd=cwd,
-                          env=cli_env(), capture_output=True, text=True, timeout=timeout)
+                          env=dict(cli_env(), **(env or {})), capture_output=True, text=True,
+                          timeout=timeout)
     elapsed = time.perf_counter() - t0
-    if proc.returncode != 0:
+    if proc.returncode != code:
         print(proc.stdout[-3000:] + proc.stderr[-3000:])
-    check(proc.returncode == 0, f"main {' '.join(argv)} exited {proc.returncode}")
-    return proc.stdout, elapsed
+    check(proc.returncode == code, f"main {' '.join(argv)} exited {proc.returncode}, not {code}")
+    return proc.stdout + proc.stderr if code else proc.stdout, elapsed
 
 
 def check_snapshots(model_dir, epochs):
@@ -1184,10 +1212,13 @@ class Children:
     def __enter__(self):
         return self
 
-    def start(self, tag, *argv):
+    def start(self, tag, *argv, cwd=None, env=None):
+        """``main ARGV`` in ``cwd`` (the block's by default), with ``env``
+        added to this environment."""
+        cwd = cwd or self.cwd
         log = open(os.path.join(self.cwd, f"{tag}.log"), "w")
         proc = subprocess.Popen([sys.executable, "-m", "handyrl_tpu_torch.main", *argv],
-                                cwd=self.cwd, env=cli_env(), stdout=log,
+                                cwd=cwd, env=dict(cli_env(), **(env or {})), stdout=log,
                                 stderr=subprocess.STDOUT, text=True)
         self.procs[tag] = (proc, log)
         return proc
@@ -2902,28 +2933,46 @@ def session_replay_check(tag, client, model, model_id, tol, seed):
     observations through ``model`` (an ``InferenceModel`` on the card) with
     an explicit hidden state, at that bucket.  Every output is held within
     ``tol`` of its scale.  Returns the sids, left open."""
+    seqs = geister_games(CHECK_SESSIONS, CHECK_STEPS, seed)
+    sids = [client.open_session() for _ in seqs]
+    served = [session_step(client, seqs, sids, step, model=model_id)
+              for step in range(CHECK_STEPS)]
+    check(all(r["model"] == model_id for step in served for r in step),
+          f"{tag}: a session step was not served by model {model_id}")
+    worst = replay_error(tag, model, seqs, served)
+    print(f"[serving] {tag}: {len(seqs)} sessions x {CHECK_STEPS} steps through the server "
+          f"against the InferenceModel on the card with an explicit hidden state at bucket "
+          f"{len(seqs)}: max_abs_err {worst:.3e} of the outputs' scale (tolerance {tol:.0e})")
+    check(worst <= tol, f"{tag}: the served session outputs disagree with the replay")
+    return sids
+
+
+def session_step(client, seqs, sids, step, model=-1):
+    """One step of every session, sent together so that they batch at one
+    bucket; the replies in the sessions' order."""
+    futs = [client.submit(seq[step], model=model, sid=sid) for seq, sid in zip(seqs, sids)]
+    return [f.result(timeout=120) for f in futs]
+
+
+def replay_error(tag, model, seqs, served):
+    """The largest error, relative to max(1, the output's scale), of the
+    served steps ``served[step][session]`` against the same observations
+    through ``model`` on the card with an explicit hidden state, at the
+    bucket of all the sessions."""
     import numpy as np
     import torch
 
     from handyrl_tpu_torch.models import fetch_outputs
     from handyrl_tpu_torch.utils import tree_stack
 
-    seqs = geister_games(CHECK_SESSIONS, CHECK_STEPS, seed)
-    sids = [client.open_session() for _ in seqs]
-    served = []
-    for step in range(CHECK_STEPS):
-        futs = [client.submit(seq[step], model=model_id, sid=sid) for seq, sid in zip(seqs, sids)]
-        served.append([f.result(timeout=120) for f in futs])
-    check(all(r["model"] == model_id for step in served for r in step),
-          f"{tag}: a session step was not served by model {model_id}")
     worst = 0.0
     with torch.inference_mode():
         hidden = model.module.initial_state((len(seqs),), model.device)
-        for step in range(CHECK_STEPS):
+        for step, replies in enumerate(served):
             out = model.inference_batch_async(tree_stack([seq[step] for seq in seqs]), hidden)
             hidden = out.pop("hidden")
             want = fetch_outputs(out)
-            for i, reply in enumerate(served[step]):
+            for i, reply in enumerate(replies):
                 check(set(reply["out"]) == set(want), f"{tag}: output keys {sorted(reply['out'])}")
                 for key, ref in want.items():
                     got = np.asarray(reply["out"][key])
@@ -2931,11 +2980,7 @@ def session_replay_check(tag, client, model, model_id, tol, seed):
                           f"{tag}: bad {key} {got.shape}")
                     err = float(np.abs(got - ref[i]).max())
                     worst = max(worst, err / max(1.0, float(np.abs(ref[i]).max())))
-    print(f"[serving] {tag}: {len(seqs)} sessions x {CHECK_STEPS} steps through the server "
-          f"against the InferenceModel on the card with an explicit hidden state at bucket "
-          f"{len(seqs)}: max_abs_err {worst:.3e} of the outputs' scale (tolerance {tol:.0e})")
-    check(worst <= tol, f"{tag}: the served session outputs disagree with the replay")
-    return sids
+    return worst
 
 
 class SessionPlayer:
@@ -2979,9 +3024,13 @@ class SessionPlayer:
             lambda f, i=i, t0=t0: self.done.put((i, f, t0)))
 
     def run(self, end_t):
+        """Play until ``end_t`` (perf_counter), which ``self.end_t`` may move
+        while it runs."""
         import numpy as np
 
         from handyrl_tpu_torch.agents import masked_policy_logits, sample_logits
+
+        self.end_t = end_t
 
         games = {i: self._new_game() for i in range(self.games)}
         for i, game in games.items():
@@ -3004,10 +3053,10 @@ class SessionPlayer:
                                           env.legal_actions(turn))
             env.play(sample_logits(logits, 1.0, self.rng), turn)
             self.steps += 1
-            if env.terminal() or time.perf_counter() >= end_t:
+            if env.terminal() or time.perf_counter() >= self.end_t:
                 self.finished += env.terminal()
                 self._close(games[i])
-                if time.perf_counter() >= end_t:
+                if time.perf_counter() >= self.end_t:
                     continue
                 games[i] = self._new_game()
             self._submit(i, games[i])
@@ -3300,6 +3349,562 @@ def phase_serving(results):
 
 
 
+FLEET_TURN_S = 4.0         # 14(a): each closed-loop turn, through the fleet or direct
+FLEET_SESSION_GAMES = 16   # 14(b): SESSION_CONNS x 16 games x 2 seats = 256 sessions
+FLEET_FAULT_REPLIES = 1500 # 14(b): the victim SIGTERMs itself after this many replies
+FLEET_AFTER_S = 6.0        # 14(b): the load's seconds after the victim's exit
+FLEET_DRAIN_S = 30         # 14(b): the replicas' drain_deadline_seconds
+AUTOSCALE_OFFERED = 1.5    # 14(c): the open loop, in multiples of one replica's saturation
+LEARNER_EPISODES = 64      # 14(d): minimum_episodes and update_episodes of config.yaml's learner
+SIGTERM_STEP = 20          # 14(d): HANDYRL_FAULT_SIGTERM_AT_STEP
+TRACE_TURNS = 3            # 14(d): learner runs with tracing on, and as many off
+
+
+def closed_loop_load(port, obs, conns, window, dur, stop=None, slo_ms=None):
+    """``conns`` connections, each keeping ``window`` requests outstanding
+    on ``port`` for ``dur`` seconds (or until ``stop``), with the SLO
+    ``slo_ms`` (the server's default if None): req/s, the client's p50/p99
+    ms, the replies and errors, and each reply's (time, model)."""
+    from handyrl_tpu_torch.serving import ServingClient
+    from handyrl_tpu_torch.serving.batcher import percentiles_ms
+
+    lock = threading.Lock()
+    lats, events, counts = [], [], {"ok": 0, "err": 0}
+
+    def settle(t0, fut):
+        try:
+            reply = fut.result(timeout=120)
+        except Exception:
+            with lock:
+                counts["err"] += 1
+            return
+        t = time.perf_counter()
+        with lock:
+            counts["ok"] += 1
+            lats.append((t - t0) * 1e3)
+            events.append((t, reply["model"]))
+
+    def one():
+        client = ServingClient("127.0.0.1", port)
+        inflight = []
+        end = time.perf_counter() + dur
+        try:
+            while time.perf_counter() < end and not (stop and stop.is_set()):
+                while len(inflight) < window:
+                    inflight.append((time.perf_counter(), client.submit(obs, slo_ms=slo_ms)))
+                settle(*inflight.pop(0))
+            for item in inflight:
+                settle(*item)
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=one, daemon=True) for _ in range(conns)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(dur + 180)
+    check(not any(t.is_alive() for t in threads), "a load thread did not end")
+    elapsed = time.perf_counter() - t0
+    pct = percentiles_ms(lats)
+    return {"qps": counts["ok"] / elapsed, "p50": pct[50], "p99": pct[99], "ok": counts["ok"],
+            "err": counts["err"], "events": events}
+
+
+def open_loop_load(port, obs, rate_at, stop, events):
+    """Paced offered load on ``port`` over SERVE_CLIENTS // 2 connections
+    until ``stop``: ``rate_at(t)`` req/s at ``t`` seconds in, each request
+    with the SLO SERVE_SLO_MS; each outcome goes to ``events`` as (time,
+    'ok' | 'shed' | 'err')."""
+    from handyrl_tpu_torch.serving import ServingClient, ServingError
+
+    clients = [ServingClient("127.0.0.1", port) for _ in range(SERVE_CLIENTS // 2)]
+    lock = threading.Lock()
+    pending = [0]
+
+    def done(fut):
+        try:
+            fut.result()
+            kind = "ok"
+        except ServingError as exc:
+            kind = "shed" if exc.kind in ("shed", "deadline") else "err"
+        except Exception:
+            kind = "err"
+        with lock:
+            events.append((time.perf_counter(), kind))
+            pending[0] -= 1
+
+    start, sent, due_f = time.perf_counter(), 0, 0.0
+    last = start
+    try:
+        while not stop.is_set():
+            now = time.perf_counter()
+            due_f += (now - last) * rate_at(now - start)
+            last = now
+            for _ in range(min(max(int(due_f) - sent, 0), 512)):
+                with lock:
+                    pending[0] += 1
+                fut = clients[sent % len(clients)].submit(obs, slo_ms=SERVE_SLO_MS)
+                fut.add_done_callback(done)
+                sent += 1
+            time.sleep(0.002)
+        deadline = time.perf_counter() + 60.0
+        while time.perf_counter() < deadline:
+            with lock:
+                if pending[0] == 0:
+                    break
+            time.sleep(0.005)
+    finally:
+        for client in clients:
+            client.close()
+
+
+def write_config(path, config):
+    Path(path).mkdir(parents=True, exist_ok=True)
+    Path(path, "config.yaml").write_text(json.dumps(config))   # JSON is YAML
+
+
+def fleet_tictactoe(tmp):
+    """14(a): ``python -m handyrl_tpu_torch.main --fleet`` over two
+    ``--serve`` replica processes (TicTacToe ``SimpleConvNet`` on the card),
+    13(a)'s load in turns through the fleet and direct to one replica, then
+    a fleet-wide swap under load."""
+    import signal
+
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models import init_variables
+    from handyrl_tpu_torch.serving import ServingClient
+
+    env = make_env({"env": "TicTacToe"})
+    env.reset()
+    obs = env.observation(0)
+    serving = {"port": 0, "max_models": 4, "slo_ms": 1000.0, "shed_policy": "none",
+               "max_batch": 64, "max_wait_ms": 1.0, "warm_buckets": SERVE_BUCKETS,
+               "queue_bound": 8192, "watch_interval": 0, "stats_interval": 0}
+    rep_dir, fleet_dir = os.path.join(tmp, "replicas"), os.path.join(tmp, "fleet")
+    write_config(rep_dir, {"env_args": {"env": "TicTacToe"},
+                           "train_args": {"seed": SEED, "model_dir": "models", "serving": serving}})
+    out = {}
+    with Children(tmp) as kids:
+        for i in range(2):
+            kids.start(f"rep{i}", "--serve", cwd=rep_dir)
+        ports = [int(wait_for_line(kids, f"rep{i}", r"serving: listening on port (\d+)",
+                                   300).group(1)) for i in range(2)]
+        check(all("device cuda" in kids.output(f"rep{i}") for i in range(2)),
+              "14(a): a replica is not on the card")
+        write_config(fleet_dir, {"env_args": {"env": "TicTacToe"}, "train_args": {"fleet": {
+            "port": 0, "stats_poll_s": 0.5, "stats_interval": 0,
+            "replicas": [f"127.0.0.1:{p}" for p in ports]}}})
+        fleet = kids.start("fleet", "--fleet", cwd=fleet_dir)
+        fport = int(wait_for_line(kids, "fleet", r"fleet: entry port (\d+)", 120).group(1))
+        turns = {"fleet": [], "direct": []}
+        for tag in ("fleet", "direct", "fleet", "direct"):
+            turn = closed_loop_load(fport if tag == "fleet" else ports[0], obs, SERVE_CLIENTS,
+                                    SERVE_WINDOW, FLEET_TURN_S)
+            turns[tag].append(turn)
+            print(f"[fleet] 14(a) {tag:6s} closed loop {SERVE_CLIENTS} connections x "
+                  f"{SERVE_WINDOW} outstanding for {FLEET_TURN_S:.0f} s: {turn['qps']:.1f} req/s, "
+                  f"p50 {turn['p50']:.2f} ms, p99 {turn['p99']:.2f} ms (client); errors "
+                  f"{turn['err']}")
+        check(all(t["err"] == 0 for ts in turns.values() for t in ts), "14(a): error replies")
+        # the fleet-wide swap under load: every replica warms and flips in turn
+        p2 = {k: v.numpy() for k, v in init_variables(env.net(), SEED + 1).state_dict().items()}
+        stop, loaded = threading.Event(), {}
+        load = threading.Thread(target=lambda: loaded.update(closed_loop_load(
+            fport, obs, SERVE_CLIENTS // 2, SERVE_WINDOW, 120.0, stop)), daemon=True)
+        load.start()
+        time.sleep(1.0)
+        admin = ServingClient("127.0.0.1", fport)
+        t_swap = time.perf_counter()
+        swap = admin.swap(1, params=p2)
+        swap_s = time.perf_counter() - t_swap
+        time.sleep(1.0)
+        stop.set()
+        load.join(300)
+        stats = admin.stats()
+        admin.close()
+        new = [t for t, m in loaded["events"] if m == 1]
+        print(f"[fleet] 14(a) fleet-wide swap under load: {swap['replicas']} replicas flipped in "
+              f"{swap_s * 1e3:.1f} ms (warm {swap['warm_ms']:.1f} ms summed), the first reply "
+              f"from the new model {(new[0] - t_swap) * 1e3 if new else float('nan'):.1f} ms "
+              f"after the swap call; dropped {loaded['err']}; fleet errors "
+              f"{stats['fleet_errors']}, replica errors "
+              f"{[r['serve_errors'] for r in stats['replicas'].values()]}")
+        check(swap["replicas"] == 2 and {m for _, m in loaded["events"]} == {0, 1},
+              "14(a): the fleet-wide swap did not flip both replicas")
+        check(loaded["err"] == 0 and stats["fleet_errors"] == 0
+              and all(r["serve_errors"] == 0 for r in stats["replicas"].values()),
+              "14(a): error frames across the swap")
+        fleet.send_signal(signal.SIGTERM)
+        check(fleet.wait(60) == 0, f"14(a): --fleet exited {fleet.poll()} after SIGTERM")
+        for i in range(2):
+            proc = kids.procs[f"rep{i}"][0]
+            proc.send_signal(signal.SIGTERM)
+            check(proc.wait(60) == 75, f"14(a): replica {i} exited {proc.poll()} after SIGTERM")
+    for tag in turns:
+        qps = sorted(t["qps"] for t in turns[tag])
+        out[tag] = {"qps": qps, "p50": [t["p50"] for t in turns[tag]],
+                    "p99": [t["p99"] for t in turns[tag]]}
+    f, d = out["fleet"], out["direct"]
+    print(f"[fleet] 14(a) the router's cost (turns fleet/direct/fleet/direct): "
+          f"{f['qps'][0]:.1f}-{f['qps'][1]:.1f} req/s through the fleet over 2 replicas against "
+          f"{d['qps'][0]:.1f}-{d['qps'][1]:.1f} direct to one; p50 "
+          f"{min(f['p50']):.2f}-{max(f['p50']):.2f} ms against "
+          f"{min(d['p50']):.2f}-{max(d['p50']):.2f}, p99 {min(f['p99']):.2f}-{max(f['p99']):.2f} "
+          f"ms against {min(d['p99']):.2f}-{max(d['p99']):.2f}")
+    return out
+
+
+def fleet_sessions(tmp):
+    """14(b): the training slice's transformer at full width in two
+    ``--serve`` replica processes behind the fleet, 256 sessions of Geister
+    self-play; the victim, ``HANDYRL_FAULT_SIGTERM_REPLICA``, drains mid-load
+    and its sessions migrate to the survivor."""
+    import signal
+
+    import torch
+
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.fleet import FleetRouter
+    from handyrl_tpu_torch.models import build_inference_model, init_variables
+    from handyrl_tpu_torch.runtime import checkpoint as ckpt
+    from handyrl_tpu_torch.serving import ServingClient
+
+    env_args = {"env": "Geister", "net": "transformer", "net_args": NET_ARGS}
+    model_dir = os.path.join(tmp, "fleet_models")
+    module = make_env(env_args).net()
+    params0 = {k: v.clone() for k, v in init_variables(module, SEED).state_dict().items()}
+    ckpt.save_epoch_snapshot(model_dir, 1, params0, {"steps": 0}, 0)
+    replay = build_inference_model(module, params0)   # on the card
+    del module, params0
+    rep_dir = os.path.join(tmp, "session_replicas")
+    write_config(rep_dir, {"env_args": env_args, "train_args": {
+        "model_dir": model_dir, "compute_dtype": "bfloat16",
+        "drain_deadline_seconds": FLEET_DRAIN_S,
+        "serving": dict(SESSION_SERVING, session_capacity=512, watch_interval=0)}})
+    n_sessions = 2 * SESSION_CONNS * FLEET_SESSION_GAMES
+    with Children(tmp) as kids, CardMemory() as memory:
+        t0 = time.perf_counter()
+        kids.start("victim", "--serve", cwd=rep_dir,
+                   env={"HANDYRL_FAULT_SIGTERM_REPLICA": str(FLEET_FAULT_REPLIES)})
+        kids.start("survivor", "--serve", cwd=rep_dir)
+        ports = {tag: int(wait_for_line(kids, tag, r"serving: listening on port (\d+)",
+                                        600).group(1)) for tag in ("victim", "survivor")}
+        print(f"[fleet] 14(b) two --serve replicas of the transformer up in "
+              f"{time.perf_counter() - t0:.1f} s")
+        fleet = FleetRouter({
+            "port": 0, "stats_poll_s": 0.5, "replica_stall_s": 120.0, "rejoin_backoff_s": 1.0,
+            "rejoin_backoff_max_s": 5.0, "stats_interval": 0, "migrate_timeout_s": 60.0,
+            "replicas": [f"127.0.0.1:{ports[t]}" for t in ("victim", "survivor")],
+        }).run(connect_timeout=120)
+        client = None
+        try:
+            vrep = next(r for r in fleet._reps() if r.spec.port == ports["victim"])
+            export, moved = vrep.client.export_sessions, {}
+
+            def measured_export(timeout=60.0):
+                t = time.perf_counter()
+                reply = export(timeout=timeout)
+                moved.update(s=time.perf_counter() - t, count=len(reply["sessions"]),
+                             bytes=sum(x.nbytes for h in reply["sessions"].values()
+                                       for x in _leaves(h)))
+                return reply
+
+            vrep.client.export_sessions = measured_export
+            client = ServingClient("127.0.0.1", fleet.bound_port)
+            # CHECK_SESSIONS sessions on the victim: half their steps before
+            # the load, half after the migration, each step at one bucket
+            sids, others = [], []
+            while len(sids) < CHECK_SESSIONS:
+                sid = client.open_session()
+                (sids if fleet._affinity[sid] is vrep else others).append(sid)
+                check(len(others) < 64, "14(b): no session lands on the victim")
+            for sid in others:
+                client.close_session(sid)
+            seqs = geister_games(CHECK_SESSIONS, CHECK_STEPS, SEED + 3)
+            half = CHECK_STEPS // 2
+            served = [session_step(client, seqs, sids, k) for k in range(half)]
+            players = [SessionPlayer(fleet.bound_port, FLEET_SESSION_GAMES, SEED + 10 + i)
+                       for i in range(SESSION_CONNS)]
+            t_load = time.perf_counter()
+            threads = [threading.Thread(target=p.run, args=(t_load + 600,), daemon=True)
+                       for p in players]
+            for t in threads:
+                t.start()
+            vproc = kids.procs["victim"][0]
+            t_notice = None
+            deadline = time.monotonic() + 300
+            while vproc.poll() is None and time.monotonic() < deadline:
+                if t_notice is None and fleet.preempt_drains:
+                    t_notice = time.perf_counter()
+                time.sleep(0.005)
+            t_exit, code = time.perf_counter(), vproc.poll()
+            check(code == 75 and t_notice is not None,
+                  f"14(b): the victim exited {code}, draining notice seen: {t_notice is not None}"
+                  f"\n{kids.output('victim')[-2000:]}")
+            deadline = time.monotonic() + 60
+            while not all(fleet._affinity.get(s) is not None
+                          and fleet._affinity[s].spec.port == ports["survivor"] for s in sids):
+                check(time.monotonic() < deadline, "14(b): affinity never flipped")
+                time.sleep(0.01)
+            t_end = time.perf_counter() + FLEET_AFTER_S
+            for p in players:
+                p.end_t = t_end
+            for t in threads:
+                t.join(300)
+            check(not any(t.is_alive() for t in threads), "14(b): a session player did not end")
+            served += [session_step(client, seqs, sids, k) for k in range(half, CHECK_STEPS)]
+            stats = client.stats()
+        finally:
+            if client is not None:
+                client.close()
+            fleet.shutdown()
+        survivor = stats["replicas"][f"127.0.0.1:{ports['survivor']}"]
+        times = [t for p in players for t, _ in p.models]
+        before = sum(1 for t in times if t < t_notice) / (t_notice - t_load)
+        after = sum(1 for t in times if t > t_exit) / (t_end - t_exit)
+        errors = sum(p.errors for p in players)
+        print(f"[fleet] 14(b) {SESSION_CONNS} connections x {2 * FLEET_SESSION_GAMES} sessions "
+              f"({n_sessions} at once) through the fleet: {before:.1f} session steps/s over 2 "
+              f"replicas for {t_notice - t_load:.1f} s, {after:.1f} on the survivor for "
+              f"{t_end - t_exit:.1f} s after the drain; errors {errors} (fleet "
+              f"{stats['fleet_errors']}), survivor affinity misses "
+              f"{survivor['session_affinity_miss']}, restores {survivor['session_restored']}")
+        print(f"[fleet] 14(b) the victim's drain: {fleet.sessions_migrated} sessions "
+              f"({moved.get('bytes', 0) / 1e6:.1f} MB) migrated in {fleet.last_migration_ms:.1f} "
+              f"ms (the export's wire {moved.get('s', float('nan')) * 1e3:.1f} ms, "
+              f"{moved.get('bytes', 0) / 1e6 / max(fleet.last_migration_ms / 1e3, 1e-9):.1f} MB/s "
+              f"over the whole handoff); draining notice to exit {t_exit - t_notice:.2f} s "
+              f"(deadline {FLEET_DRAIN_S} s), exit {code}")
+        check(errors == 0 and stats["fleet_errors"] == 0, "14(b): error replies under the drain")
+        check(survivor["session_affinity_miss"] == 0 and fleet.sessions_migrated > CHECK_SESSIONS
+              and stats["fleet_preempt_drains"] == 1 and survivor["session_migrated_in"] > 0,
+              "14(b): the victim's sessions did not migrate whole")
+        sproc = kids.procs["survivor"][0]
+        sproc.send_signal(signal.SIGTERM)
+        check(sproc.wait(FLEET_DRAIN_S + 30) == 75, f"14(b): the survivor exited {sproc.poll()}")
+        for tag in ("victim", "survivor"):
+            peak = re.search(r"serving: peak device memory .*", kids.output(tag))
+            print(f"[fleet] 14(b) {tag}: {peak.group(0) if peak else 'no peak memory line'}")
+    worst = replay_error("14(b)", replay, seqs, served)
+    tol = tolerance(torch.bfloat16)
+    print(f"[fleet] 14(b) {CHECK_SESSIONS} migrated sessions x {CHECK_STEPS} steps ({half} on the "
+          f"victim, {CHECK_STEPS - half} on the survivor from the migrated state) against the "
+          f"InferenceModel on the card with an explicit hidden state: max_abs_err {worst:.3e} "
+          f"of the outputs' scale (tolerance {tol:.0e}); card memory used (nvidia-smi), peak "
+          f"{memory.peak_mib:.0f} MiB, this process's share included")
+    check(worst <= tol, "14(b): a migrated session disagrees with the replay")
+    del replay
+    torch.cuda.empty_cache()
+
+
+def fleet_autoscale(tmp):
+    """14(c): ``fleet.autoscale`` over ``ProcessReplicaFactory`` replicas
+    (TicTacToe, max_batch 1) under an open loop above one replica's
+    saturation: the scale-up's replica serves only once warm; calm then
+    retires it through the migration."""
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.fleet import FleetRouter, ProcessReplicaFactory
+    from handyrl_tpu_torch.serving import ServingClient
+
+    env = make_env({"env": "TicTacToe"})
+    env.reset()
+    obs = env.observation(0)
+    args = normalize_args({"env_args": {"env": "TicTacToe"}, "train_args": {
+        "seed": SEED, "model_dir": os.path.join(tmp, "autoscale_models"),
+        "serving": {"port": 0, "max_batch": 1, "warm_buckets": [1], "max_wait_ms": 0.0,
+                    "shed_policy": "deadline", "slo_ms": SERVE_SLO_MS, "queue_bound": 8192,
+                    "stats_interval": 0},
+        "fleet": {"port": 0, "stats_poll_s": 0.2, "stats_interval": 0, "autoscale": {
+            "enabled": True, "min_replicas": 1, "max_replicas": 2, "interval_s": 0.2,
+            "shed_slo": 0.01, "depth_high": 16.0, "depth_low": 1.0, "scale_down_after_s": 3.0,
+            "cooldown_s": 1.0, "warm_timeout_s": 300.0}}}})
+    factory = ProcessReplicaFactory(args)
+    t0 = time.perf_counter()
+    fleet = FleetRouter(args["train_args"]["fleet"], replica_factory=factory).run(
+        connect_timeout=300)
+    print(f"[fleet] 14(c) the floor's replica process spawned, warm and admitted in "
+          f"{time.perf_counter() - t0:.1f} s")
+    stamps, scale_up = {}, fleet.scale_up
+
+    def stamped_scale_up(reason=""):
+        stamps.setdefault("decision", time.perf_counter())
+        return scale_up(reason)
+
+    fleet.scale_up = stamped_scale_up
+    client = None
+    try:
+        first = fleet._reps()[0]
+        # no shed (a long SLO) and a depth under depth_high: no decision yet
+        sat = closed_loop_load(first.spec.port, obs, SERVE_CLIENTS, 1, 2.0, slo_ms=10000.0)["qps"]
+        stop, events = threading.Event(), []
+        # the offered rate doubles every 10 s without a decision
+        rate_at = (lambda t: AUTOSCALE_OFFERED * sat * (1 if "decision" in stamps
+                                                        else 2 ** min(3, int(t // 10))))
+        load = threading.Thread(target=open_loop_load,
+                                args=(fleet.bound_port, obs, rate_at, stop, events), daemon=True)
+        load.start()
+        deadline = time.monotonic() + 240
+        new = None
+        while "first_request" not in stamps and time.monotonic() < deadline:
+            reps = [r for r in fleet._reps() if r is not first]
+            if reps:
+                new = reps[0]
+                if new.admitted:
+                    stamps.setdefault("admitted", time.perf_counter())
+                if new.picked:
+                    stamps["first_request"] = time.perf_counter()
+            time.sleep(0.002)
+        check("first_request" in stamps and new is not None and new.admitted,
+              f"14(c): no scale-up replica admitted and serving ({sorted(stamps)})")
+        time.sleep(3.0)
+        stop.set()
+        load.join(120)
+
+        def shed_rate(lo, hi):
+            kinds = [k for t, k in events if lo <= t < hi]
+            return sum(k == "shed" for k in kinds) / max(1, len(kinds)), len(kinds)
+
+        before = shed_rate(0.0, stamps["decision"])
+        after = shed_rate(stamps["first_request"] + 1.0, float("inf"))
+        errs = sum(k == "err" for _, k in events)
+        print(f"[fleet] 14(c) one replica's saturation {sat:.1f} req/s (max_batch 1, direct); "
+              f"open loop through the fleet at {AUTOSCALE_OFFERED}x: shed rate {before[0]:.4f} "
+              f"of {before[1]} before the decision, {after[0]:.4f} of {after[1]} from 1 s after "
+              f"the new replica's first request; errors {errs}")
+        print(f"[fleet] 14(c) scale-up: decision to admitted (warm) "
+              f"{stamps['admitted'] - stamps['decision']:.2f} s, to its first request "
+              f"{stamps['first_request'] - stamps['decision']:.2f} s; scale_ups "
+              f"{fleet.scale_ups}")
+        check(errs == 0 and stamps["admitted"] <= stamps["first_request"],
+              "14(c): errors, or a request before admission")
+        time.sleep(1.0)   # calm load scores polled: a new session goes to the least picked
+        client = ServingClient("127.0.0.1", fleet.bound_port)
+        sid = None
+        for _ in range(64):
+            s = client.open_session()
+            if fleet._affinity[s] is new:
+                sid = s
+                break
+        check(sid is not None, "14(c): no session landed on the new replica")
+        client.infer(obs, sid=sid, timeout=60)
+        misses = sum(r["session_affinity_miss"] for r in client.stats()["replicas"].values())
+        t_calm = time.perf_counter()
+        deadline = time.monotonic() + 120
+        while not (fleet.scale_downs >= 1 and len(fleet._reps()) == 1):
+            check(time.monotonic() < deadline, "14(c): calm never scaled the fleet down")
+            time.sleep(0.05)
+        check(client.infer(obs, sid=sid, timeout=60)["sid"] == sid, "14(c): the session is lost")
+        stats = client.stats()
+        lost = sum(r["session_affinity_miss"] for r in stats["replicas"].values()) - misses
+        print(f"[fleet] 14(c) calm: scale-down {time.perf_counter() - t_calm:.1f} s after the "
+              f"load, the new replica retired through the migration "
+              f"({fleet.migrations} migration, {fleet.last_migration_ms:.1f} ms); sessions lost "
+              f"{lost}; replicas left {stats['fleet_replicas']}")
+        check(lost == 0 and stats["fleet_replicas"] == 1, "14(c): the scale-down lost a session")
+    finally:
+        if client is not None:
+            client.close()
+        fleet.shutdown()
+        factory.close()
+
+
+def fleet_learner_faults(tmp):
+    """14(d): config.yaml's learner (episodes cut) through the CLI under
+    HANDYRL_FAULT_NAN_AT_STEP (with trace.enabled and profile_dir) and
+    HANDYRL_FAULT_SIGTERM_AT_STEP then a relaunch; updates/s with tracing on
+    and off in turns, in this process."""
+    import copy
+
+    import yaml
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.runtime import checkpoint as ckpt
+    from handyrl_tpu_torch.runtime.learner import Learner
+    from handyrl_tpu_torch.utils.trace import read_trace
+
+    base = yaml.safe_load((ROOT / "config.yaml").read_text())
+    base["train_args"].update(epochs=3, minimum_episodes=LEARNER_EPISODES,
+                              update_episodes=LEARNER_EPISODES)
+
+    def config(path, **train):
+        cfg = copy.deepcopy(base)
+        cfg["train_args"].update(train)
+        write_config(path, cfg)
+        return cfg
+
+    nan_dir = os.path.join(tmp, "nan")
+    config(nan_dir, trace={"enabled": True}, profile_dir="profile")
+    out, nan_s = run_cli(nan_dir, "--train", env={"HANDYRL_FAULT_NAN_AT_STEP": "1:1000000"})
+    records = read_records(os.path.join(nan_dir, "metrics.jsonl"))
+    last = records[-1]
+    finite = all(math.isfinite(v) for r in records for v in (r.get("loss") or {}).values())
+    print(f"[fleet] 14(d) NaN lr from step 1 on: {len(records)} epochs in {nan_s:.1f} s, "
+          f"sentinel_skipped_steps {last.get('sentinel_skipped_steps')}, sentinel_rollbacks "
+          f"{last.get('sentinel_rollbacks')}, losses finite {finite}")
+    check(last.get("sentinel_skipped_steps", 0) > 0 and last.get("sentinel_rollbacks", 0) >= 1
+          and finite, "14(d): the NaN run did not skip, roll back and finish finite")
+    spans = read_trace(os.path.join(nan_dir, "trace.jsonl"))
+    names = {r["name"] for r in spans}
+    check({"train_step", "batch.wait", "checkpoint.save", "epoch.snapshot_wait"} <= names,
+          f"14(d): trace spans {sorted(names)}")
+    profiles = sorted(Path(nan_dir, "profile").glob("*.json"))
+    check(len(profiles) == 1, f"14(d): profile_dir holds {len(profiles)} traces")
+    events = json.loads(profiles[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    print(f"[fleet] 14(d) trace.enabled: {len(spans) - 1} spans read back ({len(names) - 1} "
+          f"names); profile_dir: {profiles[0].name}, {len(events)} events, {len(kernels)} CUDA "
+          f"kernel events")
+    check(kernels, "14(d): the profiler trace holds no CUDA kernel event")
+
+    sig_dir = os.path.join(tmp, "sigterm")
+    config(sig_dir, epochs=50)
+    out, sig_s = run_cli(sig_dir, "--train", env={"HANDYRL_FAULT_SIGTERM_AT_STEP":
+                                                  str(SIGTERM_STEP)}, code=75)
+    models = os.path.join(sig_dir, "models")
+    drain_epoch = ckpt.latest_verified_epoch(models)
+    steps = ckpt.load_manifest(models)["epochs"][str(drain_epoch)]["steps"]
+    check("drain checkpoint" in out and drain_epoch > 0 and ckpt.verify_state(models, drain_epoch),
+          "14(d): no verified drain checkpoint")
+    config(sig_dir, epochs=drain_epoch + 1, restart_epoch=-1)
+    out, resume_s = run_cli(sig_dir, "--train")
+    check(f"auto-resume (restart_epoch: -1): epoch {drain_epoch}" in out
+          and ckpt.latest_verified_epoch(models) == drain_epoch + 1,
+          "14(d): the relaunch did not resume at the drain checkpoint")
+    print(f"[fleet] 14(d) SIGTERM at step {SIGTERM_STEP}: exit 75 after {sig_s:.1f} s, drain "
+          f"checkpoint epoch {drain_epoch} at step {steps}; relaunch with restart_epoch: -1 "
+          f"resumed there and finished epoch {drain_epoch + 1} in {resume_s:.1f} s")
+
+    rates = {True: [], False: []}
+    for turn in range(TRACE_TURNS):
+        for on in (True, False):
+            run_dir = os.path.join(tmp, f"trace_{turn}_{int(on)}")
+            cfg = config(run_dir, epochs=2, model_dir=os.path.join(run_dir, "models"),
+                         metrics_path=os.path.join(run_dir, "metrics.jsonl"),
+                         trace={"enabled": on, "path": os.path.join(run_dir, "trace.jsonl")})
+            Learner(normalize_args(cfg)).run()
+            rates[on].append(read_records(cfg["train_args"]["metrics_path"])[-1]["updates_per_sec"])
+    print(f"[fleet] 14(d) updates/s of the second epoch, {TRACE_TURNS} turns each, in turns: "
+          f"tracing on {', '.join(f'{r:.2f}' for r in rates[True])}; off "
+          f"{', '.join(f'{r:.2f}' for r in rates[False])}")
+
+
+def phase_fleet(results):
+    """14: the fleet tier over serving replicas on the card, and the
+    learner's fault machinery.  No kernel on these paths."""
+    print(f"[fleet] {card_line()}")
+    times = [time.perf_counter()]
+    with tempfile.TemporaryDirectory() as tmp:
+        for part in (fleet_tictactoe, fleet_sessions, fleet_autoscale, fleet_learner_faults):
+            print(f"[fleet] {card_line()}")
+            part(tmp)
+            times.append(time.perf_counter())
+    parts = ", ".join(f"{tag} {t1 - t:.1f} s"
+                      for tag, t, t1 in zip(("(a)", "(b)", "(c)", "(d)"), times, times[1:]))
+    print(f"[fleet] phase 14 in {times[-1] - times[0]:.1f} s: {parts}")
+
+
 def leftovers(shm_before):
     """Shared-memory segments and processes of the port alive now: segments
     made since ``shm_before``, this process's children, and CLI processes
@@ -3412,6 +4017,11 @@ def main(argv):
             reset_launches()
             phase_serving(results)
             print(f"[serving] kernel launches in phase 13: masked {MASKED_FLASH.launches}, "
+                  f"flash {FLASH.launches}")
+            # the fleet tier and the learner's fault machinery (no kernel)
+            reset_launches()
+            phase_fleet(results)
+            print(f"[fleet] kernel launches in phase 14: masked {MASKED_FLASH.launches}, "
                   f"flash {FLASH.launches}")
             segments, procs = leftovers(shm_before)
             check(not segments and not procs,

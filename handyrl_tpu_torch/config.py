@@ -1,17 +1,18 @@
 """Training configuration: defaults and validation for the keys the port reads.
 
 The subset of ``handyrl_tpu/config.py`` that the ported modules use, with
-the same names and defaults, so one config.yaml (``env_args``,
-``train_args``, ``worker_args``) configures both packages.  Keys of the JAX
-package that the port does not read are accepted and passed through
-untouched, except those that select a plane the port lacks: a non-default
-value of one of ``NOT_PORTED_KEYS`` is refused, naming the ROADMAP item
-that ports it, not quietly run on the plain loop.  Every default is the
-JAX package's, ``batch_pipeline: shm`` included.  On-device self-play and
-evaluation (``device_rollout_games``, ``device_eval_games``) and the
-device data plane (``device_replay``, ``batch_pipeline: device``) are
-ported, on the fused plane of one card, and so is the ``serving`` block of
-``--serve`` (its int8 weights excepted).
+the same names, defaults and checks, so one config.yaml (``env_args``,
+``train_args``, ``worker_args``) configures both packages.  Every other key
+of the JAX package's defaults is listed in ``NOT_PORTED_KEYS`` with its JAX
+default and the ROADMAP item that ports it: the default passes, any other
+value is refused by name rather than quietly run on the plain loop.  Keys
+that neither package knows pass through untouched.  Every default is the
+JAX package's, ``batch_pipeline: shm`` included.  Ported and acted on:
+on-device self-play and evaluation, the device data plane, the
+``serving`` block of ``--serve`` (its int8 weights excepted), the
+``fleet`` block of ``--fleet`` (its edge replica excepted), the divergence
+sentinel with its rollback, the preemption drain, ``trace`` and
+``profile_dir``.
 """
 
 from __future__ import annotations
@@ -97,8 +98,14 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     # feed-forward nets run only on the live prefix of each window
     "compact_padding": True,
     # a step whose loss, gradient norm or lr is not finite leaves the
-    # params and the Adam moments untouched
+    # params and the Adam moments untouched; sentinel_rollback_after
+    # consecutive bad steps (those skips, and loss spikes above
+    # sentinel_spike_factor x the loss EMA, which bad steps never feed) roll
+    # the train state back to the newest verified snapshot
     "sentinel": True,
+    "sentinel_rollback_after": 8,
+    "sentinel_spike_factor": 10.0,
+    "sentinel_loss_ema_decay": 0.9,
     # whole-window attention training for models that set supports_seq
     "seq_forward": True,
     # 'auto' (the masked flash kernel for windows >= flash_min_t, the
@@ -147,9 +154,14 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     # restarted up to plane_max_restarts times
     "plane_stall_timeout": 120.0,
     "plane_max_restarts": 2,
-    # --serve's SIGTERM drain: the server pushes a draining notice to every
-    # peer, waits this long for its sessions to be pulled, and exits 75
+    # the SIGTERM drain: a learner stops, writes a verified checkpoint within
+    # this many seconds and exits 75 (resume with restart_epoch: -1); --serve
+    # pushes a draining notice to every peer, waits this long for its
+    # sessions to be pulled, and exits 75
     "drain_deadline_seconds": 60.0,
+    # a torch.profiler capture (CPU and CUDA activities) of the first
+    # trained epoch, written as a Chrome trace under this directory
+    "profile_dir": None,
     # the inference serving plane (serving/, --serve)
     "serving": {
         # TCP port of the serving front (0 = a free one)
@@ -188,6 +200,72 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
         # engine weights: 'float32' ('int8' needs models/quantize.py)
         "weight_dtype": "float32",
     },
+    # the fleet tier (fleet/, --fleet): an entry port proxying client frames
+    # over --serve replicas, balanced by polled queue depth and shed rate,
+    # sessions pinned to the replica holding their state and migrated off a
+    # retiring or preempted one, replica-by-replica hot swap
+    "fleet": {
+        # TCP entry port (0 = a free one)
+        "port": 9996,
+        # replicas: 'host:port' strings or {host, port, tags} dicts; the tag
+        # 'edge' marks feed-forward-only capacity
+        "replicas": [],
+        # seconds between the stats polls that feed the load scores
+        "stats_poll_s": 2.0,
+        # retries of a failing poll (exponential backoff from
+        # poll_retry_backoff_s) before the replica may be declared lost
+        "poll_retry_attempts": 3,
+        "poll_retry_backoff_s": 0.1,
+        # a replica silent this long with requests pending is lost (0 = only
+        # a dropped connection is)
+        "replica_stall_s": 30.0,
+        # a lost replica is rejoined with backoff from rejoin_backoff_s,
+        # doubling up to rejoin_backoff_max_s, forever
+        "rejoin_backoff_s": 1.0,
+        "rejoin_backoff_max_s": 30.0,
+        # seconds between fleet_* records appended to metrics_path (0 = off)
+        "stats_interval": 30.0,
+        # a retire's drain, export and import must finish within this, else
+        # its sessions re-open fresh (counted affinity misses)
+        "migrate_timeout_s": 30.0,
+        # the replica count driven by the windowed shed rate and queue depth
+        # (fleet/autoscale.py): spawned replicas are admitted once warm,
+        # retired ones leave through the session migration
+        "autoscale": {
+            "enabled": False,
+            "min_replicas": 1,
+            "max_replicas": 4,
+            # seconds between decisions
+            "interval_s": 1.0,
+            # up when the shed rate exceeds shed_slo or the mean depth per
+            # replica depth_high; down after scale_down_after_s of no shed
+            # and depth under depth_low
+            "shed_slo": 0.01,
+            "depth_high": 64.0,
+            "depth_low": 1.0,
+            "scale_down_after_s": 30.0,
+            # the least seconds between two scale actions
+            "cooldown_s": 10.0,
+            # a spawned replica not warm within this is marked lost
+            "warm_timeout_s": 120.0,
+        },
+        # the CPU edge replica (--edge, not ported: ROADMAP A10 item 4)
+        "edge_port": 9995,
+        "edge_workers": 2,
+        "edge_model": "",
+    },
+    # span tracing of the hot paths (utils/trace.py), off by default: spans
+    # go to a bounded ring and a background thread appends them to path
+    "trace": {
+        "enabled": False,
+        # rank N > 0 of a run of several processes writes path.rankN.jsonl
+        "path": "trace.jsonl",
+        # a full ring drops spans (counted in trace_dropped), never blocks
+        "ring_size": 4096,
+        "flush_interval": 0.5,
+        # also enter torch.profiler.record_function per span
+        "annotate_device": True,
+    },
 }
 
 DEFAULT_WORKER_ARGS: Dict[str, Any] = {
@@ -206,8 +284,12 @@ DEFAULT_WORKER_ARGS: Dict[str, Any] = {
     "entry_retry_seconds": 60.0,
 }
 
-# keys of the JAX package that select a plane the port lacks: the key's
-# path in train_args, its JAX default, and the ROADMAP item that ports it
+# keys of the JAX package's defaults that the port does not act on: the
+# key's path in train_args, its JAX default, and the ROADMAP item that ports
+# it.  The default passes; any other value is refused naming the item
+_MULTI_GPU = "A8 (multiple GPUs)"
+_FLYWHEEL = "A10 (flywheel/, the data flywheel)"
+_LEAGUE = "A10 (the league)"
 NOT_PORTED_KEYS = (
     (("plane",), "fused", "A7 (the device data plane)"),
     # needs models/quantize.py
@@ -216,11 +298,43 @@ NOT_PORTED_KEYS = (
     (("plane_param_lag_bound",), 0, "A7 (the device data plane)"),
     # verifies an autovec-lifted twin, and the port has no autovec
     (("autovec_verify_games",), 0, "A7 (the device data plane)"),
-    (("distributed", "num_processes"), 1, "A8 (multiple GPUs)"),
-    (("flywheel", "enabled"), False, "A10 (serving and the rest)"),
+    (("mesh",), {"dp": -1}, _MULTI_GPU),
+    (("actor_chips",), 1, _MULTI_GPU),
+    (("param_refresh_updates",), 8, _MULTI_GPU),
+    (("distributed", "num_processes"), 1, _MULTI_GPU),
+    (("distributed", "coordinator_address"), None, _MULTI_GPU),
+    (("distributed", "process_id"), None, _MULTI_GPU),
+    (("distributed", "initialization_timeout"), 300.0, _MULTI_GPU),
+    (("distributed", "heartbeat_interval"), 5.0, _MULTI_GPU),
+    (("distributed", "heartbeat_timeout"), 30.0, _MULTI_GPU),
+    (("distributed", "collective_timeout"), 300.0, _MULTI_GPU),
+    (("distributed", "health_port"), 0, _MULTI_GPU),
+    (("distributed", "role"), "learner", _MULTI_GPU),
+    (("distributed", "plane_port"), 0, _MULTI_GPU),
+    (("distributed", "actor_hosts"), 0, _MULTI_GPU),
+    (("observability", "rank_metrics"), True, _MULTI_GPU),
+    (("league", "pfsp_weighting"), "var", _LEAGUE),
+    (("league", "selfplay_rate"), 0.2, _LEAGUE),
+    (("league", "promote_winrate"), 0.55, _LEAGUE),
+    (("league", "promote_games"), 8, _LEAGUE),
+    (("league", "max_population"), 16, _LEAGUE),
+    (("flywheel", "enabled"), False, _FLYWHEEL),
+    (("flywheel", "harvest_fraction"), 0.5, _FLYWHEEL),
+    (("flywheel", "staleness_epochs"), 4, _FLYWHEEL),
+    (("flywheel", "harvest_host"), "127.0.0.1", _FLYWHEEL),
+    (("flywheel", "harvest_port"), 0, _FLYWHEEL),
+    (("flywheel", "harvest_poll_s"), 1.0, _FLYWHEEL),
+    (("flywheel", "harvest_max_pull"), 64, _FLYWHEEL),
+    (("flywheel", "harvest_ttl_s"), 600.0, _FLYWHEEL),
+    (("flywheel", "harvest_max_open"), 256, _FLYWHEEL),
+    (("flywheel", "gate_promotions"), True, _FLYWHEEL),
+    (("flywheel", "promote_winrate"), 0.55, _FLYWHEEL),
+    (("flywheel", "promote_games"), 16, _FLYWHEEL),
+    (("flywheel", "shadow_fraction"), 0.25, _FLYWHEEL),
+    (("flywheel", "quality_window"), 32, _FLYWHEEL),
+    (("flywheel", "demote_drop"), 0.15, _FLYWHEEL),
     (("serving", "weight_dtype"), "float32", "A10 (models/quantize.py, int8)"),
-    (("trace", "enabled"), False, "A8 (the learner's fault machinery and tracing)"),
-    (("profile_dir",), None, "A8 (the learner's fault machinery and tracing)"),
+    (("serving", "calibration_batches"), 4, "A10 (models/quantize.py, int8)"),
 )
 
 
@@ -351,11 +465,25 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
         raise ValueError("train_args.plane_max_restarts must be >= 0")
     if train["drain_deadline_seconds"] <= 0:
         raise ValueError("train_args.drain_deadline_seconds must be > 0")
+    if train["sentinel_rollback_after"] < 1:
+        raise ValueError("train_args.sentinel_rollback_after must be >= 1")
+    if train["sentinel_spike_factor"] <= 1.0:
+        raise ValueError(
+            "train_args.sentinel_spike_factor must be > 1 (a spike is a "
+            "multiple of the loss EMA)"
+        )
+    if not 0.0 < train["sentinel_loss_ema_decay"] < 1.0:
+        raise ValueError("train_args.sentinel_loss_ema_decay must be in (0, 1)")
     _validate_serving(train["serving"])
+    _validate_fleet(train["fleet"])
+    _validate_trace(train["trace"])
+    _validate_not_ported_values(train)
     for path, default, item in NOT_PORTED_KEYS:
         value = train
         for key in path:
             value = value.get(key, default) if isinstance(value, dict) else default
+        if path == ("mesh",) and _one_device_mesh(value):
+            continue   # every axis of size 1 (or -1: all of the port's one device)
         if value != default:
             raise ValueError(
                 f"train_args.{'.'.join(path)}={value!r} selects a plane that is not ported to "
@@ -414,6 +542,168 @@ def _validate_serving(serving: Dict[str, Any]) -> None:
         raise ValueError(
             f"train_args.serving.weight_dtype={serving['weight_dtype']!r} "
             "not one of ('float32', 'int8')"
+        )
+
+
+def _one_device_mesh(mesh: Any) -> bool:
+    return isinstance(mesh, dict) and bool(mesh) and all(size in (1, -1) for size in mesh.values())
+
+
+def _validate_fleet(fleet: Dict[str, Any]) -> None:
+    for key in ("port", "edge_port"):
+        if not isinstance(fleet[key], int) or not 0 <= fleet[key] <= 65535:
+            raise ValueError(
+                f"train_args.fleet.{key}={fleet[key]!r} must be a TCP port (0 = ephemeral)"
+            )
+    if not isinstance(fleet["replicas"], (list, tuple)):
+        raise ValueError(
+            "train_args.fleet.replicas must be a list of 'host:port' strings "
+            "or {host, port, tags} dicts"
+        )
+    for entry in fleet["replicas"]:
+        if isinstance(entry, str):
+            host, sep, port = entry.rpartition(":")
+            if not sep or not port.isdigit():
+                raise ValueError(f"train_args.fleet.replicas entry {entry!r} is not 'host:port'")
+        elif isinstance(entry, dict):
+            if "host" not in entry or "port" not in entry:
+                raise ValueError(
+                    f"train_args.fleet.replicas entry {entry!r} needs 'host' and 'port' keys"
+                )
+        else:
+            raise ValueError(
+                f"train_args.fleet.replicas entry {entry!r} must be a 'host:port' string or a dict"
+            )
+    if int(fleet["poll_retry_attempts"]) < 0:
+        raise ValueError("train_args.fleet.poll_retry_attempts must be >= 0 (0 = no retry)")
+    if float(fleet["poll_retry_backoff_s"]) <= 0:
+        raise ValueError("train_args.fleet.poll_retry_backoff_s must be > 0")
+    if float(fleet["stats_poll_s"]) <= 0:
+        raise ValueError(
+            "train_args.fleet.stats_poll_s must be > 0 (it feeds the load "
+            "scores the router balances by)"
+        )
+    if float(fleet["replica_stall_s"]) < 0:
+        raise ValueError(
+            "train_args.fleet.replica_stall_s must be >= 0 (0 disables the "
+            "stall deadline; failover then only on connection loss)"
+        )
+    if float(fleet["rejoin_backoff_s"]) <= 0:
+        raise ValueError("train_args.fleet.rejoin_backoff_s must be > 0")
+    if float(fleet["rejoin_backoff_max_s"]) < float(fleet["rejoin_backoff_s"]):
+        raise ValueError(
+            "train_args.fleet.rejoin_backoff_max_s must be >= rejoin_backoff_s (it is the "
+            "backoff's cap)"
+        )
+    if float(fleet["stats_interval"]) < 0:
+        raise ValueError("train_args.fleet.stats_interval must be >= 0 (0 = off)")
+    if float(fleet["migrate_timeout_s"]) <= 0:
+        raise ValueError(
+            "train_args.fleet.migrate_timeout_s must be > 0 (the planned-"
+            "retire drain/export/import budget)"
+        )
+    if int(fleet["edge_workers"]) < 1:
+        raise ValueError("train_args.fleet.edge_workers must be >= 1")
+    autoscale = fleet["autoscale"]
+    if not isinstance(autoscale["enabled"], bool):
+        raise ValueError(
+            f"train_args.fleet.autoscale.enabled={autoscale['enabled']!r} must be a bool"
+        )
+    if int(autoscale["min_replicas"]) < 1:
+        raise ValueError(
+            "train_args.fleet.autoscale.min_replicas must be >= 1 (a fleet "
+            "scaled to zero cannot serve)"
+        )
+    if int(autoscale["max_replicas"]) < int(autoscale["min_replicas"]):
+        raise ValueError("train_args.fleet.autoscale.max_replicas must be >= min_replicas")
+    for key in ("interval_s", "warm_timeout_s"):
+        if float(autoscale[key]) <= 0:
+            raise ValueError(f"train_args.fleet.autoscale.{key} must be > 0")
+    if not 0.0 <= float(autoscale["shed_slo"]) <= 1.0:
+        raise ValueError(
+            "train_args.fleet.autoscale.shed_slo must be in [0, 1] (a shed "
+            "RATE: sheds over requests in the window)"
+        )
+    if float(autoscale["depth_low"]) < 0:
+        raise ValueError("train_args.fleet.autoscale.depth_low must be >= 0")
+    if float(autoscale["depth_high"]) <= float(autoscale["depth_low"]):
+        raise ValueError(
+            "train_args.fleet.autoscale.depth_high must be > depth_low "
+            "(the hysteresis band between scale-up and scale-down)"
+        )
+    for key in ("scale_down_after_s", "cooldown_s"):
+        if float(autoscale[key]) < 0:
+            raise ValueError(f"train_args.fleet.autoscale.{key} must be >= 0")
+
+
+def _validate_trace(tr: Dict[str, Any]) -> None:
+    if not isinstance(tr["enabled"], bool):
+        raise ValueError(f"train_args.trace.enabled={tr['enabled']!r} must be a bool")
+    if tr["enabled"] and not str(tr["path"] or "").strip():
+        raise ValueError(
+            "train_args.trace.path must name a file when trace.enabled is "
+            "true (writability is probed at startup by trace.configure)"
+        )
+    if int(tr["ring_size"]) < 1:
+        raise ValueError("train_args.trace.ring_size must be >= 1")
+    if float(tr["flush_interval"]) <= 0:
+        raise ValueError("train_args.trace.flush_interval must be > 0")
+    if not isinstance(tr["annotate_device"], bool):
+        raise ValueError(
+            f"train_args.trace.annotate_device={tr['annotate_device']!r} must be a bool"
+        )
+
+
+def _validate_not_ported_values(train: Dict[str, Any]) -> None:
+    """The JAX package's checks of keys the port refuses anyway: a value
+    both would refuse gets the JAX package's words."""
+    defaults = {path: default for path, default, _ in NOT_PORTED_KEYS}
+
+    def get(*path):
+        value = train
+        for key in path:
+            value = value.get(key, defaults[path]) if isinstance(value, dict) else defaults[path]
+        return value
+
+    mesh = get("mesh")
+    if not isinstance(mesh, dict) or not mesh:
+        raise ValueError("train_args.mesh must be a non-empty axis->size dict")
+    if int(get("actor_chips")) < 1:
+        raise ValueError("train_args.actor_chips must be >= 1")
+    if int(get("param_refresh_updates")) < 1:
+        raise ValueError("train_args.param_refresh_updates must be >= 1")
+    if int(get("distributed", "num_processes")) < 1:
+        raise ValueError("train_args.distributed.num_processes must be >= 1")
+    if get("distributed", "role") not in ("learner", "actor"):
+        raise ValueError(
+            f"train_args.distributed.role={get('distributed', 'role')!r} not one of "
+            "('learner', 'actor')"
+        )
+    if not isinstance(get("observability", "rank_metrics"), bool):
+        raise ValueError(
+            f"train_args.observability.rank_metrics={get('observability', 'rank_metrics')!r} "
+            "must be a bool"
+        )
+    if get("league", "pfsp_weighting") not in ("var", "hard", "even"):
+        raise ValueError(
+            f"train_args.league.pfsp_weighting={get('league', 'pfsp_weighting')!r} "
+            "not one of ('var', 'hard', 'even')"
+        )
+    if not 0.0 <= float(get("league", "selfplay_rate")) <= 1.0:
+        raise ValueError("train_args.league.selfplay_rate must be in [0, 1]")
+    if not 0.0 < float(get("league", "promote_winrate")) < 1.0:
+        raise ValueError("train_args.league.promote_winrate must be in (0, 1)")
+    if int(get("league", "promote_games")) < 1:
+        raise ValueError("train_args.league.promote_games must be >= 1")
+    if int(get("league", "max_population")) < 2:
+        raise ValueError("train_args.league.max_population must be >= 2")
+    for key in ("harvest_fraction", "shadow_fraction"):
+        if not 0.0 <= float(get("flywheel", key)) <= 1.0:
+            raise ValueError(f"train_args.flywheel.{key} must be in [0, 1]")
+    if int(get("serving", "calibration_batches")) < 0:
+        raise ValueError(
+            "train_args.serving.calibration_batches must be >= 0 (0 = skip "
+            "the publish-time calibration record)"
         )
 
 

@@ -27,11 +27,13 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
 
 from ..models.inference import as_device_tensor, as_host_array as _host
 from ..utils import tree_map
+from ..utils.trace import trace_event
 
 __all__ = ["SessionCache"]
 
@@ -113,7 +115,9 @@ class SessionCache:
                 self.affinity_misses += 1
                 self._fresh.add(sid)
             return None, "miss"
+        t0 = time.monotonic()
         hidden = self._pin(spilled)
+        trace_event("session.restore", time.monotonic() - t0, t0=t0, plane="fleet")
         with self._lock:
             self.restored += 1
             self._resident[sid] = hidden
@@ -183,6 +187,7 @@ class SessionCache:
     def adopt(self, sessions: Dict[str, Any], fresh=()) -> int:
         """Land migrated sessions (another cache's ``export_all``) in the
         spill tier; returns the number of stateful sessions adopted."""
+        t0 = time.monotonic()
         with self._lock:
             for sid in fresh:
                 self._fresh.add(sid)
@@ -199,7 +204,9 @@ class SessionCache:
                 self._spill.popitem(last=False)
                 self.spill_drops += 1
             self._evict_over_capacity()
-            return len(sessions or {})
+            n = len(sessions or {})
+        trace_event("session.migrate", time.monotonic() - t0, t0=t0, plane="fleet", sessions=n)
+        return n
 
     # -- introspection -------------------------------------------------------
 

@@ -7,14 +7,18 @@
     python -m handyrl_tpu_torch.main --eval-server [NUM_GAMES]
     python -m handyrl_tpu_torch.main --eval-client AGENT [HOST] [N_GAMES]
     python -m handyrl_tpu_torch.main --serve            # the inference serving plane
+    python -m handyrl_tpu_torch.main --fleet            # the fleet over --serve replicas
 
 It reads the config.yaml the JAX package's ``main.py`` reads (``--worker``
 reads ``worker_args.server_address`` and the entry port; ``--eval-server``
 and ``--eval-client`` ``train_args.battle_port``; ``--serve`` the
 ``serving`` block) and runs on the card.  ``main(argv, device="cpu")``
 runs on the CPU from Python; the command line has no device flag.
-``--serve`` exits 75 after a SIGTERM drain.  The JAX CLI's fleet, edge and
-league modes are not ported yet: each exits 1 saying so.
+``--serve`` and ``--train`` exit 75 after a SIGTERM drain.  ``--fleet``
+reads ``train_args.fleet``: it fronts ``fleet.replicas`` (each started with
+``--serve``) and, with ``fleet.autoscale.enabled``, spawns and retires
+serving processes of its own on the card.  The JAX CLI's edge and league
+modes are not ported yet: each exits 1 naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,9 +29,9 @@ from typing import Any, Dict, List, Optional
 from .config import normalize_args
 
 NOT_PORTED = {
-    "--fleet": "ROADMAP A10", "-f": "ROADMAP A10",
-    "--edge": "ROADMAP A10",
-    "--league": "ROADMAP A10", "-l": "ROADMAP A10",
+    "--edge": "ROADMAP A10, item 4 (models/export.py and fleet/edge.py)",
+    "--league": "ROADMAP A10, item 6 (the league)",
+    "-l": "ROADMAP A10, item 6 (the league)",
 }
 
 
@@ -78,6 +82,11 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         from .serving.server import serve_main
 
         return serve_main(load_args(), device=device)
+    if mode in ("--fleet", "-f"):
+        from .fleet.router_tier import fleet_main
+
+        # its replicas are processes of their own: the device names theirs
+        return fleet_main(load_args(), device=device)
     if mode in NOT_PORTED:
         print(f"mode {mode} is not ported to handyrl_tpu_torch yet ({NOT_PORTED[mode]})")
         return 1

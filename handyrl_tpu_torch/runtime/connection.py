@@ -257,6 +257,11 @@ def connect_socket_connection(host: str, port: int, timeout: float = 32.0,
     return FramedConnection(sock)
 
 
+class _Flushed(threading.Event):
+    """A send-queue marker (``QueueCommunicator.flush``), set by the sender
+    thread when it reaches it."""
+
+
 class QueueCommunicator:
     """Fan-in hub over many connections.
 
@@ -314,6 +319,20 @@ class QueueCommunicator:
         threading.Thread(target=self._recv_loop, args=(conn,), daemon=True).start()
         threading.Thread(target=self._send_loop, args=(conn, send_q), daemon=True).start()
 
+    def flush(self, conn: FramedConnection, timeout: float) -> bool:
+        """Wait until every frame queued to ``conn`` so far has been written
+        to its socket; False if the peer went away or ``timeout`` passed."""
+        with self._lock:
+            send_q = self.conns.get(conn)
+        if send_q is None:
+            return False
+        marker = _Flushed()
+        try:
+            send_q.put(marker, timeout=timeout)
+        except queue.Full:
+            return False
+        return marker.wait(timeout)
+
     def disconnect(self, conn: FramedConnection) -> None:
         with self._lock:
             send_q = self.conns.pop(conn, None)
@@ -352,6 +371,9 @@ class QueueCommunicator:
             data = send_q.get()
             if data is _UNSET:
                 return  # disconnected while idle
+            if isinstance(data, _Flushed):
+                data.set()   # every frame queued before it is written
+                continue
             with self._lock:
                 if conn not in self.conns:
                     return

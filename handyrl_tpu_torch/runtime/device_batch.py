@@ -35,6 +35,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..utils import tree_map
+from ..utils.trace import trace_event
 from .device_replay import DeviceEpisodeStage
 from .replay import EpisodeStore
 from .trainer import PIPE_EVENT_KEYS, PIPE_STAT_KEYS
@@ -167,8 +168,10 @@ class DeviceBatchPipeline:
                           "device_stage_lanes/device_stage_chunk if this persists",
                           file=sys.stderr)
                 time.sleep(0.05)
+            wait = time.perf_counter() - t0
             with self._lock:
-                self._stats["ready_wait_s"] += time.perf_counter() - t0
+                self._stats["ready_wait_s"] += wait
+            trace_event("pipe.ready_wait", wait, plane="pipeline", mode="device")
             if not self._eligible:
                 return None
         t0 = time.perf_counter()

@@ -33,9 +33,19 @@ With ``device_replay: true`` the rollout thread's records never leave the
 card: each block goes into the rings of runtime/device_replay.py, only
 its counters come back (one block late) to feed the books, the trainer
 samples its batches from the rings, and host workers only evaluate, local
-ones at most ``eval_rate`` of the episodes made.  The
-JAX package's distributed learner, fault injection, tracing, data
-flywheel, split plane and preemption drain are not ported (ROADMAP).
+ones at most ``eval_rate`` of the episodes made.
+
+SIGTERM or SIGINT (handlers installed by ``run`` on the main thread; a
+second signal is ignored) drains the run: the trainer stops mid-epoch,
+the workers get no further job, a final manifest-verified checkpoint is
+written within ``drain_deadline_seconds``, and ``run`` returns 75
+(``EXIT_RESUMABLE``) for a relaunch with ``restart_epoch: -1``.  A learner
+driven from another thread reaches the drain by calling
+``_drain_handler``.  ``trace.enabled`` arms the span tracer
+(utils/trace.py) at construction; ``HANDYRL_FAULT_WEDGE_ROLLOUT`` wedges
+the rollout thread for its watchdog to find.  The JAX package's
+distributed learner, data flywheel and split plane are not ported
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ import json
 import os
 import queue
 import random
+import signal
 import sys
 import threading
 import time
@@ -56,8 +67,9 @@ import torch
 
 from ..envs import make_env, prepare_env
 from ..models import init_variables
-from ..utils import resolve_device
-from . import batch, codec
+from ..utils import resolve_device, trace
+from ..utils.trace import trace_span
+from . import batch, codec, faults
 from .checkpoint import (
     gc_snapshots,
     latest_verified_epoch,
@@ -71,6 +83,10 @@ from .worker import LocalModelServer, LocalWorkerPool
 
 # a job request answered later (see Learner._eval_budget_spent)
 _DEFERRED = object()
+
+# the exit status after a preemption drain: a verified resume point is on
+# disk and the run wants a relaunch with restart_epoch: -1 (EX_TEMPFAIL)
+EXIT_RESUMABLE = 75
 
 
 class Learner:
@@ -89,6 +105,14 @@ class Learner:
         self.args = train_args
         self.device = resolve_device(device)
         random.seed(self.args["seed"])
+        if trace.configure(self.args["trace"]):
+            print(f"trace: spans -> {trace.current_path()}")
+        # the preemption drain (run() installs the handlers)
+        self.drain_deadline = float(self.args["drain_deadline_seconds"])
+        self._drain_requested = False
+        self._drain_stopped = False
+        self._drain_t0 = 0.0
+        self._prev_handlers: Dict[int, Any] = {}
 
         prepare_env(args["env_args"])
         self.env = make_env(args["env_args"])
@@ -183,6 +207,7 @@ class Learner:
         self._rollout_progress_t = time.monotonic()
         self._rollout_dispatched = False
         self._watchdog_events = {"plane_watchdog_stalls": 0, "plane_watchdog_restarts": 0}
+        self._fault_wedge = faults.wedge_rollout()
         # the epoch records' plane: "none" once the watchdog has given up
         self._plane = "fused"
         # device episodes and their game steps this epoch
@@ -283,8 +308,9 @@ class Learner:
         """Batched on-device matches of the published snapshot, filed in
         the same books as the workers' evaluation results."""
         epoch, params = self.model_server.latest_snapshot()
-        counts = self._device_eval.evaluate(params, int(self.args["device_eval_games"]),
-                                            self.args["seed"] + 0xE7A1 + self.model_epoch)
+        with trace_span("eval.device", plane="eval", epoch=self.model_epoch):
+            counts = self._device_eval.evaluate(params, int(self.args["device_eval_games"]),
+                                                self.args["seed"] + 0xE7A1 + self.model_epoch)
         opponent = "device-" + self._device_eval.opponent
         self.feed_results([
             {"args": {"player": [0], "model_id": {0: epoch}},
@@ -339,7 +365,8 @@ class Learner:
         # the trainer's last step and host snapshot, the save, the publish
         epoch_steps0 = self._epoch_steps0
         t0 = time.perf_counter()
-        params, steps = self.trainer.update()
+        with trace_span("epoch.snapshot_wait", plane="learner"):
+            params, steps = self.trainer.update()
         if self.trainer.error is not None:
             raise RuntimeError("the trainer thread failed") from self.trainer.error
         if params is None:  # no training yet: the snapshot is the initial state
@@ -377,6 +404,8 @@ class Learner:
             record.update(self._watchdog_events)
         if self.model_server.substituted_snapshots:
             record["serve_snapshot_substituted"] = self.model_server.substituted_snapshots
+        if trace.enabled():
+            record.update(trace.trace_stats())
         if self.remote:  # the remote actor plane's books, cumulative
             record.update(remote_connections=self.worker.connection_count(),
                           jobs_lost=dict(self.jobs_lost),
@@ -394,8 +423,9 @@ class Learner:
         print("updated model(%d)" % steps)
         self.model_epoch += 1
         t0 = time.perf_counter()
-        save_epoch_snapshot(self.model_dir, self.model_epoch, params,
-                            self.trainer.save_payload(self.model_epoch), steps)
+        with trace_span("checkpoint.save", plane="learner", epoch=self.model_epoch):
+            save_epoch_snapshot(self.model_dir, self.model_epoch, params,
+                                self.trainer.save_payload(self.model_epoch), steps)
         gc_snapshots(self.model_dir, int(self.args["keep_checkpoints"]))
         t1 = time.perf_counter()
         self.model_server.publish(self.model_epoch, params)
@@ -532,6 +562,8 @@ class Learner:
         self._shutdown_t0 = 0.0
         try:
             while self._workers_active() or not self.shutdown_flag:
+                if self._drain_tick():
+                    break
                 if self.shutdown_flag and not self._shutdown_t0:
                     self._shutdown_t0 = time.time()
                 while self._deferred and (self.shutdown_flag or not self._eval_budget_spent()):
@@ -568,8 +600,79 @@ class Learner:
                 if not fut.done():
                     fut.set_result(None)
             if self._trainer_thread is not None:
-                self._trainer_thread.join(timeout=60.0)
+                timeout = 60.0
+                if self._drain_requested:
+                    # bounded by what is left of the deadline: a wedged
+                    # trainer cannot eat it, and the checkpoint then saves the
+                    # last consistent snapshot
+                    left = self.drain_deadline - (time.time() - self._drain_t0)
+                    timeout = max(5.0, min(timeout, left))
+                self._trainer_thread.join(timeout=timeout)
+            if self._drain_requested:
+                self._write_drain_checkpoint()
         print("finished server")
+
+    # -- the preemption drain -------------------------------------------------
+
+    def _drain_handler(self, signum, frame) -> None:
+        """SIGTERM/SIGINT: raise the flags and let the loops drain; a second
+        signal while draining is ignored."""
+        if self._drain_requested:
+            return
+        self._drain_requested = True
+        self._drain_t0 = time.time()
+        self.shutdown_flag = True
+        try:
+            name = signal.Signals(signum).name
+        except ValueError:
+            name = str(signum)
+        print(f"[handyrl_tpu_torch] {name} received: draining (final verified checkpoint "
+              f"within {self.drain_deadline:.0f}s, then exit {EXIT_RESUMABLE} for a "
+              "restart_epoch: -1 relaunch)", file=sys.stderr, flush=True)
+
+    def _install_signal_handlers(self) -> None:
+        """Only the main thread may install handlers; a learner run from
+        another thread reaches the drain through ``_drain_handler``."""
+        if threading.current_thread() is not threading.main_thread():
+            return
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._prev_handlers[sig] = signal.signal(sig, self._drain_handler)
+            except (ValueError, OSError):
+                pass
+
+    def _restore_signal_handlers(self) -> None:
+        for sig, prev in self._prev_handlers.items():
+            try:
+                signal.signal(sig, prev)
+            except (ValueError, OSError):
+                pass
+        self._prev_handlers = {}
+
+    def _drain_tick(self) -> bool:
+        """The drain's per-iteration step: stop the trainer once; True when
+        the deadline is spent with workers still attached (the loop ends)."""
+        if not self._drain_requested:
+            return False
+        if not self._drain_stopped:
+            self._drain_stopped = True
+            self.trainer.request_drain()
+        if time.time() - self._drain_t0 > self.drain_deadline:
+            print("[handyrl_tpu_torch] drain deadline exceeded; forcing shutdown (the "
+                  "checkpoint still lands from the last consistent state)", file=sys.stderr)
+            return True
+        return False
+
+    def _write_drain_checkpoint(self) -> None:
+        """The drain's final save, through the same atomic, manifest-recorded
+        path as every boundary, so ``restart_epoch: -1`` resumes it."""
+        self.model_epoch += 1
+        params, payload, steps = self.trainer.drain_payload(self.model_epoch)
+        with trace_span("checkpoint.save", plane="learner", epoch=self.model_epoch):
+            save_epoch_snapshot(self.model_dir, self.model_epoch, params, payload, steps)
+        gc_snapshots(self.model_dir, int(self.args["keep_checkpoints"]))
+        print(f"[handyrl_tpu_torch] drain checkpoint: epoch {self.model_epoch} at step {steps} "
+              "(manifest-verified; resume with restart_epoch: -1)", file=sys.stderr, flush=True)
 
     # -- the device rollout thread and its watchdog --------------------------
 
@@ -652,9 +755,25 @@ class Learner:
                 elif hasattr(roll, "drain"):
                     roll.drain()
 
+    def _maybe_wedge(self, gen: int, blocks: int) -> bool:
+        """HANDYRL_FAULT_WEDGE_ROLLOUT: after N blocks this generation stops
+        beating (a wedged launch) until it is superseded or shut down.
+        True when the caller should return."""
+        w = self._fault_wedge
+        if w is None or blocks < w[0] or (not w[1] and gen != 1):
+            return False
+        print(f"[fault] wedging rollout thread generation {gen} after {blocks} blocks "
+              "(HANDYRL_FAULT_WEDGE_ROLLOUT)", file=sys.stderr)
+        while self._rollout_live(gen):
+            time.sleep(0.05)   # no beat: the watchdog must notice
+        return True
+
     def _device_rollout_inner(self, roll, rng: torch.Generator, gen: int) -> None:
         loaded = None
+        blocks = 0
         while self._rollout_live(gen):
+            if self._maybe_wedge(gen, blocks):
+                return
             if self.num_returned_episodes >= self._next_update_episodes:
                 # backpressure: the epoch's budget is met; let the trainer run
                 time.sleep(0.02)
@@ -663,6 +782,7 @@ class Learner:
             epoch, params = self.model_server.latest_snapshot()
             episodes = roll.generate(params if epoch != loaded else None, rng)
             loaded = epoch
+            blocks += 1
             self._rollout_dispatched = True
             self._rollout_beat()
             for ep in episodes:
@@ -684,8 +804,11 @@ class Learner:
         loaded = None
         pending_steps = 0   # game steps of ingests that finished no episode
         epoch_fifo: deque = deque()
+        blocks = 0
         try:
             while self._rollout_live(gen):
+                if self._maybe_wedge(gen, blocks):
+                    return
                 if self.num_returned_episodes >= self._next_update_episodes:
                     # backpressure: the epoch's budget is met; let the trainer run
                     time.sleep(0.02)
@@ -696,6 +819,7 @@ class Learner:
                 loaded = epoch
                 epoch_fifo.append(epoch)
                 stats = replay.ingest_counted(records, defer=True)
+                blocks += 1
                 self._rollout_dispatched = True
                 self._rollout_beat()
                 if not self._rollout_live(gen):
@@ -746,28 +870,40 @@ class Learner:
         return True
 
     def run(self) -> int:
-        """Train to ``epochs`` epochs (or until stopped); returns 0."""
-        self._trainer_thread = threading.Thread(target=self.trainer.run, daemon=True,
-                                                name="trainer")
-        self._trainer_thread.start()
+        """Train to ``epochs`` epochs (or until stopped); returns 0, or
+        ``EXIT_RESUMABLE`` (75) after a preemption drain."""
+        self._install_signal_handlers()
         try:
-            self.worker.run()
-        except BaseException:
-            self.trainer.stop()  # the batch pipeline's processes and segment go with it
-            raise
-        if not self.remote:
-            self._active_workers = len(self.worker.threads)
-        if self._device_roll is not None:
-            self._start_rollout_thread()
-            threading.Thread(target=self._watchdog_loop, daemon=True, name="plane-watchdog").start()
-        try:
-            self.server()
+            self._trainer_thread = threading.Thread(target=self.trainer.run, daemon=True,
+                                                    name="trainer")
+            self._trainer_thread.start()
+            try:
+                self.worker.run()
+            except BaseException:
+                self.trainer.stop()  # the batch pipeline's processes and segment go with it
+                raise
+            if not self.remote:
+                self._active_workers = len(self.worker.threads)
+            if self._device_roll is not None:
+                self._start_rollout_thread()
+                threading.Thread(target=self._watchdog_loop, daemon=True,
+                                 name="plane-watchdog").start()
+            try:
+                self.server()
+            finally:
+                self.shutdown_flag = True
+                if self._rollout_thread is not None:
+                    # let the block in flight finish and its copies land;
+                    # under a drain, within what is left of its deadline
+                    timeout = 120.0
+                    if self._drain_requested:
+                        left = self.drain_deadline - (time.time() - self._drain_t0)
+                        timeout = max(5.0, min(timeout, left))
+                    self._rollout_thread.join(timeout=timeout)
         finally:
-            self.shutdown_flag = True
-            if self._rollout_thread is not None:
-                # let the block in flight finish and its copies land
-                self._rollout_thread.join(timeout=120.0)
-        return 0
+            self._restore_signal_handlers()
+            trace.shutdown()   # the ring's tail; nothing when tracing is off
+        return EXIT_RESUMABLE if self._drain_requested else 0
 
 
 def train_main(args: Dict[str, Any], device=None) -> int:

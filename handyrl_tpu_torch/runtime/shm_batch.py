@@ -72,6 +72,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..config import effective_shm_slots
+from ..utils.trace import trace_event
 from . import codec
 from .batch import _fill_accel, fill_batch, make_batch
 from .replay import EpisodeStore
@@ -596,8 +597,10 @@ class ShmBatchPipeline:
                 continue  # stale: from a child that died; the slot was reclaimed
             self._owner[slot] = -1
             self._had_death = False  # the ring proved itself after a death
+            wait = time.perf_counter() - t0
             with self._lock:
-                self._stats["ready_wait_s"] += time.perf_counter() - t0
+                self._stats["ready_wait_s"] += wait
+            trace_event("pipe.ready_wait", wait, plane="pipeline", mode="shm")
             return slot, t_sample, t_assemble, t_free
         return None
 

@@ -24,11 +24,27 @@ next pull and hands over a CPU copy of its params (never the live
 tensors).  The lr is ``3e-8 * lr_scale * data_cnt_ema / (1 + steps *
 1e-5)``, held for an epoch; the data-count EMA moves at the epoch's end
 from the updates that were applied.
+
+The divergence sentinel, as the JAX trainer's without a cadence: the
+step's in-step skips (``sentinel_bad``) and the loss spikes the epoch's
+end finds (a loss above ``sentinel_spike_factor`` x the loss EMA, which bad
+steps never feed) extend one streak of bad steps; at
+``sentinel_rollback_after`` the train state goes back to the newest
+verified snapshot with a fresh optimizer, the step counter kept and the
+device replay's sampling generator re-seeded.  The rolled-back params are
+the epoch's snapshot, so they reach the actors at that boundary.  The
+``HANDYRL_FAULT_NAN_AT_STEP`` and ``HANDYRL_FAULT_SIGTERM_AT_STEP``
+injections (runtime/faults.py) and the spans ``train_step``,
+``batch.wait`` and ``epoch.metrics_fetch`` (utils/trace.py) sit in the
+epoch loop; ``profile_dir`` captures the first trained epoch with
+``torch.profiler``.
 """
 
 from __future__ import annotations
 
+import os
 import queue
+import signal
 import sys
 import threading
 import time
@@ -40,6 +56,8 @@ import torch
 from ..parallel import TrainContext
 from ..parallel.train_step import LOSS_KEYS
 from ..utils import tree_map
+from ..utils.trace import trace_event, trace_span
+from . import faults
 from .batch import make_batch
 from .replay import EpisodeStore
 
@@ -50,6 +68,10 @@ PIPE_STAT_KEYS = ("sample_s", "assemble_s", "free_wait_s", "ready_wait_s", "put_
 # to threads), recorded cumulatively as pipe_<key>: a nonzero value anywhere
 # in a run means the assembly plane took a fault
 PIPE_EVENT_KEYS = ("batcher_deaths", "batcher_restarts", "batcher_fallback")
+
+# the divergence sentinel's events, cumulative in metrics.jsonl: in-step
+# skips, loss spikes, rollbacks to a verified snapshot
+SENTINEL_EVENT_KEYS = ("sentinel_skipped_steps", "sentinel_spike_steps", "sentinel_rollbacks")
 
 
 def host_copy(tree):
@@ -195,6 +217,7 @@ class BatchPipeline:
                     self._stats["ready_wait_s"] += t1 - t0
                     self._stats["put_s"] += time.perf_counter() - t1
                     self._stats["batches"] += len(group)
+                trace_event("pipe.ready_wait", t1 - t0, plane="pipeline", mode=self.mode)
                 self._put(self._device_queue, (device_batch, ready))
         except Exception:
             traceback.print_exc()
@@ -245,7 +268,16 @@ class Trainer:
         self.default_lr = 3e-8 * args["lr_scale"]
         self.data_cnt_ema = args["batch_size"] * args["forward_steps"]
         self.steps = 0
-        self.sentinel_skipped_steps = 0
+        self.sentinel_rollback_after = int(args.get("sentinel_rollback_after", 8))
+        self._spike_factor = float(args.get("sentinel_spike_factor", 10.0))
+        self._loss_ema_decay = float(args.get("sentinel_loss_ema_decay", 0.9))
+        self._loss_ema: Optional[float] = None
+        self._sentinel_streak = 0
+        self.sentinel_events: Dict[str, int] = {k: 0 for k in SENTINEL_EVENT_KEYS}
+        # parsed here, so a test sets the environment before construction
+        self._fault_nan = faults.nan_window()
+        self._fault_sigterm = faults.sigterm_at_step()
+        self._fault_sigterm_fired = False
         self.last_loss: Dict[str, float] = {}
         self.stats: Dict[str, float] = {}
         self.update_flag = False
@@ -265,6 +297,10 @@ class Trainer:
     def lr(self) -> float:
         return self.default_lr * self.data_cnt_ema / (1 + self.steps * 1e-5)
 
+    @property
+    def sentinel_skipped_steps(self) -> int:
+        return self.sentinel_events["sentinel_skipped_steps"]
+
     def _snapshot(self) -> Dict[str, Any]:
         return {
             "params": host_copy(self.ctx.module.state_dict()),
@@ -275,6 +311,14 @@ class Trainer:
     def save_payload(self, epoch: int) -> Dict[str, Any]:
         """Checkpoint payload: train state + epoch tag + lr-schedule EMA."""
         return {**self.state_host, "epoch": int(epoch), "data_cnt_ema": float(self.data_cnt_ema)}
+
+    def drain_payload(self, epoch: int):
+        """(params, state payload, steps) of the drain's checkpoint, read
+        from one ``state_host`` reference, which the trainer thread swaps
+        whole at an epoch's end: the three stay consistent."""
+        host = self.state_host
+        payload = {**host, "epoch": int(epoch), "data_cnt_ema": float(self.data_cnt_ema)}
+        return host["params"], payload, int(host["steps"])
 
     def load_state(self, path: str, expected_epoch: int) -> bool:
         """Resume params, Adam moments, step count and lr EMA from
@@ -343,21 +387,44 @@ class Trainer:
                         warmup_wait_s = waited
                     else:
                         wait_s += waited
+                    trace_event("batch.wait", waited, plane="learner")
                     if batch is None:  # stopping
                         break
                     k = self.fused
                 else:
                     batch, k = self.sample_batch(), 1
-                if k > 1:
-                    history.append(self.ctx.train_steps(batch, lr))
-                else:
-                    history.append(self.ctx.train_step(batch, lr))
+                step_lr = self._step_lr(lr, k)
+                with trace_span("train_step", plane="learner"):
+                    if k > 1:
+                        history.append(self.ctx.train_steps(batch, step_lr))
+                    else:
+                        history.append(self.ctx.train_step(batch, step_lr))
                 updates += k
                 self.steps += k
+                self._maybe_fault_sigterm()
         if history:
             self._finish_epoch(history, updates, time.perf_counter() - t_epoch, wait_s,
                                warmup_wait_s)
         return history
+
+    def _step_lr(self, lr: float, k: int) -> float:
+        """The lr of the next k updates, NaN inside the
+        HANDYRL_FAULT_NAN_AT_STEP window."""
+        w = self._fault_nan
+        if w is not None:
+            start, count = w
+            if self.steps < start + count and self.steps + k > start:
+                return float("nan")
+        return lr
+
+    def _maybe_fault_sigterm(self) -> None:
+        """HANDYRL_FAULT_SIGTERM_AT_STEP: a preemption in mid-epoch."""
+        if (self._fault_sigterm is not None and not self._fault_sigterm_fired
+                and self.steps >= self._fault_sigterm):
+            self._fault_sigterm_fired = True
+            print(f"[fault] SIGTERM at step {self.steps} (HANDYRL_FAULT_SIGTERM_AT_STEP)",
+                  file=sys.stderr)
+            os.kill(os.getpid(), signal.SIGTERM)
 
     def _replay_epoch(self, history: List[Dict[str, float]], lr: float) -> None:
         """The epoch on the card: each pull samples, assembles and steps
@@ -369,24 +436,30 @@ class Trainer:
         train = self.device_replay.train_fn(self.ctx, self.fused)
         on_cpu = self.ctx.device.type == "cpu"
         while not (history and self.update_flag) and not self.stop_event.is_set():
-            history.append(train(self._replay_gen, lr))
+            with trace_span("train_step", plane="learner"):
+                history.append(train(self._replay_gen, self._step_lr(lr, self.fused)))
             self.steps += self.fused
+            self._maybe_fault_sigterm()
             if on_cpu:
                 time.sleep(0.02)
 
     def _finish_epoch(self, history, updates: int, elapsed: float, wait_s: float,
                       warmup_wait_s: float) -> None:
-        skipped = int(sum(m.get("sentinel_bad", 0.0) for m in history))
-        self.sentinel_skipped_steps += skipped
-        data_cnt = sum(m["dcnt"] for m in history)
-        self.last_loss = {k: sum(m[k] for m in history) / max(data_cnt, 1) for k in LOSS_KEYS}
+        # every step's metrics reached the host with the step; the span
+        # holds the epoch's accounting (and a rollback, when one is due)
+        with trace_span("epoch.metrics_fetch", plane="learner"):
+            skipped = self._sentinel_account(history) if self.ctx.sentinel else 0
+            data_cnt = sum(m["dcnt"] for m in history)
+            self.last_loss = {k: sum(m[k] for m in history) / max(data_cnt, 1)
+                              for k in LOSS_KEYS}
         print("loss = %s" % " ".join(f"{k}:{v:.3f}" for k, v in self.last_loss.items()))
         elapsed = max(elapsed, 1e-9)
         self.stats = {
             "train_steps_per_sec": updates / elapsed,
             "input_wait_frac": wait_s / elapsed,
-            "sentinel_skipped_steps": self.sentinel_skipped_steps,  # cumulative
         }
+        if self.ctx.sentinel:
+            self.stats.update(self.sentinel_events)   # cumulative
         if warmup_wait_s:
             self.stats["input_wait_warmup_s"] = round(warmup_wait_s, 4)
         # skipped steps added nothing to data_cnt, so they leave the divisor
@@ -405,6 +478,77 @@ class Trainer:
             self.stats["pipe_device_queue_depth"] = round(
                 (cur["device_queue_depth_sum"] - prev.get("device_queue_depth_sum", 0.0)) / gets, 3)
         self._pipe_stats0 = cur
+
+    def _sentinel_account(self, fetched: List[Dict[str, Any]]) -> int:
+        """The sentinel's books over an epoch's per-pull metrics: in-step
+        skips and loss spikes extend one streak of bad steps, a clean pull
+        resets it, and neither kind of bad step feeds the loss EMA.  At
+        ``sentinel_rollback_after`` the state rolls back.  Returns the
+        in-step skipped steps (they applied nothing, so the lr schedule's
+        data-count average leaves them out)."""
+        skipped = 0
+        for m in fetched:
+            bad = int(round(float(m.get("sentinel_bad", 0.0))))
+            if bad:
+                skipped += bad
+                self.sentinel_events["sentinel_skipped_steps"] += bad
+                self._sentinel_streak += bad
+                continue
+            dcnt = float(m["dcnt"])
+            if dcnt <= 0:
+                continue
+            loss = abs(float(m["total"])) / dcnt
+            if self._loss_ema is not None and loss > self._spike_factor * max(self._loss_ema, 1e-8):
+                self.sentinel_events["sentinel_spike_steps"] += self.fused
+                self._sentinel_streak += self.fused
+                continue
+            self._sentinel_streak = 0
+            d = self._loss_ema_decay
+            self._loss_ema = loss if self._loss_ema is None else d * self._loss_ema + (1 - d) * loss
+        if self._sentinel_streak >= self.sentinel_rollback_after:
+            self._sentinel_rollback()
+        return skipped
+
+    def _sentinel_rollback(self) -> None:
+        """Roll the train state back to the newest verified snapshot of
+        ``model_dir``.  With none, or with a corrupt manifest, the params
+        stay (the in-step skips kept them finite) and the streak starts
+        over on fresh evidence."""
+        from . import checkpoint as ckpt
+
+        self._sentinel_streak = 0
+        self._loss_ema = None
+        model_dir = self.args.get("model_dir", "models")
+        try:
+            epoch = ckpt.latest_verified_epoch(model_dir)
+        except ckpt.CheckpointError as exc:
+            print(f"[sentinel] rollback wanted but the manifest is corrupt ({exc}); "
+                  "keeping current params", file=sys.stderr)
+            return
+        if epoch <= 0:
+            print("[sentinel] divergence streak hit the rollback threshold but no verified "
+                  "snapshot exists yet; keeping current params (in-step skips already "
+                  "suppressed the bad updates)", file=sys.stderr)
+            return
+        params = ckpt.load_verified_params(model_dir, epoch, pre_verified=True)
+        self.sentinel_events["sentinel_rollbacks"] += 1
+        self._reset_state_from(params)
+        print(f"[sentinel] rolled back to verified epoch {epoch} after a divergence streak "
+              f"(step counter stays at {self.steps}; fresh optimizer; re-seeded sampling "
+              "generator)", file=sys.stderr)
+
+    def _reset_state_from(self, params) -> None:
+        """The rollback's tail: ``params`` into the module, a fresh Adam
+        (the moments fed the divergence), the step counter kept monotone
+        (the lr schedule keys off it), and the device replay's sampling
+        generator moved far from the stream that fed the poison."""
+        ctx = self.ctx
+        ctx.module.load_state_dict(params)
+        ctx.optimizer = torch.optim.Adam(ctx.module.parameters(), lr=0.0, weight_decay=1e-5)
+        seed = ((int(self.args.get("seed", 0)) ^ 0x7EA1)
+                + 0x9E3779B9 * self.sentinel_events["sentinel_rollbacks"] + self.steps)
+        self._replay_gen = torch.Generator(device=ctx.device).manual_seed(seed % (1 << 63))
+        self.state_host = self._snapshot()
 
     def _warmed_up(self) -> bool:
         """``minimum_episodes`` in the store, or under device_replay (the
@@ -431,6 +575,31 @@ class Trainer:
         self.stop_event.set()
         self.batcher.stop()
 
+    def request_drain(self) -> None:
+        """The preemption drain: stop mid-epoch; the thread's snapshot on
+        its way out is what the drain's checkpoint saves."""
+        self.stop()
+
+    def _start_profile(self):
+        """``profile_dir``: a torch.profiler capture of the first trained
+        epoch, CPU and (on the card) CUDA activities."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.ctx.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        prof.stop()
+        profile_dir = self.args["profile_dir"]
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"trainer_epoch.{os.getpid()}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"wrote profiler trace to {path}")
+
     def run(self) -> None:
         """The trainer thread: wait for ``minimum_episodes``, then train
         epoch after epoch until stopped.  An exception stops the trainer and
@@ -443,8 +612,14 @@ class Trainer:
             if self.device_replay is None:
                 self.batcher.start()
             print("started training")
+            prof = self._start_profile() if self.args.get("profile_dir") else None
             while not self.stop_event.is_set():
-                self.train_epoch()
+                try:
+                    self.train_epoch()
+                finally:
+                    if prof is not None:  # the first epoch, or its interruption
+                        self._stop_profile(prof)
+                        prof = None
                 self.state_host = self._snapshot()
                 self.update_flag = False
                 item = (self.state_host["params"], self.steps)

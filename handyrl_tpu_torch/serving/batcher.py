@@ -44,6 +44,7 @@ from ..models.inference import fetch_outputs
 from ..parallel.dispatch import dispatch_serialized
 from ..runtime.inference_engine import EngineStopped, next_bucket, stack_padded
 from ..utils import tree_map
+from ..utils.trace import trace_event
 
 __all__ = [
     "ContinuousBatcher", "ServeError", "RequestShed", "DeadlineExceeded",
@@ -404,6 +405,9 @@ class ContinuousBatcher:
         t0 = time.monotonic()
         outputs = self._run([r.obs for r in requests], [r.hidden for r in requests], bucket)
         done = time.monotonic()
+        # stack -> outputs on the host; each request's "serve.request" span
+        # (server.py) brackets admission -> reply around it
+        trace_event("serve.batch", done - t0, t0=t0, plane="serving", n=n, bucket=bucket)
         self._note_batch(done - t0, bucket)
         with self._gate:
             # the device work is over: a waiter woken by the scatter below

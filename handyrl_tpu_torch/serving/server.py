@@ -37,17 +37,24 @@ with a ``sid`` reads and writes the session's hidden state here
 
 On SIGTERM ``serve_main`` pushes ``draining`` to every peer, waits for an
 ``export_sessions`` (or the deadline), and exits 75.
+``HANDYRL_FAULT_SIGTERM_REPLICA=N`` (runtime/faults.py) makes the server
+SIGTERM its own process after its N-th reply.  Each request's lifecycle,
+admission to reply, is a ``serve.request`` span (utils/trace.py), armed by
+``serve_main`` from ``trace.enabled``.
 """
 
 from __future__ import annotations
 
+import os
 import queue as _queue
+import signal
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
 from ..fleet.sessions import SessionCache
+from ..runtime import faults
 from ..runtime.checkpoint import latest_verified_epoch, load_verified_params
 from ..runtime.connection import (
     FramedConnection,
@@ -57,9 +64,13 @@ from ..runtime.connection import (
 )
 from ..runtime.inference_engine import EngineStopped
 from ..utils.metrics import append_metrics_record
+from ..utils.trace import trace_event
 from .router import ColdRoute, ModelRouter
 
 __all__ = ["ServingServer", "serve_main"]
+
+# the longest an export waits for its reply to reach the socket
+EXPORT_FLUSH_S = 300.0
 
 FLYWHEEL_FRAMES = ("harvest_open", "harvest_step", "harvest_close", "harvest_pull",
                    "report_outcome")
@@ -110,6 +121,8 @@ class ServingServer(QueueCommunicator):
         # set when a caller has pulled the session cache (export_sessions):
         # the SIGTERM drain waits for it or for its deadline
         self._sessions_exported = threading.Event()
+        # parsed here, so a replica process inherits it from its environment
+        self._fault_sigterm_after = faults.sigterm_replica()
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -246,8 +259,10 @@ class ServingServer(QueueCommunicator):
                 "fresh": exported["fresh"],
                 "count": len(exported["sessions"]),
             }))
-            # only once the reply is queued: the drain shuts the socket
-            # down as soon as this is set
+            # only once the reply is on the socket: the drain shuts the
+            # socket down as soon as this is set, and a transformer's
+            # sessions are hundreds of MB (the drain's deadline bounds it)
+            self.flush(conn, timeout=EXPORT_FLUSH_S)
             self._sessions_exported.set()
         except Exception as exc:
             self._error(conn, rid, "error", f"{type(exc).__name__}: {exc}")
@@ -326,14 +341,25 @@ class ServingServer(QueueCommunicator):
             # pin resident states on the engine's device from now on
             self.sessions.device = getattr(route, "device", None)
         fut.add_done_callback(
-            lambda f, c=conn, r=rid, s=served, i=sid: self._reply(c, r, s, f, i)
+            lambda f, c=conn, r=rid, s=served, a=arrival, i=sid: self._reply(c, r, s, f, a, i)
         )
 
-    def _reply(self, conn: FramedConnection, rid, served, fut, sid=None) -> None:
+    def _reply(self, conn: FramedConnection, rid, served, fut,
+               arrival: Optional[float] = None, sid=None) -> None:
         exc = fut.exception()
+        if arrival is not None:
+            trace_event("serve.request", time.monotonic() - arrival, t0=arrival,
+                        plane="serving", ok=exc is None)
         if exc is None:
             with self._stats_lock:
                 self.replies += 1
+                replies = self.replies
+            if self._fault_sigterm_after is not None and replies == self._fault_sigterm_after:
+                # a spot preemption in mid-load: serve_main's handler runs
+                # the draining notice -> session handoff -> exit 75
+                print(f"serving: FAULT sigterm_replica after {replies} replies — raising SIGTERM",
+                      flush=True)
+                os.kill(os.getpid(), signal.SIGTERM)
             out = fut.result()
             if sid is not None and isinstance(out, dict) and "hidden" in out:
                 # the next state stays here (store() copies it back to the
@@ -440,15 +466,16 @@ def serve_main(args: Dict[str, Any], device=None) -> int:
     until SIGTERM (drain, exit 75) or Ctrl-C (exit 0).  With
     ``serving.watch_interval`` > 0 every newer verified snapshot is hot
     swapped in."""
-    import signal
-
     import torch
 
     from ..envs import make_env, prepare_env
     from ..models.inference import init_variables
+    from ..utils import trace
 
     train = args["train_args"]
     env_args = args["env_args"]
+    if trace.configure(train.get("trace")):
+        print(f"serving: trace spans -> {trace.current_path()}")
     prepare_env(env_args)
     env = make_env(env_args)
     env.reset()
@@ -512,3 +539,5 @@ def serve_main(args: Dict[str, Any], device=None) -> int:
         print("serving: shutting down")
         server.shutdown()
         return 0
+    finally:
+        trace.shutdown()

@@ -40,6 +40,17 @@ METRIC_KEYS = frozenset({
     "session_closed", "session_evictions", "session_restored",
     "session_affinity_miss", "session_spill_drops",
     "session_migrated_in", "session_migrated_out",
+    # the fleet router's periodic record (fleet/router_tier.py): traffic,
+    # replica liveness (fleet_replica_lost counts loss events, the
+    # _live/_warming keys are gauges), swaps, scaling, migrations, retries
+    "fleet_requests", "fleet_replies", "fleet_errors", "fleet_qps",
+    "fleet_replicas", "fleet_replicas_live", "fleet_replicas_warming",
+    "fleet_replica_lost", "fleet_sessions", "fleet_hot_swaps",
+    "fleet_scale_ups", "fleet_scale_downs", "fleet_migrations",
+    "fleet_sessions_migrated", "fleet_migration_ms",
+    "fleet_failover_retries", "fleet_preempt_drains", "fleet_poll_retries",
+    # the span tracer's cumulative counters (utils/trace.py)
+    "trace_spans", "trace_dropped",
     # both clocks, stamped by append_metrics_record
     "ts", "t_mono",
 })

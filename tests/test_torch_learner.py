@@ -154,8 +154,10 @@ def test_cli_trains_and_evaluates(tmp_path, monkeypatch, capsys):
     assert main(["--eval", "models/latest.ckpt", "10", "2"], device="cpu") == 0
     assert "total =" in capsys.readouterr().out
     assert main(["--eval", "models/1.ckpt:random", "4", "1"], device="cpu") == 0
-    assert main(["--fleet"], device="cpu") == 1
+    assert main(["--edge"], device="cpu") == 1
     assert "not ported" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="fleet.replicas is empty"):   # --fleet is ported
+        main(["--fleet"], device="cpu")
     assert main(["--bogus"], device="cpu") == 1 and main([], device="cpu") == 1
 
 

@@ -1,4 +1,4 @@
-"""Three faults of the port against the JAX package, repaired, on the CPU.
+"""Four faults of the port against the JAX package, repaired, on the CPU.
 
 * C1: an env module's ``prepare()`` hook runs once per process where the
   JAX package runs it: the learner and ``eval_main`` (and the worker pool,
@@ -8,6 +8,9 @@
 * C3: a config key that selects a plane the port lacks is refused on any
   value but its default, naming the ROADMAP item; ``blk_k`` is checked as
   the JAX package checks it.
+* C4: every key path of the JAX package's ``DEFAULT_TRAIN_ARGS`` is in the
+  port's defaults or refused by name in ``NOT_PORTED_KEYS``; a value both
+  packages check is refused by both, in the same words.
 """
 
 import importlib
@@ -94,10 +97,26 @@ def _value(path, value):
     return out
 
 
+# a value other than the JAX default, by dotted key path
 NON_DEFAULT = {
     "plane": "split", "obs_int8": True, "plane_param_lag_bound": 5,
-    "autovec_verify_games": 4, "num_processes": 2, "flywheel": True, "trace": True,
-    "profile_dir": "profiles", "weight_dtype": "int8",
+    "autovec_verify_games": 4, "mesh": {"dp": 2}, "actor_chips": 2,
+    "param_refresh_updates": 5, "distributed.num_processes": 2,
+    "distributed.coordinator_address": "10.0.0.1:1234", "distributed.process_id": 1,
+    "distributed.initialization_timeout": 60.0, "distributed.heartbeat_interval": 1.0,
+    "distributed.heartbeat_timeout": 10.0, "distributed.collective_timeout": 60.0,
+    "distributed.health_port": 7000, "distributed.role": "actor", "distributed.plane_port": 7001,
+    "distributed.actor_hosts": 2, "observability.rank_metrics": False,
+    "league.pfsp_weighting": "hard", "league.selfplay_rate": 0.5,
+    "league.promote_winrate": 0.6, "league.promote_games": 4, "league.max_population": 8,
+    "flywheel.enabled": True, "flywheel.harvest_fraction": 1.0, "flywheel.staleness_epochs": 2,
+    "flywheel.harvest_host": "10.0.0.2", "flywheel.harvest_port": 9000,
+    "flywheel.harvest_poll_s": 2.0, "flywheel.harvest_max_pull": 8,
+    "flywheel.harvest_ttl_s": 60.0, "flywheel.harvest_max_open": 16,
+    "flywheel.gate_promotions": False, "flywheel.promote_winrate": 0.6,
+    "flywheel.promote_games": 8, "flywheel.shadow_fraction": 0.5,
+    "flywheel.quality_window": 8, "flywheel.demote_drop": 0.3,
+    "serving.weight_dtype": "int8", "serving.calibration_batches": 2,
 }
 
 
@@ -106,7 +125,7 @@ NON_DEFAULT = {
 def test_keys_of_planes_not_ported_are_refused(path, default, item):
     env = {"env": "TicTacToe"}
     normalize_args({"env_args": env, "train_args": _value(path, default)})  # the default passes
-    bad = NON_DEFAULT[path[0] if path[0] in NON_DEFAULT else path[-1]]
+    bad = NON_DEFAULT[".".join(path)]
     with pytest.raises(ValueError, match=f"ROADMAP {item.split()[0]}"):
         normalize_args({"env_args": env, "train_args": _value(path, bad)})
 
@@ -181,3 +200,70 @@ def test_blk_k_is_a_power_of_two_at_least_8(blk_k, ok):
         else:
             with pytest.raises(ValueError, match="blk_k"):
                 normalize(raw)
+
+
+def _leaf_paths(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict) and value:
+            yield from _leaf_paths(value, prefix + (key,))
+        else:
+            yield prefix + (key,)
+
+
+def test_every_jax_default_key_is_ported_or_refused_by_name():
+    """C4: no key of the JAX defaults passes silently.  Each leaf path is
+    in the port's defaults, or it (or a prefix of it) is in
+    NOT_PORTED_KEYS, where a non-default value is refused naming its
+    ROADMAP item."""
+    from handyrl_tpu.config import DEFAULT_TRAIN_ARGS as JAX_DEFAULTS
+    from handyrl_tpu_torch.config import DEFAULT_TRAIN_ARGS
+
+    port_paths = set(_leaf_paths(DEFAULT_TRAIN_ARGS))
+    refused = {path for path, _, _ in NOT_PORTED_KEYS}
+    silent = [path for path in _leaf_paths(JAX_DEFAULTS)
+              if path not in port_paths
+              and not any(path[:i] in refused for i in range(1, len(path) + 1))]
+    assert not silent, silent
+    # the table above has a non-default value for every refused key
+    assert set(NON_DEFAULT) == {".".join(path) for path in refused}
+
+
+def test_port_defaults_are_the_jax_defaults():
+    from handyrl_tpu.config import DEFAULT_TRAIN_ARGS as JAX_DEFAULTS
+    from handyrl_tpu_torch.config import DEFAULT_TRAIN_ARGS
+
+    for path in _leaf_paths(DEFAULT_TRAIN_ARGS):
+        port, jax_value = DEFAULT_TRAIN_ARGS, JAX_DEFAULTS
+        for key in path:
+            port, jax_value = port[key], jax_value[key]
+        assert port == jax_value, path
+
+
+# keys the port refuses, at values the JAX package also refuses: the
+# same words from both
+JAX_CHECKED = [
+    ({"actor_chips": 0}, "actor_chips must be >= 1"),
+    ({"param_refresh_updates": 0}, "param_refresh_updates must be >= 1"),
+    ({"mesh": "dp"}, "mesh must be a non-empty"),
+    ({"distributed": {"num_processes": 0}}, "num_processes must be >= 1"),
+    ({"distributed": {"role": "observer"}}, "distributed.role"),
+    ({"observability": {"rank_metrics": "yes"}}, "rank_metrics"),
+    ({"league": {"pfsp_weighting": "fair"}}, "pfsp_weighting"),
+    ({"league": {"selfplay_rate": 1.5}}, "selfplay_rate"),
+    ({"league": {"promote_winrate": 1.0}}, "promote_winrate"),
+    ({"league": {"promote_games": 0}}, "promote_games"),
+    ({"league": {"max_population": 1}}, "max_population"),
+    ({"flywheel": {"harvest_fraction": 2.0}}, "harvest_fraction"),
+    ({"serving": {"calibration_batches": -1}}, "calibration_batches"),
+]
+
+
+@pytest.mark.parametrize("train_args,match", JAX_CHECKED,
+                         ids=[".".join(_leaf_paths(t).__next__()) for t, _ in JAX_CHECKED])
+def test_values_the_jax_package_refuses_are_refused_alike(train_args, match):
+    from handyrl_tpu.config import normalize_args as jax_normalize_args
+
+    raw = {"env_args": {"env": "TicTacToe"}, "train_args": train_args}
+    for normalize in (normalize_args, jax_normalize_args):
+        with pytest.raises(ValueError, match=match):
+            normalize(raw)

@@ -850,9 +850,19 @@ def test_cli_serves_and_drains_on_sigterm(tmp_path, start):
 
 
 @pytest.mark.parametrize("mode", ["--fleet", "--edge", "--league"])
-def test_modes_still_refused_name_a10(mode, capsys):
+def test_modes_still_refused_name_a10(mode, capsys, tmp_path, monkeypatch):
+    """``--edge`` and ``--league`` exit 1 naming their ROADMAP A10 item.
+    ``--fleet`` is ported: it is no longer refused, and with no replica
+    configured it says so (tests/test_torch_fleet.py runs it)."""
     from handyrl_tpu_torch.main import main
 
+    if mode == "--fleet":
+        monkeypatch.chdir(tmp_path)
+        (tmp_path / "config.yaml").write_text("env_args: {env: TicTacToe}\n")
+        with pytest.raises(ValueError, match="fleet.replicas is empty"):
+            main([mode], device="cpu")
+        assert "not ported" not in capsys.readouterr().out
+        return
     assert main([mode], device="cpu") == 1
     assert "ROADMAP A10" in capsys.readouterr().out
 

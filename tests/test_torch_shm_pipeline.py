@@ -451,6 +451,7 @@ threading.Thread(target=learner.run, daemon=True).start()
 pipe = learner.trainer.batcher
 while pipe.stats()["batches"] < 2:
     time.sleep(0.1)
+print()  # a line of its own: the learner's episode counter may have left one open
 print(json.dumps({"pids": [p.pid for p in pipe._procs], "shm": pipe._shm.name}), flush=True)
 time.sleep(300)
 """
