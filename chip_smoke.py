@@ -32,9 +32,9 @@ Phases, each of which fails the run when it fails:
    through the masked flash kernel (launch count checked), its loss held
    against the einsum path on one batch.
 7. learner: (a) the repo's config.yaml (TicTacToe, SimpleConvNet) with
-   epochs cut to 3 through ``python -m handyrl_tpu_torch.main --train`` in a
+   epochs cut to 2 through ``python -m handyrl_tpu_torch.main --train`` in a
    temp directory, its checkpoints verified against the manifest, and
-   ``--eval models/latest.ckpt 100 4``; (b) the transformer above trained
+   ``--eval models/latest.ckpt 20 4``; (b) the transformer above trained
    by ``Learner(args).run()`` (actor threads through the batched inference
    engine, the shm batch pipeline, 2 epochs), the kernel's launches
    held to n_layers per step, the checkpoints verified and reloaded bit
@@ -50,7 +50,7 @@ Phases, each of which fails the run when it fails:
    port's conv mode (TF32) and in strict fp32; (b) HungryGeese (GeeseNet,
    simultaneous moves, 4 players) through ``python -m
    handyrl_tpu_torch.main --train`` for 2 epochs, evaluated against the
-   rule-based geese, then ``--eval models/latest.ckpt:rulebase 100 4``.
+   rule-based geese, then ``--eval models/latest.ckpt:rulebase 20 4``.
 9. the remote actor plane and network battles, over loopback: (a) the
    repo's config.yaml with epochs cut to 3 through ``--train-server`` and
    ``--worker`` processes (8 remote actors on the card, a 1 s heartbeat),
@@ -60,9 +60,9 @@ Phases, each of which fails the run when it fails:
    held to n_layers launches per learner step, each params blob the worker
    fetched held by CRC32 against the blob served and the snapshot saved,
    the blob's size and fetch seconds, remote moves/s, the boundaries'
-   seconds, jobs_lost and heartbeat drops; (c) ``--eval-server 20`` with
+   seconds, jobs_lost and heartbeat drops; (c) ``--eval-server 10`` with
    two ``--eval-client`` processes, (a)'s ``models/latest.ckpt`` on the
-   card and random: 20 games, no forfeit.  Alone: ``python3 -c "import
+   card and random: 10 games, no forfeit.  Alone: ``python3 -c "import
    chip_smoke as cs; cs.phase_remote({})"``.
 10. the batch-assembly plane at full width: (a) the C codec against the
    pure-Python one, byte for byte and decode for decode, on episodes of
@@ -91,7 +91,7 @@ Phases, each of which fails the run when it fails:
    and noise, ties taken first by argmax/argmin and the rule-based twin on
    the card, every rollout tensor on the card; (c) HungryGeese through
    ``--train`` with ``device_rollout_games: 256`` and ``device_eval_games:
-   64`` against rulebase, 2 epochs (1000 + 2000 episodes): updates/s,
+   64`` against rulebase, 2 epochs (250 + 500 episodes): updates/s,
    the pipeline's stages, episodes/s from the device
    and from host workers, ``device_mean_episode_len``, the device-rulebase
    win rate, ``input_wait_frac``; every epoch on the fused plane with its
@@ -104,7 +104,7 @@ Phases, each of which fails the run when it fails:
    ``batch_pipeline: device``), random weights from seed 0, full width:
    (a) HungryGeese ``GeeseNet`` in ff mode, bench.py's north-star loop: 128
    lanes x 32 steps per rollout launch into 512-slot rings, 16 train calls
-   of fused_steps 8 (B128 x T16) per launch, a 10 s window after a prefill:
+   of fused_steps 8 (B128 x T16) per launch, a 3 s window after a prefill:
    updates/s, trained and self-play env-steps/s, the rollout's share of
    the window, launches per ingest and per train call, the rings' bytes,
    peak memory; (b) Geister's DRC in turn mode (64 lanes, B16, burn-in 4 +
@@ -128,7 +128,7 @@ Phases, each of which fails the run when it fails:
 13. the inference serving plane, random weights from seeds: (a) bench.py's
    serving legs on the port (TicTacToe ``SimpleConvNet`` served on the card
    by this process, 8 connections x 8 outstanding, max_batch 64, buckets
-   1-64 warmed): a 10 s closed loop (saturation QPS, the client's p50/p99),
+   1-64 warmed): a 4 s closed loop (saturation QPS, the client's p50/p99),
    a hot swap under load (warm ms, the first reply from the new model,
    dropped), an open loop at 0.25x and 2x saturation against a 25 ms SLO
    (shed rates); gates: nothing dropped, the flip seen, less shed at the
@@ -137,7 +137,7 @@ Phases, each of which fails the run when it fails:
    training slice's transformer at full width from a verified seed-0
    snapshot, 256 sessions resident, 1024 spilled: 8 connections x 64
    sessions (256 games of the model against itself, a session per seat)
-   for 20 s, session steps/s,
+   for 10 s, session steps/s,
    p50/p99, mean batch, restores and evictions (both > 0), a seed-1
    snapshot entered into the manifest mid-run and swapped in by the
    watcher, the hidden state's D2H and H2D ms per batch of 64, one batch
@@ -174,6 +174,37 @@ Phases, each of which fails the run when it fails:
    verified drain checkpoint, a ``restart_epoch: -1`` relaunch resuming
    there), and updates/s with tracing on and off in turns.  Alone:
    ``python3 -c "import chip_smoke as cs; cs.phase_fleet({})"``.
+15. int8, export and the edge, the data flywheel, random weights from
+   seeds: (a) the training slice's transformer as an int8 engine on the
+   card: its codes and scales equal the host quantize bit for bit, its
+   outputs an fp32 engine of the dequantized tree within 1e-5 of scale;
+   param bytes, the dequantize's share of a batch of 64 (CUDA events), a
+   profiled batch, the calibration report; 13(b)'s session load (256
+   resident sessions) and 13(a)'s TicTacToe load on int8 and fp32 servers
+   in turns; ``--serve`` with ``serving.weight_dtype: int8``: no error
+   frame, sessions against a replay of the int8 engine (2e-2 of scale), a
+   swap from disk to an int8 engine, its peak memory at the SIGTERM drain;
+   (b) (i) the transformer (B16 x T512 bf16) on Geister episodes made with
+   ``obs_int8`` true and false from one seed: the int8 windows widened on
+   the card equal the fp32 ones bit for bit, train steps through B1 on
+   each (finite, the first losses within 2e-2, n_layers launches per
+   update), encoded and batch bytes; (ii) config.yaml's learner (2 epochs
+   of 64 + 64) with ``obs_int8`` true and false in turns on ``shm`` and
+   ``device`` (finite losses, updates/s, input wait), the staged rings'
+   bytes; (c) (i) the transformer (step mode, KV-cache hidden) and GeeseNet
+   exported to ``.pt2`` on the card, reloaded in fresh processes on the
+   card and the CPU (batch 1 and 64 within 1e-5 of scale, strict fp32),
+   ``--eval`` of the GeeseNet artifact (20 games); (ii) ``--edge model.pt2``
+   tagged edge beside a ``--serve`` replica behind ``--fleet`` under 13(a)'s
+   load: req/s served by each, no session on the edge, a sid or a swap sent
+   to it refused, its peak memory; (d) ``--serve`` with ``flywheel.enabled``
+   (TicTacToe): one harvested episode against the self-play encoding of its
+   trajectory byte for byte, harvest and judge clients, ``--train`` on
+   harvested traffic only with ``HANDYRL_FAULT_POISON_SNAPSHOT_AT_EPOCH=2``:
+   no malformed episode or error frame, the poisoned snapshot staged and
+   failed or demoted, the learner rolls back, the served epochs survive
+   ``gc_snapshots``.  Alone: ``python3 -c "import chip_smoke as cs;
+   cs.phase_quantize_edge_flywheel({})"``.
 
 Every learner phase (7a, 7b, 8a, 8b, 9a, 9b, 11c, 11d; 12(e)'s shm runs) runs on the port's default
 ``batch_pipeline: shm`` and fails unless every epoch's live pipeline mode
@@ -182,7 +213,7 @@ batcher died or fell back; it prints the pipeline's stage seconds and the
 put's ms per batch.  The script fails if a shared-memory segment or a
 process of the port outlives it.
 
-Phases 4, 5-6, 7b, 9b and 12(c) are the paths through the port's kernels:
+Phases 4, 5-6, 7b, 9b, 12(c) and 15(b)(i) are the paths through the port's kernels:
 each starts with every launch count at 0, and its kernel's count is read
 at its end; phases 8a, 11, 13 and 14 are read the same way and launch
 neither kernel (8b, 9a, 9c, 11c, 12(d)'s CLI, 13(b)'s server and 14's
@@ -223,10 +254,12 @@ DRC_TRAIN_ARGS = {
     "burn_in_steps": 8, "forward_steps": 16, "observation": True,
     "policy_target": "UPGO", "value_target": "UPGO",
 }
+TRANSFORMER_EPISODES = 4  # minimum_episodes and update_episodes of phases 7b and 9b
 DRC_EPISODES = 16        # minimum_episodes and update_episodes of phase 8a
-GEESE_EPISODES = 100     # the same for phase 8b
+GEESE_EPISODES = 50      # the same for phase 8b
 REMOTE_HEARTBEAT = 1.0   # phase 9's heartbeat interval, seconds (the default is 10)
-BATTLE_GAMES = 20        # phase 9c's games
+BATTLE_GAMES = 10        # phase 9c's games
+EVAL_GAMES = 20          # the --eval games of phases 7a and 8b
 # the card against the CPU on the RNN branch's outputs, absolute, times
 # max(1, the outputs' scale): cuDNN's TF32 convolutions round their inputs
 # to 10 bits of mantissa; in strict fp32 the two devices' conv algorithms
@@ -867,24 +900,24 @@ def check_shm(tag, records, learner_out=None):
 
 def phase_learner_cli(results):
     """7a: the default config.yaml (TicTacToe, SimpleConvNet), epochs cut to
-    3, through ``python -m handyrl_tpu_torch.main --train`` and then
-    ``--eval models/latest.ckpt 100 4``, on the card."""
+    2, through ``python -m handyrl_tpu_torch.main --train`` and then
+    ``--eval models/latest.ckpt EVAL_GAMES 4``, on the card."""
     with tempfile.TemporaryDirectory() as tmp:
-        text, n = re.subn(r"(?m)^(\s+epochs:\s*)-?\d+", r"\g<1>3", (ROOT / "config.yaml").read_text())
+        text, n = re.subn(r"(?m)^(\s+epochs:\s*)-?\d+", r"\g<1>2", (ROOT / "config.yaml").read_text())
         check(n == 1, "config.yaml has no single train_args.epochs line")
         Path(tmp, "config.yaml").write_text(text)
         train_out, train_s = run_cli(tmp, "--train")
-        check_snapshots(os.path.join(tmp, "models"), [1, 2, 3])
+        check_snapshots(os.path.join(tmp, "models"), [1, 2])
         records = read_records(os.path.join(tmp, "metrics.jsonl"))
-        check(len(records) == 3 and records[-1]["steps"] > 0,
-              f"metrics.jsonl: {len(records)} records, expected 3 with steps > 0 on the last")
+        check(len(records) == 2 and records[-1]["steps"] > 0,
+              f"metrics.jsonl: {len(records)} records, expected 2 with steps > 0 on the last")
         print_epochs("cli", records)
         check_shm("cli", records, train_out)
-        out, eval_s = run_cli(tmp, "--eval", "models/latest.ckpt", "100", "4")
+        out, eval_s = run_cli(tmp, "--eval", "models/latest.ckpt", str(EVAL_GAMES), "4")
         total = [line for line in out.splitlines() if line.startswith("total =")]
         check(len(total) == 1, "--eval printed no 'total =' line")
-        print(f"[cli] --train 3 epochs in {train_s:.1f} s; --eval models/latest.ckpt 100 4 in "
-              f"{eval_s:.1f} s: {total[0]} (win points vs random); final epoch's win rate "
+        print(f"[cli] --train 2 epochs in {train_s:.1f} s; --eval models/latest.ckpt "
+              f"{EVAL_GAMES} 4 in {eval_s:.1f} s: {total[0]} (win points vs random); final epoch's win rate "
               f"{(records[-1].get('win_rate') or {}).get('total')}")
 
 
@@ -902,7 +935,8 @@ def phase_learner(results):
     with tempfile.TemporaryDirectory() as tmp:
         cfg = normalize_args({
             "env_args": {"env": "Geister", "net": "transformer", "net_args": NET_ARGS},
-            "train_args": dict(TRAIN_ARGS, minimum_episodes=8, update_episodes=8, epochs=2,
+            "train_args": dict(TRAIN_ARGS, minimum_episodes=TRANSFORMER_EPISODES,
+                               update_episodes=TRANSFORMER_EPISODES, epochs=2,
                                worker={"num_parallel": 8}, seed=SEED,
                                model_dir=os.path.join(tmp, "models"),
                                metrics_path=os.path.join(tmp, "metrics.jsonl")),
@@ -1164,7 +1198,7 @@ def phase_geese_cli(results):
     """8b: HungryGeese (GeeseNet, 4 players moving at once) through
     ``python -m handyrl_tpu_torch.main --train`` with the rule-based geese
     as the evaluation opponent, then ``--eval models/latest.ckpt:rulebase
-    100 4``, on the card."""
+    EVAL_GAMES 4``, on the card."""
     import yaml
 
     config = {
@@ -1184,12 +1218,12 @@ def phase_geese_cli(results):
               "non-finite epoch loss")
         print_epochs("geese", records, "rulebase")
         check_shm("geese", records, train_out)
-        out, eval_s = run_cli(tmp, "--eval", "models/latest.ckpt:rulebase", "100", "4")
+        out, eval_s = run_cli(tmp, "--eval", "models/latest.ckpt:rulebase", str(EVAL_GAMES), "4")
         total = [line for line in out.splitlines() if line.startswith("total =")]
         check(len(total) == 1, "--eval printed no 'total =' line")
         print(f"[geese] --train 2 epochs ({GEESE_EPISODES} + 2 x {GEESE_EPISODES} episodes, B128 "
-              f"T16, 6 actors) in {train_s:.1f} s; --eval models/latest.ckpt:rulebase 100 4 in "
-              f"{eval_s:.1f} s: {total[0]} (win points of seat 0 vs 3 rule-based geese)")
+              f"T16, 6 actors) in {train_s:.1f} s; --eval models/latest.ckpt:rulebase "
+              f"{EVAL_GAMES} 4 in {eval_s:.1f} s: {total[0]} (win points of seat 0 vs 3 rule-based geese)")
 
 
 def free_port():
@@ -1328,7 +1362,8 @@ def phase_remote_learner(results):
     with tempfile.TemporaryDirectory() as tmp:
         cfg = normalize_args({
             "env_args": {"env": "Geister", "net": "transformer", "net_args": NET_ARGS},
-            "train_args": dict(TRAIN_ARGS, minimum_episodes=8, update_episodes=8, epochs=2,
+            "train_args": dict(TRAIN_ARGS, minimum_episodes=TRANSFORMER_EPISODES,
+                               update_episodes=TRANSFORMER_EPISODES, epochs=2,
                                worker={"num_parallel": 8, "entry_port": 0, "data_port": 0,
                                        "heartbeat_interval": REMOTE_HEARTBEAT},
                                seed=SEED, model_dir=os.path.join(tmp, "models"),
@@ -1458,8 +1493,8 @@ ASSEMBLY_ENVS = {
 CODEC_EPISODES = 64      # Geister episodes 10(a) encodes and decodes, and 10(b) samples
 PUT_REPEATS = 20         # copies of one slot timed in 10(b), the median kept
 KILL_EPISODES = 100      # minimum_episodes and update_episodes of 10(d)
-# update_episodes of 10(c)'s runs (8a warms up on its 16; 7a on as many)
-TURN_EPISODES = {"8a": 32, "7a": 100}
+# minimum_episodes and update_episodes of 10(c)'s 8a and 7a runs
+TURN_EPISODES = {"8a": (8, 8), "7a": (32, 32)}
 
 
 def random_episodes(env_args, gen_args, n, seed):
@@ -1668,11 +1703,12 @@ def put_lines(args, windows, tag, ff):
         shm.unlink()
 
 
-def turn_run(config, pipeline, tmp, epochs=2):
+def turn_run(config, pipeline, tmp, epochs=2, episodes=TURN_EPISODES):
     """One learner in-process under ``pipeline``: 8a's DRC, 8b's HungryGeese
-    or 7a's config.yaml.  Returns its last epoch's record (of 2, 10(c): the
-    first holds the trainer's warm-up, its first batch and the first step's
-    one-off costs), its pipeline's stats and its seconds."""
+    or 7a's config.yaml, with ``episodes[config]`` minimum and update
+    episodes.  Returns its last epoch's record (of 2, 10(c): the first holds
+    the trainer's warm-up, its first batch and the first step's one-off
+    costs), its pipeline's stats and its seconds."""
     import torch
     import yaml
 
@@ -1685,16 +1721,16 @@ def turn_run(config, pipeline, tmp, epochs=2):
                  metrics_path=os.path.join(run_dir, "metrics.jsonl"))
     if config == "8a":
         cfg = normalize_args({"env_args": {"env": "Geister"}, "train_args": dict(
-            DRC_TRAIN_ARGS, minimum_episodes=DRC_EPISODES, update_episodes=TURN_EPISODES["8a"],
+            DRC_TRAIN_ARGS, minimum_episodes=episodes["8a"][0], update_episodes=episodes["8a"][1],
             worker={"num_parallel": 8}, **paths)})
     elif config == "8b":
         cfg = normalize_args({"env_args": {"env": "HungryGeese"}, "train_args": dict(
-            turn_based_training=False, observation=False, minimum_episodes=GEESE_EPISODES,
-            update_episodes=GEESE_EPISODES, eval={"opponent": ["rulebase"]}, **paths)})
+            turn_based_training=False, observation=False, minimum_episodes=episodes["8b"][0],
+            update_episodes=episodes["8b"][1], eval={"opponent": ["rulebase"]}, **paths)})
     else:  # 7a: config.yaml
         raw = yaml.safe_load((ROOT / "config.yaml").read_text())
-        raw["train_args"].update(minimum_episodes=TURN_EPISODES["7a"],
-                                 update_episodes=TURN_EPISODES["7a"], **paths)
+        raw["train_args"].update(minimum_episodes=episodes["7a"][0],
+                                 update_episodes=episodes["7a"][1], **paths)
         cfg = normalize_args(raw)
     gc.collect()
     t0 = time.perf_counter()
@@ -1845,12 +1881,12 @@ SELFPLAY = (
     ("TicTacToe", {}, 2048),
     ("ParallelTicTacToe", {"turn_based_training": False, "observation": False}, 256),
 )
-SELFPLAY_WINDOW = 3.0    # seconds of each rollout's timed window in 11(a)
+SELFPLAY_WINDOW = 2.0    # seconds of each rollout's timed window in 11(a)
 REPLAY_EPISODES = 64     # episodes per env replayed through the host env in 11(b)
 # 11(c): 8b's HungryGeese configuration with device self-play and evaluation
 DEVICE_GEESE = {
     "turn_based_training": False, "observation": False, "epochs": 2,
-    "minimum_episodes": 1000, "update_episodes": 2000,
+    "minimum_episodes": 250, "update_episodes": 500,
     "device_rollout_games": 256, "device_eval_games": 64,
     "eval": {"opponent": ["rulebase"]}, "seed": SEED,
 }
@@ -2334,7 +2370,7 @@ DATA_LOOPS = {
         "policy_target": "UPGO", "value_target": "UPGO", "fused_steps": 4, "seed": SEED},
         64, 32, 512, 2),
 }
-DATA_WINDOW = 10.0       # seconds of (a)'s and (b)'s timed windows
+DATA_WINDOW = 3.0        # seconds of (a)'s and (b)'s timed windows
 DATA_LR = 1e-5           # bench.py's lr for these loops
 # (c) the transformer of phases 5-7 in turn mode from rings: lanes, slots,
 # and the finished episodes the rings hold before the train calls
@@ -2343,6 +2379,8 @@ DATA_TRANSFORMER = (32, 1024, 16)
 DATA_GEESE_CLI = dict(DEVICE_GEESE, device_replay=True, device_rollout_games=128)
 # (e): 8b's and 8a's learners, one epoch each, device and shm in turns
 DATA_TURNS = ("device", "shm", "shm", "device")
+# (e)'s minimum_episodes and update_episodes: a one-epoch run trains on them
+DATA_TURN_EPISODES = {"8b": (100, 100), "8a": (16, 32)}
 
 
 def ring_bytes(replay):
@@ -2674,8 +2712,8 @@ def data_pipeline_turns():
         for config in ("8b", "8a"):
             runs = []
             for pipeline in DATA_TURNS:
-                # one epoch each, of 10(c)'s episode counts
-                r, stats, run_s = turn_run(config, pipeline, tmp, epochs=1)
+                r, stats, run_s = turn_run(config, pipeline, tmp, epochs=1,
+                                           episodes=DATA_TURN_EPISODES)
                 if pipeline == "shm":
                     check_shm(f"12(e) {config}", [r])
                 else:
@@ -2727,11 +2765,11 @@ def phase_device_data(results):
 SERVE_CLIENTS = 8        # 13(a): closed-loop connections (bench.py's SERVING_CLIENTS)
 SERVE_WINDOW = 8         # outstanding requests per connection
 SERVE_SLO_MS = 25.0      # the open-loop legs' SLO
-SERVE_LOOP_S = 10.0      # the closed-loop window; each open-loop leg takes half of it
+SERVE_LOOP_S = 4.0       # the closed-loop window; each open-loop leg takes half of it
 SERVE_BUCKETS = [1, 2, 4, 8, 16, 32, 64]
 SESSION_CONNS = 8        # 13(b): connections, each playing SESSION_GAMES games at once,
 SESSION_GAMES = 32       # both seats of a game served, each by a session of its own
-SESSION_RUN_S = 20.0
+SESSION_RUN_S = 10.0
 SESSION_SERVING = {
     "port": 0, "max_batch": 64, "warm_buckets": SERVE_BUCKETS, "shed_policy": "none",
     "session_capacity": 256, "session_spill": 1024, "watch_interval": 1, "stats_interval": 0,
@@ -3349,15 +3387,16 @@ def phase_serving(results):
 
 
 
-FLEET_TURN_S = 4.0         # 14(a): each closed-loop turn, through the fleet or direct
+FLEET_TURN_S = 3.0         # 14(a): each closed-loop turn, through the fleet or direct
 FLEET_SESSION_GAMES = 16   # 14(b): SESSION_CONNS x 16 games x 2 seats = 256 sessions
 FLEET_FAULT_REPLIES = 1500 # 14(b): the victim SIGTERMs itself after this many replies
-FLEET_AFTER_S = 6.0        # 14(b): the load's seconds after the victim's exit
+FLEET_AFTER_S = 4.0        # 14(b): the load's seconds after the victim's exit
 FLEET_DRAIN_S = 30         # 14(b): the replicas' drain_deadline_seconds
 AUTOSCALE_OFFERED = 1.5    # 14(c): the open loop, in multiples of one replica's saturation
-LEARNER_EPISODES = 64      # 14(d): minimum_episodes and update_episodes of config.yaml's learner
+LEARNER_EPISODES = 32      # 14(d): minimum_episodes and update_episodes of config.yaml's learner
 SIGTERM_STEP = 20          # 14(d): HANDYRL_FAULT_SIGTERM_AT_STEP
-TRACE_TURNS = 3            # 14(d): learner runs with tracing on, and as many off
+TRACE_TURNS = 2            # 14(d): turns of a run with tracing on and one off, the order
+                           # alternating (on, off, off, on)
 
 
 def closed_loop_load(port, obs, conns, window, dur, stop=None, slo_ms=None):
@@ -3878,15 +3917,16 @@ def fleet_learner_faults(tmp):
 
     rates = {True: [], False: []}
     for turn in range(TRACE_TURNS):
-        for on in (True, False):
+        for on in ((True, False) if turn % 2 == 0 else (False, True)):
             run_dir = os.path.join(tmp, f"trace_{turn}_{int(on)}")
             cfg = config(run_dir, epochs=2, model_dir=os.path.join(run_dir, "models"),
                          metrics_path=os.path.join(run_dir, "metrics.jsonl"),
                          trace={"enabled": on, "path": os.path.join(run_dir, "trace.jsonl")})
             Learner(normalize_args(cfg)).run()
             rates[on].append(read_records(cfg["train_args"]["metrics_path"])[-1]["updates_per_sec"])
-    print(f"[fleet] 14(d) updates/s of the second epoch, {TRACE_TURNS} turns each, in turns: "
-          f"tracing on {', '.join(f'{r:.2f}' for r in rates[True])}; off "
+    order = ", ".join("on, off" if turn % 2 == 0 else "off, on" for turn in range(TRACE_TURNS))
+    print(f"[fleet] 14(d) updates/s of the second epoch, {TRACE_TURNS} turns each, in the order "
+          f"{order}: tracing on {', '.join(f'{r:.2f}' for r in rates[True])}; off "
           f"{', '.join(f'{r:.2f}' for r in rates[False])}")
 
 
@@ -3903,6 +3943,1064 @@ def phase_fleet(results):
     parts = ", ".join(f"{tag} {t1 - t:.1f} s"
                       for tag, t, t1 in zip(("(a)", "(b)", "(c)", "(d)"), times, times[1:]))
     print(f"[fleet] phase 14 in {times[-1] - times[0]:.1f} s: {parts}")
+
+
+INT8_SESSION_GAMES = 16   # 15(a): SESSION_CONNS x 16 games x 2 seats = 256 sessions, all resident
+INT8_TURN_S = 1.5         # 15(a): each turn of the session load and of 13(a)'s load
+INT8_SERVE_S = 4.0        # 15(a): the int8 --serve child's session load
+INT8_SERVING = dict(SESSION_SERVING, session_capacity=512, weight_dtype="int8", watch_interval=0)
+CALIB_BATCHES = 4         # 15(a): calibration batches of 64 replay observations
+OBS8_EPISODES = 6         # 15(b)(i): Geister episodes of uniform play per plane
+OBS8_STEPS = 3            # 15(b)(i): train steps on each plane
+OBS8_EPISODES_7A = 64     # 15(b)(ii): minimum_episodes and update_episodes of config.yaml's learner
+EXPORT_BATCHES = (1, 64)  # 15(c)(i): the batch sizes a reloaded artifact is checked at
+EXPORT_TOLERANCE = 1e-5   # 15(c)(i): of the outputs' scale, strict fp32 on both devices
+EDGE_TURN_S = 4.0         # 15(c)(ii): 13(a)'s load through the fleet over --serve and --edge
+FLY_EPISODES = (64, 160)  # 15(d): minimum_episodes, update_episodes of the flywheel learner
+# 15(d): a rollback signal read at boundary N is taken after N + 1, recorded at N + 2
+FLY_EPOCHS = 6
+FLY_POISON = 2            # 15(d): HANDYRL_FAULT_POISON_SNAPSHOT_AT_EPOCH
+FLY_HARVESTERS = 3        # 15(d): client threads playing harvest games
+FLY_JUDGES = 3            # 15(d): client threads playing judged games
+CARD = "cuda"             # the device type phase 15 holds its tensors and processes to
+
+
+_SEEDED = {}
+
+
+def seeded_net(env_args, seed):
+    """A copy of the env's net initialised from ``seed`` on the CPU; each
+    (env, seed) is initialised once per phase (a full-width transformer
+    takes seconds)."""
+    import copy
+
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models import init_variables
+
+    key = (json.dumps(env_args, sort_keys=True), seed)
+    if key not in _SEEDED:
+        _SEEDED[key] = init_variables(make_env(env_args).net(), seed)
+    return copy.deepcopy(_SEEDED[key])
+
+
+def worst_rel(got, want):
+    """``tree_max_rel_err`` of two trees whose leaves agree in shape and are
+    finite."""
+    import numpy as np
+
+    from handyrl_tpu_torch.utils import to_numpy, tree_leaves, tree_max_rel_err
+
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = to_numpy(g), to_numpy(w)
+        check(g.shape == w.shape and np.isfinite(g).all(), f"bad leaf {g.shape} vs {w.shape}")
+    return tree_max_rel_err(got, want)
+
+
+def int8_engines():
+    """15(a), in this process: the full-width transformer's int8 engine on
+    the card against the host quantize (codes bit for bit) and against an
+    fp32 engine of the dequantized tree; param bytes, the dequantize's share
+    of a batch of 64, a profiled batch, the calibration report."""
+    import numpy as np
+    import torch
+
+    from handyrl_tpu_torch.models import build_inference_model, fetch_outputs
+    from handyrl_tpu_torch.models import quantize as q
+    from handyrl_tpu_torch.utils import tree_stack
+
+    env_args = {"env": "Geister", "net": "transformer", "net_args": NET_ARGS}
+    module = seeded_net(env_args, SEED)
+    params = module.state_dict()
+    host = q.quantize_params(params)
+    t0 = time.perf_counter()
+    engine = build_inference_model(module, params, "int8")      # on the card
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    resident = engine.module.state_dict()
+    check(sorted(resident) == sorted(host)
+          and all(t.device.type == CARD for t in resident.values()),
+          "15(a): the int8 engine's state is not the quantized tree on the card")
+    differ = [k for k, v in host.items() if resident[k].cpu().numpy().dtype != v.dtype
+              or not np.array_equal(resident[k].cpu().numpy(), v)]
+    check(not differ, f"15(a): codes on the card differ from the host quantize: {differ[:4]}")
+    fp32 = build_inference_model(module, q.dequantize_params(host))
+    b8, b32 = q.param_bytes(engine.module), q.param_bytes(fp32.module)
+    n = SESSION_SERVING["max_batch"]
+    obs = tree_stack([seq[0] for seq in geister_games(n, 1, SEED)])
+    with torch.inference_mode():
+        o8 = fetch_outputs(engine.inference_batch_async(obs, engine.init_hidden((n,))))
+        of = fetch_outputs(fp32.inference_batch_async(obs, fp32.init_hidden((n,))))
+    err = worst_rel(o8, of)
+    print(f"[int8] 15(a) transformer d{NET_ARGS['d_model']} L{NET_ARGS['n_layers']}: int8 engine "
+          f"built on the card in {build_s:.2f} s; {len(q.quantized_names(host))} kernels' codes "
+          f"and scales on the card equal the host quantize bit for bit; param_bytes fp32 "
+          f"{b32 / 1e9:.4f} GB, int8 {b8 / 1e9:.4f} GB ({b8 / b32:.4f}x); outputs and next "
+          f"hidden at batch {n} against an fp32 engine of the dequantized tree: max_abs_err "
+          f"{err:.3e} of scale (tolerance 1e-5)")
+    check(err <= 1e-5, "15(a): the int8 engine disagrees with the fp32 engine of its weights")
+    check(b8 < 0.3 * b32, "15(a): the int8 engine's params are not about a quarter of fp32's")
+    layers = [m for m in engine.module.modules() if isinstance(m, (q.QuantLinear, q.QuantConv2d))]
+
+    def dequantize_all():
+        for m in layers:
+            m.weight
+
+    with torch.inference_mode():
+        deq_ms = cuda_ms(dequantize_all)
+        batch8 = cuda_ms(lambda: engine.inference_batch_async(obs, engine.init_hidden((n,))))
+        batch32 = cuda_ms(lambda: fp32.inference_batch_async(obs, fp32.init_hidden((n,))))
+        print(f"[int8] 15(a) one batch of {n} (forward, CUDA events, 20 calls): int8 "
+              f"{batch8:.3f} ms, fp32 {batch32:.3f} ms; every kernel dequantized once "
+              f"({len(layers)} layers) {deq_ms:.3f} ms = {deq_ms / batch8:.1%} of the int8 batch")
+        profile_call(f"one int8 batch of {n} sessions (forward)",
+                     lambda: engine.inference_batch_async(obs, engine.init_hidden((n,))))
+    t0 = time.perf_counter()
+    batches = [tree_stack(list(step)) for step in zip(*geister_games(n, CALIB_BATCHES, SEED + 5))]
+    report = q.calibration_report(module, params, batches)
+    print(f"[int8] 15(a) calibration_report over {len(batches)} batches of {n} replay "
+          f"observations (random Geister play): calib_max_dev {report['calib_max_dev']}, "
+          f"calib_mean_dev {report['calib_mean_dev']} ({time.perf_counter() - t0:.1f} s)")
+    check(math.isfinite(report["calib_max_dev"]), "15(a): a non-finite calibration")
+    del engine, fp32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return module, params
+
+
+def session_turns(module, params):
+    """15(a): 13(b)'s session load on an int8 and an fp32 server in this
+    process, in turns, INT8_TURN_S each: session steps/s."""
+    import torch
+
+    from handyrl_tpu_torch.serving import ModelRouter, ServingServer
+
+    obs = geister_games(1, 1, SEED)[0][0]
+    servers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in ("int8", "float32"):
+            cfg = dict(INT8_SERVING, weight_dtype=dtype, warm_buckets=[1, 64])
+            router = ModelRouter(module, obs, cfg, model_dir=tmp)
+            router.publish(1, params)
+            servers[dtype] = ServingServer(router, cfg).run()
+        rates = {"int8": [], "float32": []}
+        try:
+            for dtype in ("int8", "float32", "float32", "int8"):
+                players = [SessionPlayer(servers[dtype].bound_port, INT8_SESSION_GAMES, SEED + i)
+                           for i in range(SESSION_CONNS)]
+                t0 = time.perf_counter()
+                threads = [threading.Thread(target=p.run, args=(t0 + INT8_TURN_S,), daemon=True)
+                           for p in players]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(INT8_TURN_S + 300)
+                check(not any(t.is_alive() for t in threads), "15(a): a session player hung")
+                errors = sum(p.errors for p in players)
+                check(errors == 0, f"15(a): {errors} error replies on the {dtype} server")
+                rates[dtype].append(sum(p.steps for p in players) / (time.perf_counter() - t0))
+        finally:
+            for server in servers.values():
+                server.shutdown()
+    print(f"[int8] 15(a) {SESSION_CONNS} connections x {2 * INT8_SESSION_GAMES} sessions "
+          f"(all resident), {INT8_TURN_S:.1f} s turns int8/fp32/fp32/int8: session steps/s int8 "
+          + " / ".join(f"{r:.1f}" for r in rates["int8"]) + ", fp32 "
+          + " / ".join(f"{r:.1f}" for r in rates["float32"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tictactoe_turns():
+    """15(a): 13(a)'s closed loop on an int8 and an fp32 TicTacToe server in
+    this process, in turns: req/s, p50/p99."""
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models import init_variables
+    from handyrl_tpu_torch.serving import ModelRouter, ServingServer
+
+    env = make_env({"env": "TicTacToe"})
+    env.reset()
+    obs = env.observation(0)
+    module = init_variables(env.net(), SEED)
+    servers, turns = {}, {"int8": [], "float32": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in ("int8", "float32"):
+            cfg = {"port": 0, "slo_ms": 1000.0, "shed_policy": "none", "max_batch": 64,
+                   "max_wait_ms": 1.0, "warm_buckets": SERVE_BUCKETS, "queue_bound": 8192,
+                   "weight_dtype": dtype}
+            router = ModelRouter(module, obs, cfg, model_dir=tmp)
+            router.publish(1, module.state_dict())
+            servers[dtype] = ServingServer(router, cfg).run()
+        try:
+            for dtype in ("int8", "float32", "float32", "int8"):
+                turn = closed_loop_load(servers[dtype].bound_port, obs, SERVE_CLIENTS,
+                                        SERVE_WINDOW, INT8_TURN_S)
+                check(turn["err"] == 0, f"15(a): error replies on the {dtype} TicTacToe server")
+                turns[dtype].append(turn)
+        finally:
+            for server in servers.values():
+                server.shutdown()
+    line = "; ".join(f"{d} " + " / ".join(f"{t['qps']:.1f} req/s (p50 {t['p50']:.2f}, p99 "
+                                          f"{t['p99']:.2f} ms)" for t in ts)
+                     for d, ts in turns.items())
+    print(f"[int8] 15(a) 13(a)'s TicTacToe load ({SERVE_CLIENTS} x {SERVE_WINDOW}, "
+          f"{INT8_TURN_S:.1f} s turns int8/fp32/fp32/int8): {line}")
+
+
+def int8_serve_child(tmp, kids, module, params):
+    """15(a): ``--serve`` with ``serving.weight_dtype: int8``, 256 resident
+    sessions, a replay of the int8 engine on the card, a swap from disk
+    (an int8 engine again), the SIGTERM drain with its peak memory."""
+    import signal
+
+    import torch
+
+    from handyrl_tpu_torch.models import build_inference_model
+    from handyrl_tpu_torch.serving import ServingClient
+
+    proc = kids.procs["serve8"][0]
+    port = int(wait_for_line(kids, "serve8", r"serving: listening on port (\d+)", 600).group(1))
+    check("(model 1," in kids.output("serve8") and f"device {CARD}" in kids.output("serve8"),
+          "15(a): the int8 server did not publish snapshot 1 on the card")
+    draining = threading.Event()
+    client = ServingClient("127.0.0.1", port, on_notice=lambda *_: draining.set())
+    replay = build_inference_model(module, params, "int8")
+    sids = session_replay_check("15(a) int8 --serve", client, replay, 1,
+                                tolerance(torch.bfloat16), SEED)
+    del replay
+    before = client.stats()
+    players = [SessionPlayer(port, INT8_SESSION_GAMES, SEED + i) for i in range(SESSION_CONNS)]
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=p.run, args=(t0 + INT8_SERVE_S,), daemon=True)
+               for p in players]
+    for t in threads:
+        t.start()
+    time.sleep(INT8_SERVE_S / 2)
+    mid = client.stats()   # the sessions resident under the load
+    for t in threads:
+        t.join(INT8_SERVE_S + 300)
+    check(not any(t.is_alive() for t in threads), "15(a): a session player did not end")
+    window = time.perf_counter() - t0
+    after = client.stats()
+    errors = sum(p.errors for p in players)
+    print(f"[int8] 15(a) --serve int8: {SESSION_CONNS} connections x {2 * INT8_SESSION_GAMES} "
+          f"sessions for {window:.1f} s: {sum(p.steps for p in players) / window:.1f} session "
+          f"steps/s, resident at mid-load {mid['session_resident']}, evictions "
+          f"{after['session_evictions'] - before['session_evictions']}, errors {errors} (server "
+          f"{after['serve_errors']}), lowprec_weight_dtype {after.get('lowprec_weight_dtype')}")
+    check(errors == 0 and after["serve_errors"] == 0, "15(a): error frames on the int8 server")
+    check(after.get("lowprec_weight_dtype") == "int8", "15(a): the server's engines are not int8")
+    # a swap from disk: 2.ckpt, loaded and built by the server as an int8 engine
+    params2 = seeded_net({"env": "Geister", "net": "transformer", "net_args": NET_ARGS},
+                         SEED + 1).state_dict()
+    t0 = time.perf_counter()
+    swapped = client.swap(2, timeout=600)
+    swap_s = time.perf_counter() - t0
+    replay = build_inference_model(module, params2, "int8")
+    session_replay_check("15(a) int8 after the swap from disk", client, replay, 2,
+                         tolerance(torch.bfloat16), SEED + 3)
+    del replay, params2
+    stats = client.stats()
+    check(stats["serve_hot_swaps"] >= 1 and stats.get("lowprec_weight_dtype") == "int8",
+          "15(a): the swap from disk did not build an int8 engine")
+    print(f"[int8] 15(a) swap from disk to epoch 2: {swap_s * 1e3:.1f} ms (warm "
+          f"{swapped['warm_ms']:.1f} ms), replies from the int8 engine of 2.ckpt")
+    proc.send_signal(signal.SIGTERM)
+    check(draining.wait(30), "15(a): no draining notice after SIGTERM")
+    client.export_sessions(timeout=120)
+    code = proc.wait(timeout=DRAIN_DEADLINE_S + 60)
+    client.close()
+    log = kids.output("serve8")
+    peak = re.search(r"serving: peak device memory .*", log)
+    check(code == 75, f"15(a): the int8 server exited {code}")
+    print(f"[int8] 15(a) --serve int8 {peak.group(0) if peak else 'no peak memory line'}; "
+          f"{len(sids)} replayed sessions exported, exit {code}")
+
+
+def int8_weights(tmp):
+    """15(a): int8 weights on the serving path at full width."""
+    import zlib
+
+    import torch
+
+    from handyrl_tpu_torch.runtime import checkpoint as ckpt
+
+    env_args = {"env": "Geister", "net": "transformer", "net_args": NET_ARGS}
+    serve_dir = os.path.join(tmp, "serve8")
+    model_dir = os.path.join(serve_dir, "models")
+    write_config(serve_dir, {"env_args": env_args, "train_args": {
+        "model_dir": "models", "drain_deadline_seconds": DRAIN_DEADLINE_S,
+        "serving": INT8_SERVING}})
+    module = seeded_net(env_args, SEED)
+    ckpt.save_epoch_snapshot(model_dir, 1, module.state_dict(), {"steps": 0}, 0)
+    # seed 1 as 2.ckpt, entered into the manifest once the server is up: the
+    # swap frame then loads it from disk, digest-verified
+    blob = ckpt.to_bytes(seeded_net(env_args, SEED + 1).state_dict())
+    ckpt.atomic_write_bytes(ckpt.model_path(model_dir, 2), blob)
+    digest = (zlib.crc32(blob), len(blob))
+    del blob, module
+    with Children(tmp) as kids, CardMemory() as memory:
+        kids.start("serve8", "--serve", cwd=serve_dir)
+        module, params = int8_engines()
+        wait_for_line(kids, "serve8", r"serving: listening on port (\d+)", 600)
+        ckpt.record_snapshot(model_dir, 2, 0, {"2.ckpt": digest})
+        session_turns(module, params)
+        tictactoe_turns()
+        int8_serve_child(tmp, kids, module, params)
+    print(f"[int8] 15(a) card memory used (nvidia-smi), peak over the leg: "
+          f"{memory.peak_mib:.0f} MiB, this process's share included")
+    del module, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def obs8_episodes(env_args, args, n, seed):
+    """``n`` episodes of uniform play under ``args`` (its obs_int8 and
+    compress_steps), seeded: the same trajectories for either obs_int8."""
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models import InferenceModel, RandomModel
+    from handyrl_tpu_torch.runtime import Generator
+
+    env = make_env(env_args)
+    env.reset()
+    # a zero-logit model shaped like the net's outputs (a narrow probe of
+    # the same env: the width does not change the outputs' shapes)
+    probe = make_env(dict(env_args, net_args={"d_model": 16, "n_heads": 2, "n_layers": 1,
+                                              "memory_len": 4})
+                     if env_args.get("net") == "transformer" else env_args)
+    model = RandomModel.from_model(InferenceModel(probe.net(), device="cpu"),
+                                   env.observation(env.players()[0]))
+    gen = Generator(env, args)
+    random.seed(seed)
+    episodes = []
+    while len(episodes) < n:
+        ep = gen.generate({p: model for p in env.players()},
+                          {"player": env.players(), "model_id": {p: 1 for p in env.players()}})
+        if ep is not None:
+            episodes.append(ep)
+    return episodes
+
+
+def obs8_transformer(results):
+    """15(b)(i): the training slice's transformer (B16 x T512, bf16) on
+    Geister episodes made with obs_int8 true and false from the same seed:
+    the int8 windows dequantized on the card equal the fp32 windows bit for
+    bit; OBS8_STEPS train steps through B1 on each plane, finite losses,
+    the first ones within 2e-2, B1 launched n_layers times per update."""
+    import copy
+
+    import torch
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models.quantize import dequantize_obs_tree, obs_quant_spec
+    from handyrl_tpu_torch.ops.flash_attention import MASKED_FLASH
+    from handyrl_tpu_torch.parallel import TrainContext
+    from handyrl_tpu_torch.runtime import codec
+    from handyrl_tpu_torch.runtime.batch import make_batch
+    from handyrl_tpu_torch.runtime.replay import EpisodeStore
+    from handyrl_tpu_torch.utils import tree_leaves
+
+    env_args = {"env": "Geister", "net": "transformer", "net_args": NET_ARGS}
+    cfg = normalize_args({"env_args": env_args, "train_args": dict(TRAIN_ARGS, obs_int8=True)})
+    args_q = dict(cfg["train_args"], env=env_args)
+    args_f = dict(args_q, obs_int8=False)
+    env = make_env(env_args)
+    env.reset()
+    args_q["_obs_quant"] = obs_quant_spec(env)
+    planes = {"int8": args_q, "fp32": args_f}
+    episodes = {k: obs8_episodes(env_args, a, OBS8_EPISODES, SEED) for k, a in planes.items()}
+    enc = {k: sum(len(codec.dumps(ep)) for ep in eps) / len(eps) for k, eps in episodes.items()}
+    module = seeded_net(env_args, SEED)
+    ctxs = {"int8": TrainContext(module, args_q), "fp32": TrainContext(copy.deepcopy(module),
+                                                                         args_f)}
+    stores = {}
+    for k, eps in episodes.items():
+        stores[k] = EpisodeStore(64)
+        stores[k].extend(eps)
+    a = args_q
+
+    def batch(k, seed):
+        random.seed(seed)
+        windows = [stores[k].sample_window(a["forward_steps"], a["burn_in_steps"],
+                                           a["compress_steps"]) for _ in range(a["batch_size"])]
+        random.seed(seed)
+        return make_batch(windows, planes[k])
+
+    host = {k: batch(k, 0) for k in planes}
+    slot = {k: sum(x.nbytes for x in tree_leaves(b)) for k, b in host.items()}
+    obs_bytes = {k: sum(x.nbytes for x in tree_leaves(b["observation"])) for k, b in host.items()}
+    on_card = {k: ctxs[k].put_batch(b) for k, b in host.items()}
+    check(all(x.dtype == torch.int8 for x in tree_leaves(on_card["int8"]["observation"])),
+          "15(b)(i): the int8 batch did not reach the card as int8")
+    widened = dequantize_obs_tree(on_card["int8"]["observation"], args_q["_obs_quant"])
+    same = all(torch.equal(g, w) for g, w in zip(tree_leaves(widened),
+                                                   tree_leaves(on_card["fp32"]["observation"])))
+    check(same, "15(b)(i): the int8 windows dequantized on the card differ from the fp32 ones")
+    losses = {k: [] for k in planes}
+    launches = {}
+    for k in planes:    # both planes are the path: the count runs on across them
+        before = MASKED_FLASH.launches
+        for step in range(OBS8_STEPS):
+            m = ctxs[k].train_step(batch(k, step), 1e-5)
+            losses[k].append(m["total"] / max(m["dcnt"], 1))
+        torch.cuda.synchronize()
+        launches[k] = MASKED_FLASH.launches - before
+    per_step = launches_per_step(args_q)
+    results.setdefault("masked_flash_attention", {"launches": 0})["launches"] += sum(
+        launches.values())
+    first = {k: v[0] for k, v in losses.items()}
+    diff = abs(first["int8"] - first["fp32"])
+    print(f"[obs8] 15(b)(i) transformer B{a['batch_size']} x T{a['forward_steps']} bf16 on "
+          f"{OBS8_EPISODES} Geister episodes per plane (same seed): int8 windows dequantized on "
+          f"the card equal the fp32 windows bit for bit; losses per sample int8 "
+          f"{[round(x, 5) for x in losses['int8']]}, fp32 {[round(x, 5) for x in losses['fp32']]} "
+          f"(first step |diff| {diff:.2e}, tolerance 2e-2 of scale); B1 launched "
+          f"{launches['int8']} / {launches['fp32']} times in {OBS8_STEPS} updates ({per_step} per "
+          f"update); encoded bytes per episode int8 {enc['int8']:.0f}, fp32 {enc['fp32']:.0f}; "
+          f"a batch (a slot) int8 {slot['int8'] / 1e6:.2f} MB (observation "
+          f"{obs_bytes['int8'] / 1e6:.2f}), fp32 {slot['fp32'] / 1e6:.2f} MB (observation "
+          f"{obs_bytes['fp32'] / 1e6:.2f})")
+    check(all(math.isfinite(x) for v in losses.values() for x in v), "15(b)(i): a non-finite loss")
+    check(diff <= 2e-2 * max(1.0, abs(first["fp32"])), "15(b)(i): the first losses disagree")
+    check(launches["int8"] == launches["fp32"] == per_step * OBS8_STEPS,
+          f"15(b)(i): B1 launched {launches} times, expected {per_step * OBS8_STEPS} each")
+    del ctxs, module, on_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sum(launches.values())
+
+
+def obs8_rings():
+    """15(b)(ii): the staged rings' bytes, int8 and fp32, for config.yaml's
+    episodes (``DeviceEpisodeStage`` on the card)."""
+    import yaml
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.runtime import codec
+    from handyrl_tpu_torch.runtime.batch import make_batch
+    from handyrl_tpu_torch.runtime.device_replay import DeviceEpisodeStage
+    from handyrl_tpu_torch.runtime.replay import EpisodeStore
+    from handyrl_tpu_torch.utils import tree_leaves
+
+    out = {}
+    for dtype in ("int8", "fp32"):
+        raw = yaml.safe_load((ROOT / "config.yaml").read_text())
+        raw["train_args"].update(obs_int8=dtype == "int8", observation=True)
+        cfg = normalize_args(raw)
+        args = dict(cfg["train_args"], env=cfg["env_args"])
+        eps = obs8_episodes(cfg["env_args"], args, 64, SEED)
+        store = EpisodeStore(64)
+        store.extend(eps)
+        random.seed(SEED)
+        slot = make_batch([store.sample_window(args["forward_steps"], args["burn_in_steps"],
+                                               args["compress_steps"])
+                           for _ in range(args["batch_size"])], args)
+        stage = DeviceEpisodeStage(make_env(cfg["env_args"]).net(), args, n_lanes=4, slots=1024,
+                                   chunk_steps=32)
+        for ep in eps:
+            stage.add_episode(ep)
+        stage.flush()
+        stage.drain()
+        out[dtype] = (ring_bytes(stage.replay),
+                      sum(len(codec.dumps(ep)) for ep in eps) / len(eps),
+                      sum(x.nbytes for x in tree_leaves(slot)))
+        del stage
+    return out
+
+
+def obs8_learners(tmp):
+    """15(b)(ii): config.yaml's learner (7a, 2 epochs of 64 + 64 episodes)
+    with obs_int8 true and false in turns, on the shm plane and on the
+    device plane (observation: true there, which the device stage needs for
+    turn-based training): finite losses, updates/s, input_wait_frac."""
+    import torch
+    import yaml
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.runtime.learner import Learner
+
+    rows = []
+    for pipeline, dtype in (("shm", "int8"), ("shm", "fp32"), ("device", "fp32"),
+                            ("device", "int8")):
+        run_dir = os.path.join(tmp, f"obs8_{pipeline}_{dtype}")
+        raw = yaml.safe_load((ROOT / "config.yaml").read_text())
+        raw["train_args"].update(
+            epochs=2, seed=SEED, minimum_episodes=OBS8_EPISODES_7A,
+            update_episodes=OBS8_EPISODES_7A, obs_int8=dtype == "int8", batch_pipeline=pipeline,
+            model_dir=os.path.join(run_dir, "models"),
+            metrics_path=os.path.join(run_dir, "metrics.jsonl"))
+        if pipeline == "device":
+            raw["train_args"].update(observation=True, device_stage_lanes=4,
+                                     device_stage_chunk=16)
+        cfg = normalize_args(raw)
+        gc.collect()
+        t0 = time.perf_counter()
+        Learner(cfg).run()
+        torch.cuda.synchronize()
+        records = read_records(cfg["train_args"]["metrics_path"])
+        last = records[-1]
+        check(len(records) == 2 and "loss" in last and math.isfinite(last["loss"]["total"])
+              and last.get("pipeline") == pipeline,
+              f"15(b)(ii) {pipeline} {dtype}: records "
+              f"{[(r['epoch'], r.get('pipeline')) for r in records]}")
+        rows.append((pipeline, dtype, last["updates_per_sec"], last.get("input_wait_frac"),
+                     time.perf_counter() - t0))
+    print("[obs8] 15(b)(ii) config.yaml's learner, 2 epochs of "
+          f"{OBS8_EPISODES_7A} + {OBS8_EPISODES_7A} episodes, in turns: "
+          + "; ".join(f"{p} {d}: {u:.2f} updates/s, input_wait_frac {w}, {s:.1f} s"
+                      for p, d, u, w, s in rows))
+    rings = obs8_rings()
+    print(f"[obs8] 15(b)(ii) config.yaml's episodes (64, observation: true): encoded bytes per "
+          f"episode int8 {rings['int8'][1]:.0f}, fp32 {rings['fp32'][1]:.0f}; a batch (an shm "
+          f"slot) int8 {rings['int8'][2] / 1e6:.3f} MB, fp32 {rings['fp32'][2] / 1e6:.3f} MB; "
+          f"staged rings (4 lanes x 1024 slots) int8 {rings['int8'][0] / 1e6:.3f} MB, fp32 "
+          f"{rings['fp32'][0] / 1e6:.3f} MB")
+
+
+def int8_observations(tmp, results):
+    """15(b): int8 observations on the training paths."""
+    launches = obs8_transformer(results)
+    obs8_learners(tmp)
+    return launches
+
+
+# the fresh process of 15(c)(i): load a .pt2 on a device, run the recorded
+# inputs, report its error against the live module's recorded outputs
+EXPORT_CHECK = r"""
+import json, sys, time
+import numpy as np, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from handyrl_tpu_torch.models.export import ExportedModel
+from handyrl_tpu_torch.utils import tree_leaves, tree_map
+path, ref, device = sys.argv[1:4]
+t0 = time.perf_counter()
+model = ExportedModel(path, device=device)
+load_s = time.perf_counter() - t0
+data = np.load(ref)
+worst = 0.0
+for n in [int(x) for x in data["batches"]]:
+    it = iter(data[f"obs{n}_{i}"] for i in range(int(data["n_obs"])))
+    obs = tree_map(lambda _: next(it), json.loads(str(data["obs_tree"])))
+    hid = model.init_hidden((n,))
+    if hid is not None:
+        it = iter(data[f"hid{n}_{i}"] for i in range(int(data["n_hid"])))
+        hid = tree_map(lambda _: next(it), hid)
+    out = model.inference_batch(obs, hid)
+    leaves = [out[k] for k in sorted(k for k in out if k != "hidden")]
+    leaves += [x for x in tree_leaves(out.get("hidden")) if x is not None]
+    for i, got in enumerate(leaves):
+        want = data[f"out{n}_{i}"]
+        worst = max(worst, float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max())))
+print(json.dumps({"device": device, "load_s": load_s, "worst": worst}))
+"""
+
+
+def export_one(tmp, tag, env_args, module):
+    """15(c)(i): one net exported to .pt2 on the card, its recorded inputs
+    and the live module's outputs, and two fresh processes started to
+    reload it on the card and on the CPU (``export_checked`` reads them)."""
+    import numpy as np
+    import torch
+
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models.export import export_model
+    from handyrl_tpu_torch.utils import tree_leaves, tree_map
+
+    env = make_env(env_args)
+    env.reset()
+    obs0 = env.observation(env.players()[0])
+    path = os.path.join(tmp, f"{tag}.pt2")
+    module = module.to(CARD).eval()
+    t0 = time.perf_counter()
+    export_model(module, obs0, path)
+    export_s = time.perf_counter() - t0
+    size_mb = os.path.getsize(path) / 1e6
+    rng = np.random.default_rng(SEED)
+    ref = {"batches": np.asarray(EXPORT_BATCHES), "n_obs": len(tree_leaves(obs0)),
+           "obs_tree": json.dumps(tree_map(lambda _: 0, obs0))}
+    with torch.inference_mode():
+        for n in EXPORT_BATCHES:
+            obs = tree_map(lambda x: (rng.random((n,) + np.shape(x)) < 0.3).astype(np.float32),
+                           obs0)
+            obs_t = tree_map(lambda x: torch.as_tensor(x, device=CARD), obs)
+            hid = module.initial_state((n,), CARD)
+            if hid is not None:   # a state one step in
+                hid = module(obs_t, hid)["hidden"]
+                ref["n_hid"] = len(tree_leaves(hid))
+                for i, x in enumerate(tree_leaves(hid)):
+                    ref[f"hid{n}_{i}"] = x.cpu().numpy()
+            out = module(obs_t, hid)
+            leaves = [out[k] for k in sorted(k for k, v in out.items()
+                                             if k != "hidden" and v is not None)]
+            leaves += [x for x in tree_leaves(out.get("hidden")) if x is not None]
+            for i, x in enumerate(tree_leaves(obs)):
+                ref[f"obs{n}_{i}"] = x
+            for i, x in enumerate(leaves):
+                ref[f"out{n}_{i}"] = x.cpu().numpy()
+    ref_path = os.path.join(tmp, f"{tag}.ref.npz")
+    np.savez(ref_path, **ref)
+    procs = {dev: subprocess.Popen([sys.executable, "-c", EXPORT_CHECK, path, ref_path, dev],
+                                   cwd=tmp, env=cli_env(), stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+             for dev in (CARD, "cpu")}
+    return {"tag": tag, "path": path, "export_s": export_s, "size_mb": size_mb, "procs": procs}
+
+
+def export_checked(job):
+    """Wait for an export's reload processes and hold their errors to
+    EXPORT_TOLERANCE."""
+    tag, export_s, size_mb = job["tag"], job["export_s"], job["size_mb"]
+    results = {}
+    for dev, proc in job["procs"].items():
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            print(err[-3000:])
+        check(proc.returncode == 0, f"15(c)(i) {tag}: the {dev} reload exited {proc.returncode}")
+        results[dev] = json.loads(out.strip().splitlines()[-1])
+    print(f"[export] 15(c)(i) {tag}: exported on the card in {export_s:.2f} s, {size_mb:.1f} MB; "
+          + "; ".join(f"reloaded in a fresh process on the {d} in {r['load_s']:.2f} s, outputs "
+                      f"and next hidden at batch {'/'.join(map(str, EXPORT_BATCHES))} against the "
+                      f"live module max_abs_err {r['worst']:.3e} of scale"
+                      for d, r in results.items())
+          + f" (tolerance {EXPORT_TOLERANCE:.0e}, strict fp32)")
+    check(all(r["worst"] <= EXPORT_TOLERANCE for r in results.values()),
+          f"15(c)(i) {tag}: a reloaded artifact disagrees with the live module")
+
+
+def export_artifacts(tmp):
+    """15(c)(i): the full-width transformer (step mode, KV-cache hidden) and
+    GeeseNet to .pt2, their four reload processes at once, and ``--eval``
+    of the GeeseNet artifact."""
+    import torch
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        tf_args = {"env": "Geister", "net": "transformer", "net_args": NET_ARGS}
+        jobs = [export_one(tmp, "transformer", tf_args, seeded_net(tf_args, SEED))]
+        gc.collect()
+        torch.cuda.empty_cache()
+        jobs.append(export_one(tmp, "geese", {"env": "HungryGeese"},
+                               seeded_net({"env": "HungryGeese"}, SEED)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        for job in jobs:
+            export_checked(job)
+    finally:
+        for job in jobs:
+            for proc in job["procs"].values():
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+    eval_dir = os.path.join(tmp, "eval_pt2")
+    write_config(eval_dir, {"env_args": {"env": "HungryGeese"}, "train_args": {}})
+    out, secs = run_cli(eval_dir, "--eval", f"{jobs[1]['path']}:random", "20", "1")
+    m = re.search(r"total = ([-\d.]+) \((\d+)\)", out)
+    check(m is not None and int(m.group(2)) == 20,
+          f"15(c)(i): --eval of the .pt2 did not play 20 games:\n{out[-1500:]}")
+    print(f"[export] 15(c)(i) --eval geese.pt2:random 20 1 (HungryGeese, on the card): total "
+          f"{m.group(1)} over {m.group(2)} games in {secs:.1f} s")
+
+
+def edge_fleet(tmp, meanwhile=lambda: None):
+    """15(c)(ii): ``--edge model.pt2`` (TicTacToe) tagged edge beside one
+    ``--serve`` replica behind ``--fleet``, 13(a)'s load through the fleet:
+    req/s served by each; sessions through the fleet never land on the edge;
+    a sid or a swap sent straight to it is bad_request; its peak memory.
+    ``meanwhile`` runs while the three processes start."""
+    import signal
+
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models import init_variables
+    from handyrl_tpu_torch.models.export import export_model
+    from handyrl_tpu_torch.serving import ServingClient, ServingError
+
+    env = make_env({"env": "TicTacToe"})
+    env.reset()
+    obs = env.observation(0)
+    module = init_variables(env.net(), SEED)
+    edge_dir, rep_dir, fleet_dir = (os.path.join(tmp, d) for d in ("edge", "rep", "fleetx"))
+    Path(edge_dir).mkdir(parents=True, exist_ok=True)
+    export_model(module, obs, os.path.join(edge_dir, "model.pt2"))
+    write_config(edge_dir, {"env_args": {"env": "TicTacToe"},
+                            "train_args": {"fleet": {"edge_port": 0, "edge_workers": 2}}})
+    serving = {"port": 0, "slo_ms": 1000.0, "shed_policy": "none", "max_batch": 64,
+               "max_wait_ms": 1.0, "warm_buckets": SERVE_BUCKETS, "queue_bound": 8192,
+               "watch_interval": 0, "stats_interval": 0}
+    write_config(rep_dir, {"env_args": {"env": "TicTacToe"},
+                           "train_args": {"seed": SEED, "model_dir": "models", "serving": serving}})
+    with Children(tmp) as kids:
+        edge = kids.start("edge", "--edge", "model.pt2", cwd=edge_dir)
+        rep = kids.start("rep", "--serve", cwd=rep_dir)
+        meanwhile()
+        eport = int(wait_for_line(kids, "edge", r"edge: serving model.pt2 on port (\d+)",
+                                  300).group(1))
+        rport = int(wait_for_line(kids, "rep", r"serving: listening on port (\d+)", 300).group(1))
+        check(f"device {CARD}" in kids.output("edge"), "15(c)(ii): the edge is not on the card")
+        write_config(fleet_dir, {"env_args": {"env": "TicTacToe"}, "train_args": {"fleet": {
+            "port": 0, "stats_poll_s": 0.5, "stats_interval": 0,
+            "replicas": [f"127.0.0.1:{rport}",
+                         {"host": "127.0.0.1", "port": eport, "tags": ["edge"]}]}}})
+        fleet = kids.start("fleet", "--fleet", cwd=fleet_dir)
+        fport = int(wait_for_line(kids, "fleet", r"fleet: entry port (\d+)", 120).group(1))
+        admin = ServingClient("127.0.0.1", fport)
+        names = (f"127.0.0.1:{rport}", f"127.0.0.1:{eport}")
+        deadline = time.monotonic() + 60
+        while True:   # both replicas polled once before the load
+            before = admin.stats()["replicas"]
+            if all("serve_replies" in before.get(name, {}) for name in names):
+                break
+            check(time.monotonic() < deadline,
+                  f"15(c)(ii): the fleet never polled {names}: {sorted(before)}\n"
+                  + kids.output("edge")[-1500:] + kids.output("fleet")[-1500:])
+            time.sleep(0.2)
+        turn = closed_loop_load(fport, obs, SERVE_CLIENTS, SERVE_WINDOW, EDGE_TURN_S)
+        time.sleep(1.0)   # one more poll after the load
+        after = admin.stats()["replicas"]
+        served = {name: after[name]["serve_replies"] - before[name]["serve_replies"]
+                  for name in names}
+        sids = [admin.open_session() for _ in range(8)]
+        for sid in sids:
+            admin.infer(obs, sid=sid)
+        stats = admin.stats()["replicas"]
+        edge_stats = stats[f"127.0.0.1:{eport}"]
+        print(f"[edge] 15(c)(ii) 13(a)'s load through --fleet over --serve and --edge for "
+              f"{EDGE_TURN_S:.0f} s: {turn['qps']:.1f} req/s, p50 {turn['p50']:.2f} ms, p99 "
+              f"{turn['p99']:.2f} ms (client), errors {turn['err']}; served by the replica "
+              f"{served[f'127.0.0.1:{rport}'] / EDGE_TURN_S:.1f} req/s, by the edge "
+              f"{served[f'127.0.0.1:{eport}'] / EDGE_TURN_S:.1f} req/s; {len(sids)} sessions "
+              f"through the fleet: the edge's session count "
+              f"{edge_stats.get('session_opened', 0)}, its errors {edge_stats['serve_errors']}")
+        check(turn["err"] == 0, "15(c)(ii): error replies through the fleet")
+        check(edge_stats.get("session_opened", 0) == 0 and edge_stats["serve_errors"] == 0,
+              "15(c)(ii): a session landed on the edge")
+        admin.close()
+        direct = ServingClient("127.0.0.1", eport)
+        kinds = []
+        for call in (lambda: direct.infer(obs, sid="s-1"), lambda: direct.swap(2)):
+            try:
+                call()
+                kinds.append("served")
+            except ServingError as exc:
+                kinds.append(exc.kind)
+        direct.close()
+        print(f"[edge] 15(c)(ii) straight to the edge: a sid -> {kinds[0]}, a swap -> {kinds[1]}")
+        check(kinds == ["bad_request", "bad_request"],
+              "15(c)(ii): the edge served a stateful frame")
+        fleet.send_signal(signal.SIGTERM)
+        check(fleet.wait(60) == 0, f"15(c)(ii): --fleet exited {fleet.poll()}")
+        edge.send_signal(signal.SIGTERM)
+        check(edge.wait(60) == 0, f"15(c)(ii): --edge exited {edge.poll()}")
+        rep.send_signal(signal.SIGTERM)
+        check(rep.wait(60) == 75, f"15(c)(ii): the replica exited {rep.poll()}")
+        peak = re.search(r"edge: peak device memory .*", kids.output("edge"))
+        print(f"[edge] 15(c)(ii) {peak.group(0) if peak else 'no peak memory line'}")
+
+
+def export_edge(tmp):
+    """15(c): export and the edge (the edge's processes start first)."""
+    edge_fleet(tmp, meanwhile=lambda: export_artifacts(tmp))
+
+
+class FlywheelClients:
+    """15(d)'s clients of the flywheel server: FLY_HARVESTERS threads play
+    harvest games (a session per seat, ``harvest_open``, ``infer`` per move,
+    ``harvest_step``, ``harvest_close``), FLY_JUDGES threads play judged
+    games (the served model, greedy, against uniform play) and report each
+    outcome against the epoch that served it.  The judges' outcomes are the
+    game's, except for the poisoned epoch: its games are reported lost, as
+    JAX bench.py's flywheel stage scripts its verdicts, because two epochs
+    of TicTacToe training do not make a clean net and its negation play
+    differently enough for a gate of a few games to tell."""
+
+    def __init__(self, port):
+        self.port = port
+        self.stop = threading.Event()
+        self.errors, self.kept, self.dropped, self.judged = [], 0, 0, {}
+        self.threads = ([threading.Thread(target=self._harvest, args=(i,), daemon=True)
+                         for i in range(FLY_HARVESTERS)]
+                        + [threading.Thread(target=self._judge, args=(i,), daemon=True)
+                           for i in range(FLY_JUDGES)])
+
+    def start(self):
+        for t in self.threads:
+            t.start()
+        return self
+
+    def close(self):
+        self.stop.set()
+        for t in self.threads:
+            t.join(60)
+        check(not any(t.is_alive() for t in self.threads), "15(d): a client thread hung")
+
+    def _loop(self, play, seed):
+        from handyrl_tpu_torch.envs import make_env
+        from handyrl_tpu_torch.serving import ServingClient, ServingError
+
+        rng = random.Random(seed)
+        env = make_env({"env": "TicTacToe"})
+        client = ServingClient("127.0.0.1", self.port)
+        try:
+            while not self.stop.is_set():
+                try:
+                    play(client, env, rng)
+                except ServingError as exc:
+                    self.errors.append(f"{exc.kind}: {exc}")
+        except Exception as exc:
+            if not self.stop.is_set():
+                self.errors.append(f"{type(exc).__name__}: {exc}")
+        finally:
+            client.close()
+
+    def _harvest(self, i):
+        def play(client, env, rng):
+            kept = harvest_game(client, env, rng)
+            self.kept += bool(kept)
+            self.dropped += not kept
+            time.sleep(0.02)   # paced: the learner's epochs outlast a gate verdict
+
+        self._loop(play, SEED + 100 + i)
+
+    def _judge(self, i):
+        import numpy as np
+
+        def play(client, env, rng):
+            env.reset()
+            seat, served = rng.randrange(2), None
+            while not env.terminal():
+                moves = {}
+                for p in env.turns():
+                    legal = list(env.legal_actions(p))
+                    if p == seat:
+                        reply = client.infer(env.observation(p))
+                        served = reply["model"] if served is None else served
+                        logits = np.asarray(reply["out"]["policy"]).reshape(-1)
+                        moves[p] = max(legal, key=lambda a: (logits[a], rng.random()))
+                    else:
+                        moves[p] = rng.choice(legal)
+                env.step(moves)
+            if isinstance(served, int) and served > 0:
+                outcome = -1.0 if served == FLY_POISON else float(env.outcome().get(seat, 0.0))
+                client.report_outcome(served, outcome)
+                self.judged[served] = self.judged.get(served, 0) + 1
+            time.sleep(0.01)
+
+        self._loop(play, SEED + 200 + i)
+
+
+def harvest_game(client, env, rng, record=None):
+    """One TicTacToe game through the harvest protocol, actions drawn as the
+    Generator draws them (``rng.choices`` over the legal moves by the
+    masked softmax); ``record`` collects each reply's outputs.  Returns
+    whether the server kept the episode."""
+    import numpy as np
+
+    from handyrl_tpu_torch.utils import softmax
+
+    players = env.players()
+    sids = [client.open_session() for _ in players]
+    hid = client.harvest_open(players, sids)
+    env.reset()
+    while not env.terminal():
+        turn_players = env.turns()
+        actions, legal_lists, moves = [None] * len(players), [None] * len(players), {}
+        for p in turn_players:
+            j = players.index(p)
+            reply = client.infer(env.observation(p), sid=sids[j])
+            if record is not None:
+                record.append(reply["out"])
+            logits = np.asarray(reply["out"]["policy"], np.float32).reshape(-1)
+            legal = list(env.legal_actions(p))
+            amask = np.full_like(logits, 1e32)
+            amask[legal] = 0.0
+            probs = softmax(logits - amask)
+            action = rng.choices(legal, weights=probs[legal])[0]
+            actions[j], legal_lists[j], moves[p] = int(action), legal, int(action)
+        turn = turn_players[0] if turn_players else None
+        env.step(moves)
+        reward = env.reward()
+        client.harvest_step(hid, actions, legal_lists, [reward.get(p) for p in players], turn)
+    outcome = env.outcome()
+    kept = client.harvest_close(hid, [float(outcome.get(p, 0.0)) for p in players])
+    for sid in sids:
+        client.close_session(sid)
+    return kept
+
+
+def harvest_parity(port):
+    """15(d): one game through the harvest protocol, pulled back, against
+    the Generator's encoding of the same trajectory (the served replies
+    replayed as the model, the same random draws): byte for byte."""
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.runtime import Generator
+    from handyrl_tpu_torch.serving import ServingClient
+
+    class Replayed:
+        def __init__(self, outs):
+            self.outs = list(outs)
+
+        def init_hidden(self):
+            return None
+
+        def inference(self, obs, hidden=None):
+            return dict(self.outs.pop(0), hidden=None)
+
+    client = ServingClient("127.0.0.1", port)
+    record = []
+    check(harvest_game(client, make_env({"env": "TicTacToe"}), random.Random(SEED),
+                       record=record), "15(d): the parity game was dropped")
+    episodes, _ = client.harvest_pull(8)
+    client.close()
+    check(len(episodes) == 1, f"15(d): pulled {len(episodes)} episodes, not 1")
+    env = make_env({"env": "TicTacToe"})
+    targs = normalize_args({"env_args": {"env": "TicTacToe"}})["train_args"]
+    gen = Generator(env, targs)
+    # the Generator draws from the module's random: the client's stream
+    state = random.getstate()
+    random.seed(SEED)
+    selfplay = gen.generate(dict.fromkeys(env.players(), Replayed(record)),
+                            {"player": env.players(), "model_id": {p: 0 for p in env.players()}})
+    random.setstate(state)
+    ep = episodes[0]
+    same = selfplay["blocks"] == ep["blocks"] and selfplay["steps"] == ep["steps"]
+    print(f"[flywheel] 15(d) one harvested episode ({ep['steps']} steps, {len(ep['blocks'])} "
+          f"blocks, served by epoch {ep['model_epoch']}) against the self-play encoding of its "
+          f"trajectory: {'byte for byte equal' if same else 'DIFFERENT'}")
+    check(same, "15(d): the harvested episode differs from the self-play encoding")
+
+
+def flywheel_run(tmp):
+    """15(d): ``--serve`` with the flywheel over TicTacToe, harvest and judge
+    clients, and ``--train`` on harvested traffic only with epoch
+    FLY_POISON's snapshot poisoned."""
+    import signal
+
+    from handyrl_tpu_torch.runtime import checkpoint as ckpt
+    from handyrl_tpu_torch.serving import ServingClient
+
+    run_dir = os.path.join(tmp, "flywheel")
+    fly = {"enabled": True, "harvest_fraction": 1.0, "staleness_epochs": 8,
+           "harvest_poll_s": 0.2, "harvest_max_pull": 32, "promote_winrate": 0.25,
+           "promote_games": 8, "quality_window": 8, "demote_drop": 0.25, "shadow_fraction": 1.0}
+    serving = {"port": 0, "slo_ms": 5000.0, "shed_policy": "none", "max_batch": 64,
+               "max_wait_ms": 1.0, "warm_buckets": [1, 2, 4, 8], "watch_interval": 0.1,
+               "stats_interval": 0}
+    write_config(run_dir, {"env_args": {"env": "TicTacToe"}, "train_args": {
+        "seed": SEED, "model_dir": "models", "metrics_path": "metrics.jsonl", "serving": serving,
+        "flywheel": fly}})
+    with Children(tmp) as kids:
+        serve = kids.start("flyserve", "--serve", cwd=run_dir)
+        port = int(wait_for_line(kids, "flyserve", r"serving: listening on port (\d+)",
+                                 300).group(1))
+        check("data flywheel on" in kids.output("flyserve"), "15(d): the flywheel is not on")
+        harvest_parity(port)
+        m, u = FLY_EPISODES
+        write_config(run_dir, {"env_args": {"env": "TicTacToe"}, "train_args": {
+            "seed": SEED, "model_dir": "models", "metrics_path": "metrics.jsonl",
+            "epochs": FLY_EPOCHS, "minimum_episodes": m, "update_episodes": u,
+            "keep_checkpoints": 2, "worker": {"num_parallel": 0}, "serving": serving,
+            "flywheel": dict(fly, harvest_port=port)}})
+        clients = FlywheelClients(port).start()
+        monitor = ServingClient("127.0.0.1", port)
+        events, stop = [], threading.Event()
+
+        def watch():
+            last = None
+            while not stop.is_set():
+                s = monitor.stats()
+                cand = s.get("quality_candidate", 0)
+                now = time.perf_counter()
+                if cand != last:
+                    events.append((now, cand, s.get("quality_promotions", 0),
+                                   s.get("quality_gate_failures", 0),
+                                   s.get("quality_demotions", 0), s.get("flywheel_episodes", 0)))
+                    last = cand
+                stop.wait(0.05)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        t0 = time.perf_counter()
+        _, secs = run_cli(run_dir, "--train", timeout=900,
+                            env={"HANDYRL_FAULT_POISON_SNAPSHOT_AT_EPOCH": str(FLY_POISON)})
+        stop.set()
+        watcher.join(30)
+        stats = monitor.stats()
+        monitor.close()
+        clients.close()
+        window = time.perf_counter() - t0
+        serve.send_signal(signal.SIGTERM)
+        code = serve.wait(60)
+        log = kids.output("flyserve")
+    records = read_records(os.path.join(run_dir, "metrics.jsonl"))
+    check(code == 75, f"15(d): the flywheel server exited {code}")
+    check(not clients.errors and stats["serve_errors"] == 0,
+          f"15(d): error frames: clients {clients.errors[:3]}, server {stats['serve_errors']}")
+    check(stats["flywheel_dropped_malformed"] == 0,
+          f"15(d): {stats['flywheel_dropped_malformed']} malformed harvest episodes")
+    staged = re.findall(r"staged candidate epoch (\d+)", log)
+    failed = re.findall(r"gate failed for epoch (\d+)", log)
+    demoted = re.findall(r"demoted epoch (\d+)", log)
+    promoted = re.findall(r"promoted epoch (\d+)", log)
+    print(f"[flywheel] 15(d) the server: staged {staged}, promoted {promoted}, gate failed "
+          f"{failed}, demoted {demoted}; judged games per epoch {clients.judged}")
+    check(str(FLY_POISON) in staged and (str(FLY_POISON) in failed or str(FLY_POISON) in demoted),
+          "15(d): the poisoned snapshot was not staged and failed or demoted")
+    spans = []
+    for (t, cand, *_), nxt in zip(events, events[1:] + [None]):
+        if cand and nxt is not None:
+            spans.append((cand, nxt[0] - t))
+    rollbacks = max(r.get("flywheel_rollbacks", 0) for r in records)
+    rolled = max(r.get("sentinel_flywheel_rollbacks", 0) for r in records)
+    check(rollbacks >= 1 and rolled >= 1,
+          f"15(d): the learner did not roll back (flywheel_rollbacks {rollbacks}, the trainer's "
+          f"sentinel_flywheel_rollbacks {rolled})")
+    check(all(math.isfinite(r["loss"]["total"]) for r in records if r.get("loss")),
+          "15(d): a non-finite loss")
+    pins = sorted(int(e) for e in json.loads(Path(run_dir, "models", "SERVING.json").read_text()
+                                              ).values() if isinstance(e, int) and e > 0)
+    for epoch in pins:
+        check(ckpt.verify_snapshot(os.path.join(run_dir, "models"), epoch) is not False
+              and Path(run_dir, "models", f"{epoch}.ckpt").exists(),
+              f"15(d): the served epoch {epoch} did not survive gc_snapshots")
+    # harvest_fraction 1.0 sets no per-epoch budget, so no episode is held
+    # over it and the ingestor has no over-budget count to print
+    per_epoch = "; ".join(
+        f"epoch {r['epoch']}: ingested {r.get('flywheel_ingested', 0)} (cumulative), stale "
+        f"{r.get('flywheel_ingest_stale', 0)}, malformed {r.get('flywheel_ingest_malformed', 0)}, "
+        f"{r['updates_per_sec']:.2f} updates/s" for r in records)
+    print(f"[flywheel] 15(d) --train on harvested traffic only ({FLY_EPOCHS} epochs of "
+          f"{m} + {u} episodes, epoch {FLY_POISON} poisoned) in {secs:.1f} s: "
+          f"{stats['flywheel_episodes'] / window:.1f} harvested episodes/s over {window:.1f} s "
+          f"({stats['flywheel_episodes']} kept, {clients.dropped} dropped by the clients' view, "
+          f"malformed {stats['flywheel_dropped_malformed']}, truncated "
+          f"{stats['flywheel_dropped_truncated']}); {per_epoch}; flywheel_rollbacks {rollbacks}")
+    print(f"[flywheel] 15(d) seconds from staging to verdict: "
+          + ", ".join(f"epoch {c} {s:.2f} s" for c, s in spans)
+          + f"; the pinned epochs {pins} survived gc_snapshots (keep_checkpoints 2)")
+
+
+def phase_quantize_edge_flywheel(results):
+    """15: int8 weights on the serving path, int8 observations on the
+    training paths, exported artifacts and the edge, the data flywheel.
+    15(b)(i) runs B1; nothing else here does."""
+    print(f"[phase15] {card_line()}")
+    times = [time.perf_counter()]
+    with tempfile.TemporaryDirectory() as tmp:
+        int8_weights(tmp)
+        times.append(time.perf_counter())
+        int8_observations(tmp, results)
+        times.append(time.perf_counter())
+        export_edge(tmp)
+        times.append(time.perf_counter())
+        flywheel_run(tmp)
+        times.append(time.perf_counter())
+    _SEEDED.clear()
+    parts = ", ".join(f"{tag} {t1 - t:.1f} s"
+                      for tag, t, t1 in zip(("(a)", "(b)", "(c)", "(d)"), times, times[1:]))
+    print(f"[phase15] phase 15 in {times[-1] - times[0]:.1f} s: {parts}")
 
 
 def leftovers(shm_before):
@@ -3972,6 +5070,10 @@ def main(argv):
     def reset_launches():
         FLASH.launches = MASKED_FLASH.launches = 0
 
+    def lap(phase):
+        print(f"[time] phase {phase} ended {time.perf_counter() - t_script:.1f} s into the script",
+              flush=True)
+
     device_name = torch.cuda.get_device_name(0)
     results = {name: {"launches": 0} for name in KERNELS}
     shm_before = set(os.listdir("/dev/shm"))
@@ -3980,20 +5082,25 @@ def main(argv):
         phase_device(results)
         phase_kernel_check(results)
         phase_kernel_timing(results, device_name)
+        lap("3")
         if "--parent" in argv:
             phase_parent(argv[argv.index("--parent") + 1], device_name)
         if "--kernels-only" not in argv:
             # the two paths through the kernels, each counted from 0
             reset_launches()
             phase_flash_op(results)
+            lap("4")
             reset_launches()
             env_args, module, episodes = phase_acting(results)
             phase_training(results, env_args, module, episodes)
+            lap("6")
             del module, episodes
             torch.cuda.empty_cache()
             phase_learner_cli(results)
+            lap("7a")
             reset_launches()
             phase_learner(results)
+            lap("7b")
             # the recurrent and simultaneous-move paths: no kernel on either
             # (8b runs in processes of its own)
             reset_launches()
@@ -4001,27 +5108,41 @@ def main(argv):
             print(f"[drc] kernel launches in phase 8a: masked {MASKED_FLASH.launches}, "
                   f"flash {FLASH.launches}")
             phase_geese_cli(results)
+            lap("8")
             # the remote actor plane (9b runs the masked kernel) and battles
             phase_remote(results)
+            lap("9")
             # the batch-assembly plane under the learners (no kernel)
             phase_assembly(results)
+            lap("10")
             # on-device self-play and evaluation (no kernel on these paths)
             reset_launches()
             phase_selfplay(results)
+            lap("11")
             print(f"[selfplay] kernel launches in phase 11: masked {MASKED_FLASH.launches}, "
                   f"flash {FLASH.launches}")
             # the device data plane (12(c) runs the masked kernel)
             reset_launches()
             phase_device_data(results)
+            lap("12")
             # the inference serving plane (no kernel on its path)
             reset_launches()
             phase_serving(results)
+            lap("13")
             print(f"[serving] kernel launches in phase 13: masked {MASKED_FLASH.launches}, "
                   f"flash {FLASH.launches}")
             # the fleet tier and the learner's fault machinery (no kernel)
             reset_launches()
             phase_fleet(results)
+            lap("14")
             print(f"[fleet] kernel launches in phase 14: masked {MASKED_FLASH.launches}, "
+                  f"flash {FLASH.launches}")
+            # int8 weights and observations, export and the edge, the flywheel
+            # (15(b)(i) runs the masked kernel)
+            reset_launches()
+            phase_quantize_edge_flywheel(results)
+            lap("15")
+            print(f"[phase15] kernel launches in phase 15: masked {MASKED_FLASH.launches}, "
                   f"flash {FLASH.launches}")
             segments, procs = leftovers(shm_before)
             check(not segments and not procs,

@@ -9,10 +9,10 @@ value is refused by name rather than quietly run on the plain loop.  Keys
 that neither package knows pass through untouched.  Every default is the
 JAX package's, ``batch_pipeline: shm`` included.  Ported and acted on:
 on-device self-play and evaluation, the device data plane, the
-``serving`` block of ``--serve`` (its int8 weights excepted), the
-``fleet`` block of ``--fleet`` (its edge replica excepted), the divergence
-sentinel with its rollback, the preemption drain, ``trace`` and
-``profile_dir``.
+``serving`` block of ``--serve`` (int8 weights included), ``obs_int8``,
+the ``fleet`` block of ``--fleet`` and ``--edge``, the ``flywheel`` block,
+the divergence sentinel with its rollback, the preemption drain,
+``trace`` and ``profile_dir``.
 """
 
 from __future__ import annotations
@@ -197,8 +197,13 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
         # the host spill ring beyond session_capacity; past it the oldest
         # spilled session is dropped (its next infer is an affinity miss)
         "session_spill": 4096,
-        # engine weights: 'float32' ('int8' needs models/quantize.py)
+        # engine weights: 'float32', or 'int8' (per-channel int8 codes and
+        # fp32 scales resident on the device, models/quantize.py)
         "weight_dtype": "float32",
+        # int8 only: replay batches of observations each publish runs
+        # through the fp32 and int8 engines to record their measured output
+        # deviation (0 = no calibration record)
+        "calibration_batches": 4,
     },
     # the fleet tier (fleet/, --fleet): an entry port proxying client frames
     # over --serve replicas, balanced by polled queue depth and shed rate,
@@ -249,10 +254,50 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
             # a spawned replica not warm within this is marked lost
             "warm_timeout_s": 120.0,
         },
-        # the CPU edge replica (--edge, not ported: ROADMAP A10 item 4)
+        # the edge replica (--edge ARTIFACT: a .pt2 export served on the
+        # card as feed-forward capacity, tagged 'edge' in fleet.replicas)
         "edge_port": 9995,
         "edge_workers": 2,
         "edge_model": "",
+    },
+    # int8 observation planes: episodes quantize their observations once at
+    # finalize under the env's per-leaf (scale, zero) spec, so the wire
+    # blocks, the shm slots and the staged rings carry int8; the train step
+    # and the rings' sampler widen them on the card (models/quantize.py)
+    "obs_int8": False,
+    # the data flywheel (flywheel/): the serving tier harvests served games
+    # into episodes, the learner pulls them, and promotions into serving are
+    # gated on live win rate with a quality sentinel behind the gate
+    "flywheel": {
+        "enabled": False,
+        # share of each epoch's update_episodes taken from harvested traffic
+        # (1.0 = served traffic only, 0.0 = the quality plane alone)
+        "harvest_fraction": 0.5,
+        # harvested episodes this many model epochs behind are dropped
+        "staleness_epochs": 4,
+        # where the learner's ingest dials the serving tier (port 0 follows
+        # serving.port), its poll cadence and per-poll cap
+        "harvest_host": "127.0.0.1",
+        "harvest_port": 0,
+        "harvest_poll_s": 1.0,
+        "harvest_max_pull": 64,
+        # an open harvest episode idle past the TTL is dropped (truncated);
+        # at most max_open open at once (the oldest sheds)
+        "harvest_ttl_s": 600.0,
+        "harvest_max_open": 256,
+        # the promotion gate: a fresh snapshot is staged as a candidate on
+        # shadow_fraction of latest-addressed traffic and latest flips only
+        # once its live win points over promote_games games reach
+        # promote_winrate; false = every fresh snapshot flips at once
+        "gate_promotions": True,
+        "promote_winrate": 0.55,
+        "promote_games": 16,
+        "shadow_fraction": 0.25,
+        # the quality sentinel: a promoted snapshot whose live win-point EMA
+        # (window quality_window games) falls demote_drop below the
+        # incumbent's is demoted, and a rollback signal reaches training
+        "quality_window": 32,
+        "demote_drop": 0.15,
     },
     # span tracing of the hot paths (utils/trace.py), off by default: spans
     # go to a bounded ring and a background thread appends them to path
@@ -288,12 +333,9 @@ DEFAULT_WORKER_ARGS: Dict[str, Any] = {
 # key's path in train_args, its JAX default, and the ROADMAP item that ports
 # it.  The default passes; any other value is refused naming the item
 _MULTI_GPU = "A8 (multiple GPUs)"
-_FLYWHEEL = "A10 (flywheel/, the data flywheel)"
 _LEAGUE = "A10 (the league)"
 NOT_PORTED_KEYS = (
     (("plane",), "fused", "A7 (the device data plane)"),
-    # needs models/quantize.py
-    (("obs_int8",), False, "A10 (models/quantize.py, int8)"),
     # acts only under plane: split
     (("plane_param_lag_bound",), 0, "A7 (the device data plane)"),
     # verifies an autovec-lifted twin, and the port has no autovec
@@ -318,23 +360,6 @@ NOT_PORTED_KEYS = (
     (("league", "promote_winrate"), 0.55, _LEAGUE),
     (("league", "promote_games"), 8, _LEAGUE),
     (("league", "max_population"), 16, _LEAGUE),
-    (("flywheel", "enabled"), False, _FLYWHEEL),
-    (("flywheel", "harvest_fraction"), 0.5, _FLYWHEEL),
-    (("flywheel", "staleness_epochs"), 4, _FLYWHEEL),
-    (("flywheel", "harvest_host"), "127.0.0.1", _FLYWHEEL),
-    (("flywheel", "harvest_port"), 0, _FLYWHEEL),
-    (("flywheel", "harvest_poll_s"), 1.0, _FLYWHEEL),
-    (("flywheel", "harvest_max_pull"), 64, _FLYWHEEL),
-    (("flywheel", "harvest_ttl_s"), 600.0, _FLYWHEEL),
-    (("flywheel", "harvest_max_open"), 256, _FLYWHEEL),
-    (("flywheel", "gate_promotions"), True, _FLYWHEEL),
-    (("flywheel", "promote_winrate"), 0.55, _FLYWHEEL),
-    (("flywheel", "promote_games"), 16, _FLYWHEEL),
-    (("flywheel", "shadow_fraction"), 0.25, _FLYWHEEL),
-    (("flywheel", "quality_window"), 32, _FLYWHEEL),
-    (("flywheel", "demote_drop"), 0.15, _FLYWHEEL),
-    (("serving", "weight_dtype"), "float32", "A10 (models/quantize.py, int8)"),
-    (("serving", "calibration_batches"), 4, "A10 (models/quantize.py, int8)"),
 )
 
 
@@ -373,8 +398,13 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
         raise ValueError("train_args.eval_rate must be in [0, 1]")
     if int(train["num_batchers"]) < 0:
         raise ValueError("train_args.num_batchers must be >= 0")
-    if int(train["worker"]["num_parallel"]) < 1:
-        raise ValueError("train_args.worker.num_parallel must be >= 1")
+    # no local actor is allowed only where episodes come from elsewhere: the
+    # flywheel's served traffic (its e2e mode trains on harvest alone)
+    harvest_only = (train["flywheel"]["enabled"]
+                    and float(train["flywheel"]["harvest_fraction"]) > 0)
+    if int(train["worker"]["num_parallel"]) < (0 if harvest_only else 1):
+        raise ValueError("train_args.worker.num_parallel must be >= 1 (0 only with the "
+                         "flywheel harvesting)")
     pipeline = train["batch_pipeline"]
     if pipeline not in ("shm", "thread", "device"):
         raise ValueError(
@@ -475,6 +505,12 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
     if not 0.0 < train["sentinel_loss_ema_decay"] < 1.0:
         raise ValueError("train_args.sentinel_loss_ema_decay must be in (0, 1)")
     _validate_serving(train["serving"])
+    if not isinstance(train["obs_int8"], bool):
+        raise ValueError(
+            f"train_args.obs_int8={train['obs_int8']!r} must be a bool "
+            "(int8 observation planes on the wire/rings)"
+        )
+    _validate_flywheel(train["flywheel"])
     _validate_fleet(train["fleet"])
     _validate_trace(train["trace"])
     _validate_not_ported_values(train)
@@ -542,6 +578,49 @@ def _validate_serving(serving: Dict[str, Any]) -> None:
         raise ValueError(
             f"train_args.serving.weight_dtype={serving['weight_dtype']!r} "
             "not one of ('float32', 'int8')"
+        )
+    if int(serving["calibration_batches"]) < 0:
+        raise ValueError(
+            "train_args.serving.calibration_batches must be >= 0 (0 = skip "
+            "the publish-time calibration record)"
+        )
+
+
+def _validate_flywheel(fly: Dict[str, Any]) -> None:
+    if not isinstance(fly["enabled"], bool):
+        raise ValueError(f"train_args.flywheel.enabled={fly['enabled']!r} must be a bool")
+    for key in ("harvest_fraction", "shadow_fraction"):
+        if not 0.0 <= float(fly[key]) <= 1.0:
+            raise ValueError(f"train_args.flywheel.{key} must be in [0, 1]")
+    if not 0.0 < float(fly["promote_winrate"]) < 1.0:
+        raise ValueError(
+            "train_args.flywheel.promote_winrate must be in (0, 1) — it is "
+            "a live win-points bar, not a guarantee"
+        )
+    if not 0.0 < float(fly["demote_drop"]) < 1.0:
+        raise ValueError(
+            "train_args.flywheel.demote_drop must be in (0, 1) — the live "
+            "win-point EMA drop that trips the quality sentinel"
+        )
+    if int(fly["staleness_epochs"]) < 1:
+        raise ValueError(
+            "train_args.flywheel.staleness_epochs must be >= 1 (0 would "
+            "drop every harvested episode as stale)"
+        )
+    for key in ("promote_games", "quality_window", "harvest_max_pull", "harvest_max_open"):
+        if int(fly[key]) < 1:
+            raise ValueError(f"train_args.flywheel.{key} must be >= 1")
+    for key in ("harvest_poll_s", "harvest_ttl_s"):
+        if float(fly[key]) <= 0:
+            raise ValueError(f"train_args.flywheel.{key} must be > 0")
+    if not isinstance(fly["gate_promotions"], bool):
+        raise ValueError(
+            f"train_args.flywheel.gate_promotions={fly['gate_promotions']!r} must be a bool"
+        )
+    if not isinstance(fly["harvest_port"], int) or not 0 <= fly["harvest_port"] <= 65535:
+        raise ValueError(
+            f"train_args.flywheel.harvest_port={fly['harvest_port']!r} must "
+            "be a TCP port in [0, 65535] (0 = follow serving.port)"
         )
 
 
@@ -697,14 +776,6 @@ def _validate_not_ported_values(train: Dict[str, Any]) -> None:
         raise ValueError("train_args.league.promote_games must be >= 1")
     if int(get("league", "max_population")) < 2:
         raise ValueError("train_args.league.max_population must be >= 2")
-    for key in ("harvest_fraction", "shadow_fraction"):
-        if not 0.0 <= float(get("flywheel", key)) <= 1.0:
-            raise ValueError(f"train_args.flywheel.{key} must be in [0, 1]")
-    if int(get("serving", "calibration_batches")) < 0:
-        raise ValueError(
-            "train_args.serving.calibration_batches must be >= 0 (0 = skip "
-            "the publish-time calibration record)"
-        )
 
 
 def normalize_args(raw: Dict[str, Any]) -> Dict[str, Any]:

@@ -8,6 +8,7 @@
     python -m handyrl_tpu_torch.main --eval-client AGENT [HOST] [N_GAMES]
     python -m handyrl_tpu_torch.main --serve            # the inference serving plane
     python -m handyrl_tpu_torch.main --fleet            # the fleet over --serve replicas
+    python -m handyrl_tpu_torch.main --edge [ARTIFACT]  # an exported .pt2 as edge capacity
 
 It reads the config.yaml the JAX package's ``main.py`` reads (``--worker``
 reads ``worker_args.server_address`` and the entry port; ``--eval-server``
@@ -17,8 +18,10 @@ runs on the CPU from Python; the command line has no device flag.
 ``--serve`` and ``--train`` exit 75 after a SIGTERM drain.  ``--fleet``
 reads ``train_args.fleet``: it fronts ``fleet.replicas`` (each started with
 ``--serve``) and, with ``fleet.autoscale.enabled``, spawns and retires
-serving processes of its own on the card.  The JAX CLI's edge and league
-modes are not ported yet: each exits 1 naming its ROADMAP item.
+serving processes of its own on the card.  ``--edge`` serves an artifact
+of ``python -m handyrl_tpu_torch.models.export`` (``fleet.edge_model``
+when none is given) on ``fleet.edge_port``.  The JAX CLI's league mode is
+not ported yet: it exits 1 naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,7 +32,6 @@ from typing import Any, Dict, List, Optional
 from .config import normalize_args
 
 NOT_PORTED = {
-    "--edge": "ROADMAP A10, item 4 (models/export.py and fleet/edge.py)",
     "--league": "ROADMAP A10, item 6 (the league)",
     "-l": "ROADMAP A10, item 6 (the league)",
 }
@@ -87,6 +89,13 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
 
         # its replicas are processes of their own: the device names theirs
         return fleet_main(load_args(), device=device)
+    if mode == "--edge":
+        from .fleet.edge import edge_main
+
+        args = load_args()
+        if len(argv) > 1:
+            args["edge_model"] = argv[1]
+        return edge_main(args, device=device)
     if mode in NOT_PORTED:
         print(f"mode {mode} is not ported to handyrl_tpu_torch yet ({NOT_PORTED[mode]})")
         return 1

@@ -130,12 +130,16 @@ def build_inference_model(module: nn.Module, state_dict: Dict[str, Any],
     """A new module of ``module``'s structure, allocated on ``device`` (the
     card unless the caller asks for another) and filled from
     ``state_dict`` (tensors or numpy arrays by name), wrapped as an
-    ``InferenceModel``.  Each serving engine gets one: nothing is shared
+    ``InferenceModel``; ``weight_dtype: int8`` builds the int8-resident
+    ``QuantizedInferenceModel`` (an fp32 or an already quantized tree).  Each serving engine gets one: nothing is shared
     with ``module`` or with another engine, and a live engine's module is
     never copied."""
     if weight_dtype == "int8":
-        raise ValueError("serving.weight_dtype: int8 is not ported to handyrl_tpu_torch yet "
-                         "(ROADMAP A10, models/quantize.py)")
+        # the codes and scales go straight onto the device; each layer
+        # dequantizes its own kernel inside its forward (models/quantize.py)
+        from .quantize import QuantizedInferenceModel
+
+        return QuantizedInferenceModel(module, state_dict, device=device)
     if weight_dtype not in (None, "float32"):
         raise ValueError(f"weight_dtype must be 'float32' or 'int8', got {weight_dtype!r}")
     device = resolve_device(device)

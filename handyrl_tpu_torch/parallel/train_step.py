@@ -100,6 +100,13 @@ def forward_prediction(module, params, batch: Dict[str, Any], args: Dict[str, An
     in place of the module's own (bf16 copies), or None."""
     cdt = _compute_dtype(args)
     obs = batch["observation"]
+    if any(x.dtype == torch.int8 for x in tree_leaves(obs)):
+        # obs_int8: the planes arrive int8 (wire -> slots -> the card) and
+        # widen here, on the card, under the spec the generator quantized
+        # with (args['_obs_quant'], set by the learner; absent = unit scale)
+        from ..models.quantize import dequantize_obs_tree
+
+        obs = dequantize_obs_tree(obs, args.get("_obs_quant"))
     if cdt is not None:
         obs = _cast_floats(obs, cdt)
     B, T, P1 = batch["action"].shape[:3]

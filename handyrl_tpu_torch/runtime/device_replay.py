@@ -599,14 +599,24 @@ class EpisodeObsView:
     # DeviceReplay's constructor only probes for the streaming hook
     record = None
 
-    def __init__(self, num_players: int, obs_template, n_obs_leaves: int):
+    def __init__(self, num_players: int, obs_template, n_obs_leaves: int, obs_spec=None):
         self.num_players = num_players
         self._template = obs_template
         self._n = n_obs_leaves
+        # obs_int8: the per-leaf (scale, zero_point) the episodes' planes were
+        # quantized under (they carry it as obs_scale / obs_zero); None = the
+        # rings hold the planes at their own dtype
+        self._spec = obs_spec
 
     def _tree(self, compact: Dict[str, Any]):
         leaves = iter([compact[f"obs{i}"] for i in range(self._n)])
-        return tree_map(lambda _: next(leaves), self._template)
+        tree = tree_map(lambda _: next(leaves), self._template)
+        if self._spec is not None:
+            # the rings stay int8; the sampled windows widen on the card
+            from ..models.quantize import dequantize_obs_tree
+
+            tree = dequantize_obs_tree(tree, self._spec)
+        return tree
 
     def view_obs(self, compact: Dict[str, Any], player: torch.Tensor):
         rows = torch.arange(player.shape[0], device=player.device)
@@ -715,7 +725,10 @@ class DeviceEpisodeStage:
         for i, leaf in enumerate(obs_leaves):
             rec[f"obs{i}"] = np.asarray(leaf)
         if self.replay is None:
-            self._view = EpisodeObsView(P, tree_map(lambda _: None, cols["obs"]), len(obs_leaves))
+            from ..models.quantize import episode_obs_spec
+
+            self._view = EpisodeObsView(P, tree_map(lambda _: None, cols["obs"]), len(obs_leaves),
+                                        obs_spec=episode_obs_spec(episode))
             self.replay = DeviceReplay(self._view, self.module, self.args, self.n_lanes,
                                        slots=self.slots, device=self.device)
         lane = min(range(self.n_lanes), key=lambda i: self._qlen[i])

@@ -106,13 +106,16 @@ def build_agent(raw: Any, env=None) -> Optional[Any]:
     return None
 
 
-def load_model(model_path: str, env, device=None) -> InferenceModel:
-    """A ``.ckpt`` state dict -> the env's net on ``device``."""
-    if not model_path.endswith(".ckpt"):
-        raise ValueError(
-            f"{model_path!r}: the port loads .ckpt checkpoints only; exported models "
-            "(.hlo, .tf, .onnx) wait for the export port (ROADMAP A10)"
-        )
+def load_model(model_path: str, env, device=None):
+    """A model path -> something with the ``InferenceModel`` surface on
+    ``device``: a ``.ckpt`` state dict as the env's net; an exported
+    ``.pt2`` program (``models/export.py``) as an ``ExportedModel``; an
+    ``.onnx`` file through onnxruntime, where installed.  The JAX package's
+    ``.hlo`` and ``.tf`` artifacts are refused by name."""
+    if model_path.endswith((".pt2", ".onnx", ".hlo", ".tf")):
+        from ..models.export import load_artifact
+
+        return load_artifact(model_path, device=device)
     module = env.net()
     module.load_state_dict(load_params(model_path))
     return InferenceModel(module, device)

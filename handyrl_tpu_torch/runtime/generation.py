@@ -23,12 +23,18 @@ from ..utils import softmax, tree_map, tree_stack
 from .replay import compress_block
 
 
-def finalize_episode(rows, players, outcome, args, gen_args):
+def finalize_episode(rows, players, outcome, args, gen_args, obs_spec_fn=None):
     """Columnar-finalize per-step rows into a compressed-block episode.
 
+    The one episode recipe: self-play's Generator and the serving tier's
+    HarvestRecorder (flywheel/harvest.py) both finalize here, so a served
+    session's episode is byte-identical to the self-play encoding.
     ``rows`` are per-step dicts of per-player values (None = absent) with
     keys obs/prob/amask/action/value/reward plus a scalar "turn" index;
-    ``gen_args`` supplies gamma and compress_steps.
+    ``gen_args`` supplies gamma, compress_steps and obs_int8.  Under
+    obs_int8 the observations quantize once, here, under
+    ``obs_spec_fn(obs_template)``'s per-leaf (scale, zero), and the episode
+    carries that spec as ``obs_scale`` / ``obs_zero``.
     """
     P, T = len(players), len(rows)
     gamma = gen_args["gamma"]
@@ -84,21 +90,42 @@ def finalize_episode(rows, players, outcome, args, gen_args):
             )
         # [[tree per player] per step] -> tree with (t, P, ...) leaves
         cols["obs"] = tree_stack([tree_stack(step) for step in obs_leaves])
+        if gen_args.get("obs_int8"):
+            from ..models.quantize import quantize_obs_tree
+
+            cols["obs"] = quantize_obs_tree(cols["obs"], obs_spec_fn(obs_template))
         blocks.append(compress_block(cols))
 
-    return {
+    episode = {
         "args": args,
         "steps": T,
         "players": players,
         "outcome": outcome,
         "blocks": blocks,
     }
+    if gen_args.get("obs_int8"):
+        # the spec rides with the episode: every consumer dequantizes under
+        # the scales the data was quantized with
+        spec = obs_spec_fn(obs_template)
+        episode["obs_scale"] = np.asarray([s for s, _ in spec], np.float32)
+        episode["obs_zero"] = np.asarray([z for _, z in spec], np.float32)
+    return episode
 
 
 class Generator:
     def __init__(self, env, args: Dict[str, Any]):
         self.env = env
         self.args = args
+        # obs_int8: the per-leaf (scale, zero_point), resolved once from
+        # the env (models/quantize.py obs_quant_spec)
+        self._obs_spec = None
+
+    def _obs_quant_spec(self, obs_template):
+        if self._obs_spec is None:
+            from ..models.quantize import obs_quant_spec
+
+            self._obs_spec = obs_quant_spec(self.env, obs=obs_template)
+        return self._obs_spec
 
     def generate(self, models: Dict[int, Any], args: Dict[str, Any]) -> Optional[Dict[str, Any]]:
         env = self.env
@@ -168,7 +195,8 @@ class Generator:
 
         if not rows:
             return None
-        return finalize_episode(rows, players, env.outcome(), args, self.args)
+        return finalize_episode(rows, players, env.outcome(), args, self.args,
+                                obs_spec_fn=self._obs_quant_spec)
 
     def execute(self, models: Dict[int, Any], args: Dict[str, Any]) -> Optional[Dict[str, Any]]:
         episode = self.generate(models, args)

@@ -43,9 +43,17 @@ written within ``drain_deadline_seconds``, and ``run`` returns 75
 driven from another thread reaches the drain by calling
 ``_drain_handler``.  ``trace.enabled`` arms the span tracer
 (utils/trace.py) at construction; ``HANDYRL_FAULT_WEDGE_ROLLOUT`` wedges
-the rollout thread for its watchdog to find.  The JAX package's
-distributed learner, data flywheel and split plane are not ported
-(ROADMAP).
+the rollout thread for its watchdog to find.
+
+Under ``obs_int8`` the env's quantize spec goes to the train step as
+``args['_obs_quant']``.  Under ``flywheel.enabled`` (flywheel/) an ingest
+thread pulls harvested episodes from the serving tier into
+``feed_episodes``, each boundary adopts a new rollback signal of the
+quality plane (the trainer rolls back on its own thread), and
+``gc_snapshots`` spares the epochs the serving tier routes.
+``HANDYRL_FAULT_POISON_SNAPSHOT_AT_EPOCH=N`` saves epoch N's snapshot with
+negated params while training goes on clean.  The JAX package's
+distributed learner and split plane are not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -149,6 +157,14 @@ class Learner:
         # in-flight jobs of vanished worker connections, handed back (remote)
         self.jobs_lost = {"g": 0, "e": 0}
 
+        if self.args.get("obs_int8"):
+            # the spec the generators quantize with, for the train step's
+            # dequantize (forward_prediction reads args['_obs_quant'])
+            from ..models.quantize import obs_quant_spec
+
+            self.env.reset()
+            self.args["_obs_quant"] = obs_quant_spec(
+                self.env, obs=self.env.observation(self.env.players()[0]))
         self.trainer = Trainer(self.args, self.module, self.device)
         self.trainer.device_replay = self._replay
         # the configured plane; an shm pipeline may still fall back to
@@ -168,6 +184,14 @@ class Learner:
                 self.trainer.load_state(state_path, self.model_epoch)
         self.model_server = LocalModelServer(self.module, make_env(args["env_args"]), self.args,
                                              self.device)
+        router = getattr(self.model_server, "_router", None)
+        if router is not None and getattr(router, "weight_dtype", "") == "int8":
+            # an int8 router's publish calibrates on this learner's episodes
+            from ..models.quantize import calibration_batches_from_store
+
+            store = self.trainer.store
+            router.calibration_source = lambda: calibration_batches_from_store(
+                store, router.calibration_batches)
         self.model_server.publish(self.model_epoch, self.trainer.state_host["params"])
         self.remote = remote
         if remote:
@@ -176,6 +200,20 @@ class Learner:
             self.worker = WorkerServer(self.args, self.handle, self.model_server)
         else:
             self.worker = LocalWorkerPool(self.args, self.handle, self.model_server)
+
+        # the data flywheel: the ingest thread (started by run()) and the
+        # quality plane's rollback signal, whose seq is read here so a signal
+        # left by an earlier run is never applied
+        self._flywheel_cfg = dict(self.args.get("flywheel") or {})
+        self._flywheel_ingestor = None
+        self.flywheel_rollbacks = 0
+        self._flywheel_rollback_seq = 0
+        if self._flywheel_cfg.get("enabled"):
+            from ..flywheel import read_rollback_signal
+
+            sig = read_rollback_signal(self.model_dir)
+            self._flywheel_rollback_seq = int(sig.get("seq", 0)) if sig else 0
+        self._fault_poison_epoch = faults.poison_snapshot_epoch()
 
         self._requests: queue.Queue = queue.Queue()
         self._deferred: List[Future] = []   # job requests waiting on the eval budget
@@ -414,7 +452,37 @@ class Learner:
         self._epoch_t0 = now
         self._epoch_steps0 = steps
         self._epoch_episodes0 = self.num_returned_episodes
+        self._flywheel_epoch(record)
         self._write_metrics(record)
+
+    def _gc_pin_set(self):
+        """The epochs ``gc_snapshots`` spares beyond the newest verified: the
+        ones the serving tier routes (SERVING.json)."""
+        from ..flywheel.quality import serving_pinned_epochs
+
+        return tuple(sorted(serving_pinned_epochs(self.model_dir)))
+
+    def _flywheel_epoch(self, record: Dict[str, Any]) -> None:
+        """The boundary's flywheel books: the ingest counters into the
+        record, and a new rollback signal (seq-gated: each once) handed to
+        the trainer."""
+        if not self._flywheel_cfg.get("enabled"):
+            return
+        if self._flywheel_ingestor is not None:
+            record.update(self._flywheel_ingestor.stats())
+        from ..flywheel import read_rollback_signal
+
+        sig = read_rollback_signal(self.model_dir)
+        seq = int(sig.get("seq", 0)) if sig else 0
+        if sig and seq > self._flywheel_rollback_seq:
+            self._flywheel_rollback_seq = seq
+            target = int(sig.get("target_epoch", 0))
+            print(f"flywheel: serving tier flagged epoch {sig.get('bad_epoch')} "
+                  f"({sig.get('reason')}); requesting trainer rollback to verified epoch "
+                  f"{target or 'newest'}", flush=True)
+            self.trainer.request_rollback(target)
+            self.flywheel_rollbacks += 1
+        record["flywheel_rollbacks"] = self.flywheel_rollbacks
 
     def update_model(self, params, steps: int):
         """Save the new epoch's snapshot (atomic, in the manifest), collect
@@ -422,11 +490,19 @@ class Learner:
         and the publish took."""
         print("updated model(%d)" % steps)
         self.model_epoch += 1
+        save_params = params
+        if self._fault_poison_epoch is not None and self.model_epoch == self._fault_poison_epoch:
+            # fault injection (runtime/faults.py): the SAVED snapshot is negated,
+            # digest-valid and loadable, so only the flywheel's live gate can
+            # catch it; the published and trained params stay clean
+            print(f"[fault] poison_snapshot: epoch {self.model_epoch} snapshot saved with "
+                  "NEGATED params (training params stay clean)", flush=True)
+            save_params = {k: -v if v.is_floating_point() else v for k, v in params.items()}
         t0 = time.perf_counter()
         with trace_span("checkpoint.save", plane="learner", epoch=self.model_epoch):
-            save_epoch_snapshot(self.model_dir, self.model_epoch, params,
+            save_epoch_snapshot(self.model_dir, self.model_epoch, save_params,
                                 self.trainer.save_payload(self.model_epoch), steps)
-        gc_snapshots(self.model_dir, int(self.args["keep_checkpoints"]))
+        gc_snapshots(self.model_dir, int(self.args["keep_checkpoints"]), pin=self._gc_pin_set())
         t1 = time.perf_counter()
         self.model_server.publish(self.model_epoch, params)
         return t1 - t0, time.perf_counter() - t1
@@ -670,7 +746,7 @@ class Learner:
         params, payload, steps = self.trainer.drain_payload(self.model_epoch)
         with trace_span("checkpoint.save", plane="learner", epoch=self.model_epoch):
             save_epoch_snapshot(self.model_dir, self.model_epoch, params, payload, steps)
-        gc_snapshots(self.model_dir, int(self.args["keep_checkpoints"]))
+        gc_snapshots(self.model_dir, int(self.args["keep_checkpoints"]), pin=self._gc_pin_set())
         print(f"[handyrl_tpu_torch] drain checkpoint: epoch {self.model_epoch} at step {steps} "
               "(manifest-verified; resume with restart_epoch: -1)", file=sys.stderr, flush=True)
 
@@ -888,6 +964,7 @@ class Learner:
                 self._start_rollout_thread()
                 threading.Thread(target=self._watchdog_loop, daemon=True,
                                  name="plane-watchdog").start()
+            self._start_flywheel_ingest()
             try:
                 self.server()
             finally:
@@ -901,9 +978,34 @@ class Learner:
                         timeout = max(5.0, min(timeout, left))
                     self._rollout_thread.join(timeout=timeout)
         finally:
+            if self._flywheel_ingestor is not None:
+                self._flywheel_ingestor.stop()
             self._restore_signal_handlers()
             trace.shutdown()   # the ring's tail; nothing when tracing is off
         return EXIT_RESUMABLE if self._drain_requested else 0
+
+    def _start_flywheel_ingest(self) -> None:
+        """Start the harvest ingest (flywheel/ingest.py) when the flywheel is
+        on and the mix takes served episodes; they enter through the
+        request queue as a worker's episodes do."""
+        cfg = self._flywheel_cfg
+        if not cfg.get("enabled") or float(cfg.get("harvest_fraction", 0.5)) <= 0.0:
+            return
+        from ..flywheel import HarvestIngestor
+        from ..serving.client import ServingClient
+
+        host = str(cfg.get("harvest_host", "127.0.0.1"))
+        port = int(cfg.get("harvest_port", 0)) or int(self.args["serving"].get("port", 9997))
+
+        def submit(episodes):
+            self.handle("episode", episodes, timeout=60.0)
+
+        self._flywheel_ingestor = HarvestIngestor(
+            dict(cfg, update_episodes=self.args.get("update_episodes", 0)), submit,
+            lambda: self.model_epoch, lambda: ServingClient(host, port, timeout=10.0),
+        ).start()
+        print(f"flywheel: harvest ingest armed ({host}:{port}, fraction "
+              f"{cfg.get('harvest_fraction', 0.5)})", flush=True)
 
 
 def train_main(args: Dict[str, Any], device=None) -> int:

@@ -71,7 +71,10 @@ PIPE_EVENT_KEYS = ("batcher_deaths", "batcher_restarts", "batcher_fallback")
 
 # the divergence sentinel's events, cumulative in metrics.jsonl: in-step
 # skips, loss spikes, rollbacks to a verified snapshot
-SENTINEL_EVENT_KEYS = ("sentinel_skipped_steps", "sentinel_spike_steps", "sentinel_rollbacks")
+SENTINEL_EVENT_KEYS = ("sentinel_skipped_steps", "sentinel_spike_steps", "sentinel_rollbacks",
+                       # asked for by the serving tier's quality sentinel
+                       # (flywheel/quality.py -> the learner -> request_rollback)
+                       "sentinel_flywheel_rollbacks")
 
 
 def host_copy(tree):
@@ -278,6 +281,9 @@ class Trainer:
         self._fault_nan = faults.nan_window()
         self._fault_sigterm = faults.sigterm_at_step()
         self._fault_sigterm_fired = False
+        # an epoch the quality plane asked to roll back to, taken at the next
+        # epoch's start on the trainer's own thread (0 = the newest verified)
+        self._requested_rollback: Optional[int] = None
         self.last_loss: Dict[str, float] = {}
         self.stats: Dict[str, float] = {}
         self.update_flag = False
@@ -366,6 +372,7 @@ class Trainer:
         device_replay the pulls sample from the rings instead (see
         ``_replay_epoch``).  Either way the epoch ends with the EMA update
         and the stats."""
+        self._consume_requested_rollback()
         lr = self.lr
         history: List[Dict[str, float]] = []
         updates = 0
@@ -537,6 +544,42 @@ class Trainer:
               f"(step counter stays at {self.steps}; fresh optimizer; re-seeded sampling "
               "generator)", file=sys.stderr)
 
+    def request_rollback(self, epoch: int) -> None:
+        """Ask for a rollback to verified ``epoch`` (<= 0: the newest
+        verified), the serving tier's quality signal.  Called from the
+        learner's thread; the reset happens at the next epoch's start on the
+        trainer's thread, never in the middle of a step."""
+        self._requested_rollback = int(epoch)
+
+    def _consume_requested_rollback(self) -> None:
+        requested = self._requested_rollback
+        if requested is None:
+            return
+        self._requested_rollback = None
+        from . import checkpoint as ckpt
+
+        model_dir = self.args.get("model_dir", "models")
+        try:
+            target = requested if requested > 0 else ckpt.latest_verified_epoch(model_dir)
+            if target <= 0:
+                print("[flywheel] quality rollback requested but no verified snapshot exists; "
+                      "keeping current params", file=sys.stderr)
+                return
+            # a full digest check: the signal names an epoch the serving tier
+            # trusted, not one this process verified
+            params = ckpt.load_verified_params(model_dir, target)
+        except (ckpt.CheckpointError, OSError) as exc:
+            print(f"[flywheel] quality rollback to epoch {requested} refused ({exc}); keeping "
+                  "current params", file=sys.stderr)
+            return
+        self._sentinel_streak = 0
+        self._loss_ema = None
+        self.sentinel_events["sentinel_flywheel_rollbacks"] += 1
+        self._reset_state_from(params)
+        print(f"[flywheel] rolled back to verified epoch {target} on the serving tier's quality "
+              f"signal (step counter stays at {self.steps}; fresh optimizer; re-seeded sampling "
+              "generator)", file=sys.stderr)
+
     def _reset_state_from(self, params) -> None:
         """The rollback's tail: ``params`` into the module, a fresh Adam
         (the moments fed the divergence), the step counter kept monotone
@@ -546,7 +589,9 @@ class Trainer:
         ctx.module.load_state_dict(params)
         ctx.optimizer = torch.optim.Adam(ctx.module.parameters(), lr=0.0, weight_decay=1e-5)
         seed = ((int(self.args.get("seed", 0)) ^ 0x7EA1)
-                + 0x9E3779B9 * self.sentinel_events["sentinel_rollbacks"] + self.steps)
+                + 0x9E3779B9 * (self.sentinel_events["sentinel_rollbacks"]
+                                + self.sentinel_events["sentinel_flywheel_rollbacks"])
+                + self.steps)
         self._replay_gen = torch.Generator(device=ctx.device).manual_seed(seed % (1 << 63))
         self.state_host = self._snapshot()
 

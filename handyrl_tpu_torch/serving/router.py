@@ -22,6 +22,9 @@ background thread, never dropped.
 
 Engines take the router's devices in turn; by default that is the one
 device the port resolves (the card unless the caller asks for another).
+``serving.weight_dtype: int8`` makes every engine int8-resident
+(models/quantize.py), on publish, stage and cold resolve alike, and an
+int8 publish records a calibration when ``calibration_source`` is set.
 """
 
 from __future__ import annotations
@@ -146,7 +149,16 @@ class ModelRouter:
             "shed_policy": cfg.get("shed_policy", "deadline"),
             "queue_bound": int(cfg.get("queue_bound", 1024)),
         }
+        # every engine this router builds (publish, stage, cold resolve)
+        # goes through build_inference_model: 'int8' keeps int8 codes and
+        # fp32 scales resident on the device (models/quantize.py)
         self.weight_dtype = cfg.get("weight_dtype", "float32")
+        self.calibration_batches = int(cfg.get("calibration_batches", 4))
+        # an owner holding stored episodes sets this (a callable returning
+        # batched observation trees); each int8 publish then records the
+        # measured fp32-vs-int8 output deviation in last_calibration
+        self.calibration_source = None
+        self.last_calibration: Optional[Dict[str, float]] = None
         self._devices: List[torch.device] = (
             [resolve_device(d) for d in devices] if devices is not None else [resolve_device()]
         )
@@ -196,6 +208,7 @@ class ModelRouter:
         warm-up wall ms."""
         engine = self._spawn(params)
         warm_ms = engine.warm(self.warm_buckets, self._template_obs) if warm else 0.0
+        self._maybe_calibrate(params, engine.device)
         with self._lock:
             if self._stopped:
                 displaced = None
@@ -223,6 +236,20 @@ class ModelRouter:
             self._retire(displaced)
         self._evict_over_capacity()
         return warm_ms
+
+    def _maybe_calibrate(self, params, device) -> None:
+        """An int8 publish replays stored observations through an fp32 and
+        an int8 engine of ``params`` and records the measured output
+        deviation, never a weight-space bound."""
+        if (self.weight_dtype != "int8" or self.calibration_batches <= 0
+                or self.calibration_source is None):
+            return
+        from ..models.quantize import calibration_report
+
+        batches = list(self.calibration_source())[: self.calibration_batches]
+        if batches:
+            self.last_calibration = calibration_report(self.module, params, batches,
+                                                       device=device)
 
     def maybe_refresh(self) -> Optional[int]:
         """Publish the newest manifest-verified snapshot if it is newer than

@@ -20,14 +20,23 @@ Wire protocol (codec frames; each request/reply pair carries ``rid``):
     -> ("export_sessions", {"rid"})     <- ("sessions_export", {"rid", "sessions", "fresh", "count"})
     -> ("import_sessions", {"rid", "sessions", "fresh"?})
                                         <- ("sessions_imported", {"rid", "count"})
-    -> ("harvest_open" | "harvest_step" | "harvest_close" | "harvest_pull"
-        | "report_outcome", {"rid", ...})
-                                        <- ("error", {"rid", "kind": "bad_request", ...})
+    -> ("harvest_open", {"rid", "players", "sids"})  <- ("harvest_opened", {"rid", "hid"})
+    -> ("harvest_step", {"rid", "hid", "actions", "legal", "rewards", "turn"})
+                                        <- ("harvest_stepped", {"rid", "hid", "steps"})
+    -> ("harvest_close", {"rid", "hid", "outcome"})
+                                        <- ("harvest_closed", {"rid", "hid", "kept"})
+    -> ("harvest_pull", {"rid", "max"}) <- ("harvest", {"rid", "episodes", "counts"})
+    -> ("report_outcome", {"rid", "model", "outcome"}) <- ("outcome_recorded", {"rid"})
     -> ("heartbeat", None)              (liveness only, never replied)
     <- ("draining", {"deadline_s"})     (rid-less notice, pushed to every peer)
 
-The data flywheel is not ported (ROADMAP A10): its frames get the answer
-the JAX server gives when its flywheel is off.  A ``swap`` frame's
+The data flywheel (flywheel/, ``flywheel.enabled``) attaches a
+``FlywheelPlane``: the harvest frames bind sessions into episodes, captured
+at the infer and reply seams; a share of latest-addressed requests shadows
+to a staged candidate; the watch loop (on at 1 s when the flywheel is on
+and ``watch_interval`` is 0) runs the promotion gate and the sentinel in
+place of the plain refresh.  Without it the harvest frames get "flywheel
+disabled", as from the JAX server.  A ``swap`` frame's
 ``params`` is a state dict of numpy arrays (the codec carries no tensor);
 without it the server loads ``{id}.ckpt`` from its model dir,
 digest-verified.  ``watch_interval`` > 0 arms a manifest watcher that hot
@@ -80,7 +89,7 @@ class ServingServer(QueueCommunicator):
     """Continuous-batching inference server over the framed transport."""
 
     def __init__(self, router: ModelRouter, serving_cfg: Dict[str, Any],
-                 metrics_path: Optional[str] = None):
+                 metrics_path: Optional[str] = None, flywheel=None):
         cfg = dict(serving_cfg or {})
         recv_timeout = float(cfg.get("recv_timeout", 0.0)) or None
         # a pipelining client draining a batch's replies outruns its socket
@@ -91,9 +100,15 @@ class ServingServer(QueueCommunicator):
             send_queue_size=max(256, int(cfg.get("queue_bound", 1024))),
         )
         self.router = router
+        # the data flywheel (flywheel/FlywheelPlane), or None
+        self.flywheel = flywheel
         self.port = int(cfg.get("port", 9997))
         self.bound_port: Optional[int] = None
         self.watch_interval = float(cfg.get("watch_interval", 0.0))
+        if flywheel is not None and self.watch_interval <= 0:
+            # the gate and the sentinel run in the watch loop: a flywheel
+            # server without one would stage and judge nothing
+            self.watch_interval = 1.0
         self.stats_interval = float(cfg.get("stats_interval", 30.0))
         self._default_slo_s = float(cfg.get("slo_ms", 200.0)) / 1000.0
         self._sheds = cfg.get("shed_policy", "deadline") != "none"
@@ -197,8 +212,15 @@ class ServingServer(QueueCommunicator):
                 elif req == "import_sessions":
                     self._cold_pool.submit(self._handle_import_sessions, conn, rid, data)
                 elif req in FLYWHEEL_FRAMES:
-                    self._error(conn, rid, "bad_request",
-                                "flywheel disabled (flywheel.enabled: false)")
+                    if self.flywheel is None:
+                        self._error(conn, rid, "bad_request",
+                                    "flywheel disabled (flywheel.enabled: false)")
+                    elif req in ("harvest_close", "harvest_pull"):
+                        # a close finalizes and compresses a whole game, a
+                        # pull encodes a batch of them: off this thread
+                        self._cold_pool.submit(self._handle_harvest, conn, rid, req, data)
+                    else:
+                        self._handle_harvest(conn, rid, req, data)
                 else:
                     self._error(conn, rid, "bad_request", f"unknown request {req!r}")
             except Exception as exc:
@@ -280,6 +302,38 @@ class ServingServer(QueueCommunicator):
         except Exception as exc:
             self._error(conn, rid, "error", f"{type(exc).__name__}: {exc}")
 
+    def _handle_harvest(self, conn: FramedConnection, rid, req: str,
+                        data: Dict[str, Any]) -> None:
+        """The flywheel's frames: the client reports the half of each step
+        only it knows; the recorder captured the server's half already."""
+        from ..flywheel import HarvestError
+
+        recorder = self.flywheel.recorder
+        try:
+            if req == "harvest_open":
+                hid = recorder.open_episode(data.get("players") or (), data.get("sids") or ())
+                self.send(conn, ("harvest_opened", {"rid": rid, "hid": hid}))
+            elif req == "harvest_step":
+                steps = recorder.step(data.get("hid"), data.get("actions") or (),
+                                      data.get("legal") or (), data.get("rewards") or (),
+                                      data.get("turn"))
+                self.send(conn, ("harvest_stepped",
+                                 {"rid": rid, "hid": data.get("hid"), "steps": steps}))
+            elif req == "harvest_close":
+                episode = recorder.close(data.get("hid"), data.get("outcome"))
+                self.send(conn, ("harvest_closed",
+                                 {"rid": rid, "hid": data.get("hid"), "kept": episode is not None}))
+            elif req == "harvest_pull":
+                episodes, counts = recorder.pull(int(data.get("max", 64)))
+                self.send(conn, ("harvest", {"rid": rid, "episodes": episodes, "counts": counts}))
+            else:  # report_outcome
+                self.flywheel.quality.record_outcome(data.get("model"), data.get("outcome"))
+                self.send(conn, ("outcome_recorded", {"rid": rid}))
+        except (HarvestError, ValueError) as exc:
+            self._error(conn, rid, "bad_request", str(exc))
+        except Exception as exc:  # a pool task must never die silently
+            self._error(conn, rid, "error", f"{type(exc).__name__}: {exc}")
+
     def begin_drain(self, deadline_s: float = 60.0) -> bool:
         """The SIGTERM path: push a ``draining`` notice to every peer, then
         wait for a caller to pull the session cache (``export_sessions``)
@@ -302,6 +356,10 @@ class ServingServer(QueueCommunicator):
                   allow_cold: bool = True) -> None:
         rid = data.get("rid")
         model_id = data.get("model", -1)
+        if self.flywheel is not None:
+            # the shadow slice: a latest-addressed request may go to the
+            # staged candidate (pinned ids pass; the reply names the epoch)
+            model_id = self.flywheel.shadow_model(model_id)
         # the default budget also starts at arrival, so a cold request's
         # wait behind a snapshot load counts against it
         arrival = data.get("_arrival", time.monotonic())
@@ -323,6 +381,9 @@ class ServingServer(QueueCommunicator):
             # the session's state lives here (a hidden on the wire still
             # wins); a lost one restarts from the initial state, counted
             hidden, _status = self.sessions.lookup(sid)
+        if self.flywheel is not None and sid is not None:
+            # harvest capture, the request's half: this session's observation
+            self.flywheel.capture_request(sid, data.get("obs"))
         for attempt in (0, 1):
             try:
                 served, route = self.router.resolve(model_id, allow_cold=allow_cold)
@@ -361,6 +422,10 @@ class ServingServer(QueueCommunicator):
                       flush=True)
                 os.kill(os.getpid(), signal.SIGTERM)
             out = fut.result()
+            if self.flywheel is not None and sid is not None:
+                # harvest capture, the reply's half, before the reply leaves:
+                # a client that has its reply knows the step is captured
+                self.flywheel.capture_reply(sid, served, out)
             if sid is not None and isinstance(out, dict) and "hidden" in out:
                 # the next state stays here (store() copies it back to the
                 # device) and the reply sheds its largest part; out is this
@@ -401,6 +466,14 @@ class ServingServer(QueueCommunicator):
             if self.shutdown_flag:
                 return
             try:
+                if self.flywheel is not None:
+                    # the flywheel's beat replaces the plain refresh: with the
+                    # gate off it is maybe_refresh, with it on it stages and
+                    # judges candidates and runs the sentinel
+                    event = self.flywheel.tick()
+                    if event is not None:
+                        print(f"serving: flywheel: {event}", flush=True)
+                    continue
                 published = self.router.maybe_refresh()
                 if published is not None:
                     print(f"serving: hot-swapped to verified snapshot {published}", flush=True)
@@ -444,6 +517,17 @@ class ServingServer(QueueCommunicator):
         }
         if self.sessions is not None:
             record.update(self.sessions.stats())
+        if self.flywheel is not None:
+            record.update(self.flywheel.stats_record())
+        if getattr(self.router, "weight_dtype", "float32") != "float32":
+            # the int8 rung: its dtype and the last publish's measured
+            # calibration (none until a calibration source is wired)
+            record["lowprec_weight_dtype"] = self.router.weight_dtype
+            calib = getattr(self.router, "last_calibration", None)
+            if calib:
+                record["lowprec_calib_batches"] = calib["calib_batches"]
+                record["lowprec_calib_max_dev"] = calib["calib_max_dev"]
+                record["lowprec_calib_mean_dev"] = calib["calib_mean_dev"]
         return record
 
     def _metrics_loop(self) -> None:
@@ -503,7 +587,29 @@ def serve_main(args: Dict[str, Any], device=None) -> int:
         router.publish(0, init_variables(module, int(train.get("seed", 0))).state_dict())
     del module  # the engine holds its own weights
 
-    server = ServingServer(router, serving_cfg, metrics_path=train.get("metrics_path")).run()
+    flywheel = None
+    fly_cfg = train.get("flywheel", {}) or {}
+    if fly_cfg.get("enabled"):
+        from ..flywheel import FlywheelPlane
+
+        obs_spec_fn = None
+        if train.get("obs_int8"):
+            # harvested episodes quantize under the Generator's env spec
+            from ..models.quantize import obs_quant_spec
+
+            obs_spec_fn = lambda obs: obs_quant_spec(env, obs=obs)  # noqa: E731
+        gen_args = {
+            "gamma": train.get("gamma", 0.8),
+            "compress_steps": train.get("compress_steps", 8),
+            "observation": train.get("observation", True),
+            "obs_int8": bool(train.get("obs_int8", False)),
+        }
+        flywheel = FlywheelPlane(router, model_dir, fly_cfg, gen_args, obs_spec_fn=obs_spec_fn)
+        print(f"serving: data flywheel on (gate_promotions="
+              f"{bool(fly_cfg.get('gate_promotions', True))})", flush=True)
+
+    server = ServingServer(router, serving_cfg, metrics_path=train.get("metrics_path"),
+                           flywheel=flywheel).run()
     print(f"serving: listening on port {server.bound_port} "
           f"(model {router.latest_id()}, dir {model_dir!r}, device {router._devices[0]})",
           flush=True)

@@ -49,13 +49,27 @@ METRIC_KEYS = frozenset({
     "fleet_scale_ups", "fleet_scale_downs", "fleet_migrations",
     "fleet_sessions_migrated", "fleet_migration_ms",
     "fleet_failover_retries", "fleet_preempt_drains", "fleet_poll_retries",
+    # the data flywheel, serving side (flywheel/harvest.py, cumulative
+    # harvest books) and its quality plane (flywheel/quality.py)
+    "flywheel_episodes", "flywheel_open", "flywheel_queued",
+    "flywheel_dropped_malformed", "flywheel_dropped_truncated",
+    "flywheel_pulled",
+    "quality_promotions", "quality_gate_failures", "quality_demotions",
+    "quality_games", "quality_candidate", "quality_incumbent",
+    # the data flywheel, learner side (flywheel/ingest.py, the rollbacks
+    # the quality signal asked for)
+    "flywheel_ingested", "flywheel_ingest_stale",
+    "flywheel_ingest_malformed", "flywheel_rollbacks",
+    # the int8 rung of a serving server (models/quantize.py)
+    "lowprec_weight_dtype", "lowprec_calib_batches",
+    "lowprec_calib_max_dev", "lowprec_calib_mean_dev",
     # the span tracer's cumulative counters (utils/trace.py)
     "trace_spans", "trace_dropped",
     # both clocks, stamped by append_metrics_record
     "ts", "t_mono",
 })
 # key families: one prefix registers the family
-METRIC_KEY_PREFIXES = ("pipe_", "plane_", "sentinel_")
+METRIC_KEY_PREFIXES = ("pipe_", "plane_", "sentinel_", "quality_wp")
 
 
 def append_metrics_record(path: str, record: Dict[str, Any]) -> None:

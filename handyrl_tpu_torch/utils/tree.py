@@ -10,6 +10,7 @@ same order as the JAX package's (Geister: ``board`` before ``scalar``).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def tree_leaves(tree):
@@ -33,6 +34,35 @@ def tree_map(fn, tree, *rest):
         out = [tree_map(fn, child, *(r[i] for r in rest)) for i, child in enumerate(tree)]
         return type(tree)(out)
     return fn(tree, *rest)
+
+
+def tree_unflatten(tree, leaves):
+    """``leaves`` (in ``tree_leaves`` order) in ``tree``'s structure."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def to_numpy(x):
+    """A leaf on the host: a tensor's numpy copy, None as None, else an array."""
+    if x is None:
+        return None
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def tree_to_numpy(tree):
+    return tree_map(to_numpy, tree)
+
+
+def tree_max_rel_err(got, want) -> float:
+    """The largest error of ``got``'s leaves against ``want``'s, each relative
+    to max(1, that reference leaf's largest magnitude); NaN if any is (so a
+    non-finite output never reads as a small error)."""
+    errs = [0.0]
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = np.asarray(to_numpy(g), np.float64), np.asarray(to_numpy(w), np.float64)
+        if w.size:
+            errs.append(np.abs(g - w).max() / max(1.0, float(np.abs(w).max())))
+    return float(np.max(errs))
 
 
 def tree_stack(trees, axis=0):

@@ -99,7 +99,7 @@ def _value(path, value):
 
 # a value other than the JAX default, by dotted key path
 NON_DEFAULT = {
-    "plane": "split", "obs_int8": True, "plane_param_lag_bound": 5,
+    "plane": "split", "plane_param_lag_bound": 5,
     "autovec_verify_games": 4, "mesh": {"dp": 2}, "actor_chips": 2,
     "param_refresh_updates": 5, "distributed.num_processes": 2,
     "distributed.coordinator_address": "10.0.0.1:1234", "distributed.process_id": 1,
@@ -109,15 +109,53 @@ NON_DEFAULT = {
     "distributed.actor_hosts": 2, "observability.rank_metrics": False,
     "league.pfsp_weighting": "hard", "league.selfplay_rate": 0.5,
     "league.promote_winrate": 0.6, "league.promote_games": 4, "league.max_population": 8,
-    "flywheel.enabled": True, "flywheel.harvest_fraction": 1.0, "flywheel.staleness_epochs": 2,
-    "flywheel.harvest_host": "10.0.0.2", "flywheel.harvest_port": 9000,
-    "flywheel.harvest_poll_s": 2.0, "flywheel.harvest_max_pull": 8,
-    "flywheel.harvest_ttl_s": 60.0, "flywheel.harvest_max_open": 16,
-    "flywheel.gate_promotions": False, "flywheel.promote_winrate": 0.6,
-    "flywheel.promote_games": 8, "flywheel.shadow_fraction": 0.5,
-    "flywheel.quality_window": 8, "flywheel.demote_drop": 0.3,
-    "serving.weight_dtype": "int8", "serving.calibration_batches": 2,
 }
+
+# the key paths of the int8 rung and the flywheel, ported and acted on: a
+# value other than the default that both packages accept, and one the JAX
+# package refuses with the words its refusal carries
+INT8_AND_FLYWHEEL_KEYS = {
+    "obs_int8": (True, "yes", "must be a bool"),
+    "flywheel.enabled": (True, 1, "flywheel.enabled"),
+    "flywheel.harvest_fraction": (1.0, 2.0, "harvest_fraction must be in"),
+    "flywheel.staleness_epochs": (2, 0, "staleness_epochs must be >= 1"),
+    "flywheel.harvest_host": ("10.0.0.2", None, None),
+    "flywheel.harvest_port": (9000, 70000, "harvest_port"),
+    "flywheel.harvest_poll_s": (2.0, 0.0, "harvest_poll_s must be > 0"),
+    "flywheel.harvest_max_pull": (8, 0, "harvest_max_pull must be >= 1"),
+    "flywheel.harvest_ttl_s": (60.0, -1.0, "harvest_ttl_s must be > 0"),
+    "flywheel.harvest_max_open": (16, 0, "harvest_max_open must be >= 1"),
+    "flywheel.gate_promotions": (False, "no", "gate_promotions"),
+    "flywheel.promote_winrate": (0.6, 1.0, "promote_winrate must be in"),
+    "flywheel.promote_games": (8, 0, "promote_games must be >= 1"),
+    "flywheel.shadow_fraction": (0.5, -0.1, "shadow_fraction must be in"),
+    "flywheel.quality_window": (8, 0, "quality_window must be >= 1"),
+    "flywheel.demote_drop": (0.3, 0.0, "demote_drop must be in"),
+    "serving.weight_dtype": ("int8", "int4", "weight_dtype"),
+    "serving.calibration_batches": (2, -1, "calibration_batches must be >= 0"),
+}
+
+
+@pytest.mark.parametrize("key", sorted(INT8_AND_FLYWHEEL_KEYS))
+def test_int8_and_flywheel_keys_act_and_are_checked_as_in_jax(key):
+    """Each of these keys is ported: a non-default value passes (and reaches
+    the normalised args), it is not in NOT_PORTED_KEYS, and a value the JAX
+    package refuses is refused by both packages with the JAX words."""
+    from handyrl_tpu.config import normalize_args as jax_normalize_args
+
+    path = tuple(key.split("."))
+    good, bad, words = INT8_AND_FLYWHEEL_KEYS[key]
+    env = {"env": "TicTacToe"}
+    train = normalize_args({"env_args": env, "train_args": _value(path, good)})["train_args"]
+    for k in path:
+        train = train[k]
+    assert train == good
+    assert all(path != p for p, _, _ in NOT_PORTED_KEYS)
+    if words is None:   # a free-form key: any string passes both packages
+        return
+    for normalize in (normalize_args, jax_normalize_args):
+        with pytest.raises(ValueError, match=words):
+            normalize({"env_args": env, "train_args": _value(path, bad)})
 
 
 @pytest.mark.parametrize("path,default,item", NOT_PORTED_KEYS,

@@ -201,8 +201,16 @@ def test_load_model_agent_and_eval_vs_baseline(tmp_path):
     env.reset()
     np.testing.assert_array_equal(agent.model.inference(env.observation(0))["policy"],
                                   model.inference(env.observation(0))["policy"])
-    with pytest.raises(ValueError, match="ckpt"):
-        load_model_agent(str(tmp_path / "model.onnx"), env, device="cpu")
+    # exported artifacts dispatch on their suffix: .onnx needs onnxruntime
+    # (named when missing), the JAX package's .hlo and .tf are refused by name
+    import importlib.util
+
+    if importlib.util.find_spec("onnxruntime") is None:
+        with pytest.raises(ImportError, match="onnxruntime"):
+            load_model_agent(str(tmp_path / "model.onnx"), env, device="cpu")
+    for suffix, words in ((".hlo", "StableHLO"), (".tf", "SavedModel")):
+        with pytest.raises(ValueError, match=words):
+            load_model_agent(str(tmp_path / ("model" + suffix)), env, device="cpu")
     wp, mean = eval_vs_baseline({"env": "TicTacToe"}, agent, "random", num_games=8, num_workers=2)
     assert 0.0 <= wp <= 1.0 and -1.0 <= mean <= 1.0
     with pytest.raises(ValueError, match="opponent"):

@@ -1,7 +1,8 @@
 """The port's serving plane on the CPU: the continuous batcher, the model
 router, the network server and client, ``--serve``, and the ``serving``
-config block (the port's versions of tests/test_serving.py; the int8 paths
-are not ported).
+config block (the port's versions of tests/test_serving.py; the int8
+engines and the flywheel's serving seams are held against JAX in
+tests/test_torch_quantize.py and tests/test_torch_flywheel.py).
 
 * The batcher against direct inference; expiry freeing its slot; shed-fast
   admission, the idle engine that admits, a bucket's first run kept out of
@@ -851,11 +852,19 @@ def test_cli_serves_and_drains_on_sigterm(tmp_path, start):
 
 @pytest.mark.parametrize("mode", ["--fleet", "--edge", "--league"])
 def test_modes_still_refused_name_a10(mode, capsys, tmp_path, monkeypatch):
-    """``--edge`` and ``--league`` exit 1 naming their ROADMAP A10 item.
-    ``--fleet`` is ported: it is no longer refused, and with no replica
-    configured it says so (tests/test_torch_fleet.py runs it)."""
+    """``--league`` exits 1 naming its ROADMAP A10 item.  ``--fleet`` and
+    ``--edge`` are ported: neither is refused, and with no replica or no
+    artifact configured each says so (tests/test_torch_fleet.py and
+    tests/test_torch_export_edge.py run them)."""
     from handyrl_tpu_torch.main import main
 
+    if mode == "--edge":
+        monkeypatch.chdir(tmp_path)
+        (tmp_path / "config.yaml").write_text("env_args: {env: TicTacToe}\n")
+        with pytest.raises(ValueError, match="no edge artifact"):
+            main([mode], device="cpu")
+        assert "not ported" not in capsys.readouterr().out
+        return
     if mode == "--fleet":
         monkeypatch.chdir(tmp_path)
         (tmp_path / "config.yaml").write_text("env_args: {env: TicTacToe}\n")
@@ -876,7 +885,6 @@ def test_serving_config_validation():
 
     port, jax_defaults = normalize_args(_cfg()), jax_normalize_args(_cfg())
     jax_serving = dict(jax_defaults["train_args"]["serving"])
-    jax_serving.pop("calibration_batches")  # int8's publish-time calibration
     assert port["train_args"]["serving"] == jax_serving
     assert (port["train_args"]["drain_deadline_seconds"]
             == jax_defaults["train_args"]["drain_deadline_seconds"])
@@ -892,17 +900,32 @@ def test_serving_config_validation():
         for normalize in (normalize_args, jax_normalize_args):
             with pytest.raises(ValueError, match=match):
                 normalize(_cfg(**bad))
-    with pytest.raises(ValueError, match="ROADMAP A10"):
-        normalize_args(_cfg(weight_dtype="int8"))
+    # int8 engines are ported: the value passes both packages
+    for normalize in (normalize_args, jax_normalize_args):
+        assert normalize(_cfg(weight_dtype="int8"))["train_args"]["serving"]["weight_dtype"] == "int8"
     with pytest.raises(ValueError, match="drain_deadline_seconds"):
         normalize_args({"env_args": {"env": "TicTacToe"},
                         "train_args": {"drain_deadline_seconds": 0}})
 
 
 def test_int8_engines_are_refused_naming_a10():
+    """int8 engines are ported (models/quantize.py, held against JAX in
+    tests/test_torch_quantize.py): "int8" builds an int8-resident engine
+    whose outputs equal an fp32 engine of the dequantized weights (1e-6);
+    a dtype neither package knows is still refused."""
+    from handyrl_tpu_torch.models.quantize import dequantize_params, quantize_params
+
     env, module, obs = _tictactoe()
-    with pytest.raises(ValueError, match="ROADMAP A10"):
-        build_inference_model(module, module.state_dict(), "int8", device="cpu")
+    q = build_inference_model(module, module.state_dict(), "int8", device="cpu")
+    assert all(t.dtype == torch.int8 for k, t in q.module.state_dict().items()
+               if k.endswith("int8_q"))
+    f = build_inference_model(module, dequantize_params(quantize_params(module.state_dict())),
+                              device="cpu")
+    got, want = q.inference(obs), f.inference(obs)
+    for key in ("policy", "value"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="weight_dtype"):
+        build_inference_model(module, module.state_dict(), "float16", device="cpu")
 
 
 @pytest.mark.parametrize("entry", ["router", "serve_main"])

@@ -27,7 +27,9 @@ SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 
 @pytest.fixture(autouse=True)
 def _tracer_reset():
-    """Every test leaves both process tracers disarmed."""
+    """Every test leaves both process tracers disarmed, the JAX one with its
+    span counts at zero: ``tests/test_trace.py`` reads them as a disarmed
+    tracer's when it runs later in the same worker."""
     trace_mod.shutdown()
     jax_trace.shutdown()
     threads = torch.get_num_threads()
@@ -35,6 +37,7 @@ def _tracer_reset():
     yield
     trace_mod.shutdown()
     jax_trace.shutdown()
+    jax_trace._TRACER.spans = jax_trace._TRACER.dropped = 0
     torch.set_num_threads(threads)
 
 
