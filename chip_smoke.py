@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, a few minutes on an H100
     python3 chip_smoke.py --kernels-only  # phases 1-3: build, check and time the kernels
     python3 chip_smoke.py --parent DIR    # also: DIR's kernels against these (see phase_parent)
+    python3 chip_smoke.py --stream c      # one stream of phases alone (STREAMS)
 
 Phases, each of which fails the run when it fails:
 
@@ -32,7 +33,7 @@ Phases, each of which fails the run when it fails:
    through the masked flash kernel (launch count checked), its loss held
    against the einsum path on one batch.
 7. learner: (a) the repo's config.yaml (TicTacToe, SimpleConvNet) with
-   epochs cut to 2 through ``python -m handyrl_tpu_torch.main --train`` in a
+   epochs cut to 2 (100 + 50 episodes) through ``python -m handyrl_tpu_torch.main --train`` in a
    temp directory, its checkpoints verified against the manifest, and
    ``--eval models/latest.ckpt 20 4``; (b) the transformer above trained
    by ``Learner(args).run()`` (actor threads through the batched inference
@@ -50,9 +51,9 @@ Phases, each of which fails the run when it fails:
    port's conv mode (TF32) and in strict fp32; (b) HungryGeese (GeeseNet,
    simultaneous moves, 4 players) through ``python -m
    handyrl_tpu_torch.main --train`` for 2 epochs, evaluated against the
-   rule-based geese, then ``--eval models/latest.ckpt:rulebase 20 4``.
+   rule-based geese, then ``--eval models/latest.ckpt:rulebase 10 4``.
 9. the remote actor plane and network battles, over loopback: (a) the
-   repo's config.yaml with epochs cut to 3 through ``--train-server`` and
+   repo's config.yaml with epochs cut to 3 (100 + 50 episodes) through ``--train-server`` and
    ``--worker`` processes (8 remote actors on the card, a 1 s heartbeat),
    its checkpoints verified, episodes/s and updates/s per epoch; (b) the
    transformer above through ``Learner(args, remote=True)`` in this process
@@ -85,13 +86,13 @@ Phases, each of which fails the run when it fails:
    episodes/s over a timed window with the episode assembly inside it; a
    generate's host launch, device (events), wait and assembly ms; the
    launches per game step from one profiled call (HungryGeese, Geister);
-   (b) gates: 64 episodes per env replayed through the port's host env
+   (b) gates: 32 episodes per env replayed through the port's host env
    (every action legal, every observation and outcome equal), one step of
    each streaming twin on the card equal to the CPU's from the same state
    and noise, ties taken first by argmax/argmin and the rule-based twin on
    the card, every rollout tensor on the card; (c) HungryGeese through
    ``--train`` with ``device_rollout_games: 256`` and ``device_eval_games:
-   64`` against rulebase, 2 epochs (250 + 500 episodes): updates/s,
+   64`` against rulebase, 2 epochs (64 + 128 episodes): updates/s,
    the pipeline's stages, episodes/s from the device
    and from host workers, ``device_mean_episode_len``, the device-rulebase
    win rate, ``input_wait_frac``; every epoch on the fused plane with its
@@ -137,7 +138,7 @@ Phases, each of which fails the run when it fails:
    training slice's transformer at full width from a verified seed-0
    snapshot, 256 sessions resident, 1024 spilled: 8 connections x 64
    sessions (256 games of the model against itself, a session per seat)
-   for 10 s, session steps/s,
+   for 6 s, session steps/s,
    p50/p99, mean batch, restores and evictions (both > 0), a seed-1
    snapshot entered into the manifest mid-run and swapped in by the
    watcher, the hidden state's D2H and H2D ms per batch of 64, one batch
@@ -189,7 +190,7 @@ Phases, each of which fails the run when it fails:
    the card equal the fp32 ones bit for bit, train steps through B1 on
    each (finite, the first losses within 2e-2, n_layers launches per
    update), encoded and batch bytes; (ii) config.yaml's learner (2 epochs
-   of 64 + 64) with ``obs_int8`` true and false in turns on ``shm`` and
+   of 32 + 32) with ``obs_int8`` true and false in turns on ``shm`` and
    ``device`` (finite losses, updates/s, input wait), the staged rings'
    bytes; (c) (i) the transformer (step mode, KV-cache hidden) and GeeseNet
    exported to ``.pt2`` on the card, reloaded in fresh processes on the
@@ -205,19 +206,60 @@ Phases, each of which fails the run when it fails:
    failed or demoted, the learner rolls back, the served epochs survive
    ``gc_snapshots``.  Alone: ``python3 -c "import chip_smoke as cs;
    cs.phase_quantize_edge_flywheel({})"``.
+16. the autovec twins, the host-sync sanitizer and the league, random
+   weights from seeds: (a) ``TicTacToeRules`` and ``ConnectFourRules``
+   lifted by ``envs/autovec.py``, ``verify(64)`` of each on the card; the
+   lifted TicTacToe against ``VectorTicTacToe`` over 2048 games on the same
+   random legal actions, bit for bit; device self-play at 2048 games, hand
+   twin and lift in turns (A, B, B, A) with one ``SimpleConvNet`` and seed:
+   env-steps/s, their ratio (printed, not gated) and launches per game step;
+   the lifted ConnectFour's; ``--train`` on ConnectFour with
+   ``device_rollout_games`` and ``autovec_verify_games: 8``: the verified
+   line, device episodes, a finite loss; (b) ``HostSyncSanitizer`` and
+   ``RecompileSentinel`` (and CUDA's sync debug mode, counted) around 4
+   ``batch()`` calls and train steps of 7a's config on ``batch_pipeline:
+   device``: no sync, no build; a deliberate ``.cpu()`` named by its line;
+   (c) ``--league`` on TicTacToe at tests/test_league.py's geometry (8
+   epochs of 16 + 24, ``keep_checkpoints`` 2): >= 2 promotions by the gate,
+   each frozen member's books covering the pool of its time, LEAGUE.json
+   reloaded, the ``league_*`` keys, frozen epochs kept by GC, no
+   substitution; (d) the training slice's transformer through
+   ``LeagueLearner(args).run()``: 2 epochs, epoch 1 frozen as main-1, one
+   more epoch resumed with main-1 in the pool: its match jobs served by the
+   router's resident engine for epoch 1 (0 substituted), the frozen seats'
+   masks zero, candidate-vs-main-1 games on the books, B1 8 per update,
+   epoch 1 kept by a GC of ``keep_checkpoints`` 1; peak memory and seconds
+   per boundary.  (a)'s CLI and (c) run in processes of their own beside
+   (d).  Alone: ``python3 -c "import chip_smoke as cs;
+   cs.phase_league_autovec({})"``.
 
-Every learner phase (7a, 7b, 8a, 8b, 9a, 9b, 11c, 11d; 12(e)'s shm runs) runs on the port's default
+Every learner phase (7a, 7b, 8a, 8b, 9a, 9b, 11c, 11d, 16(a)'s CLI, 16(c), 16(d); 12(e)'s shm
+runs) runs on the port's default
 ``batch_pipeline: shm`` and fails unless every epoch's live pipeline mode
 is ``shm``, the codec accelerator and the C fill are loaded, and no
 batcher died or fell back; it prints the pipeline's stage seconds and the
 put's ms per batch.  The script fails if a shared-memory segment or a
 process of the port outlives it.
 
-Phases 4, 5-6, 7b, 9b, 12(c) and 15(b)(i) are the paths through the port's kernels:
-each starts with every launch count at 0, and its kernel's count is read
-at its end; phases 8a, 11, 13 and 14 are read the same way and launch
-neither kernel (8b, 9a, 9c, 11c, 12(d)'s CLI, 13(b)'s server and 14's
-replicas, fleet and CLI learners run in processes of their own).
+Phases 4, 5-6, 7b, 9b, 12(c), 15(b)(i) and 16(d) are the paths through the port's
+kernels.  Every phase after 3 starts with every launch count at 0, and
+the counts are read at its end (8b, 9a, 9c, 11c, 12(d)'s CLI, 13(b)'s
+server and 14's replicas, fleet and CLI learners run in processes of
+their own and launch neither kernel).
+
+Phases 1-3 run alone.  After them the phases run in three streams at once
+(``STREAMS``): 4, 5-6, 7b, 9b, 16, 14(d) and 9(a)+(c) in this process;
+7a, 8, 14(a)-(c), 15(c)-(d) and 10 in one child process of this script
+(``--stream b``); 11, 12, 13 and 15(a)-(b) in another (``--stream c``).
+The kernels line's launches are 7b's, 9b's and 16(d)'s here plus those
+the streams report when they end (12(c), 15(b)(i)).  A stream's output
+is printed whole once it has ended; a stream that fails fails the run,
+and a failure kills the streams still running.  Each phase's lap line
+gives its seconds and the CPU seconds its stream's processes spent on
+it.  The times and rates after phase 3 are taken with other phases
+running beside them: compare them only within one run, and within a
+leg's turns.
+
 The last two lines are a JSON ``kernels`` record and the verdict
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or of handyrl_tpu is
 imported.  Weights are random, made from a seed.
@@ -255,11 +297,13 @@ DRC_TRAIN_ARGS = {
     "policy_target": "UPGO", "value_target": "UPGO",
 }
 TRANSFORMER_EPISODES = 4  # minimum_episodes and update_episodes of phases 7b and 9b
-DRC_EPISODES = 16        # minimum_episodes and update_episodes of phase 8a
-GEESE_EPISODES = 50      # the same for phase 8b
+DRC_EPISODES = 8         # minimum_episodes and update_episodes of phase 8a
+GEESE_EPISODES = 16      # the same for phase 8b
 REMOTE_HEARTBEAT = 1.0   # phase 9's heartbeat interval, seconds (the default is 10)
 BATTLE_GAMES = 10        # phase 9c's games
-EVAL_GAMES = 20          # the --eval games of phases 7a and 8b
+EVAL_GAMES = 10          # the --eval games of phases 7a and 8b
+# config.yaml's minimum_episodes and update_episodes (400 and 200) in phases 7a and 9a
+CLI_EPISODES = (100, 50)
 # the card against the CPU on the RNN branch's outputs, absolute, times
 # max(1, the outputs' scale): cuDNN's TF32 convolutions round their inputs
 # to 10 bits of mantissa; in strict fp32 the two devices' conv algorithms
@@ -269,6 +313,21 @@ HEAD_DIMS = (16, 32, 64, 96, 128)   # the kernels' instantiated head dims
 TRAIN_STEPS = 4          # the first one is warm-up, left out of the rates
 EPISODES = 4
 SEED = 0
+# The phases after 3 run in three streams at once: "main" in this process
+# (it holds every phase whose launches the kernels line counts: 4, 6, 7b
+# and 16), the others each in a child process of this script.  A stream
+# runs its phases in order; phase 12 reads 11's records, so both are in one,
+# and 9c plays 9a's checkpoint.  9, 14 and 15 are split into legs
+# (``PHASES``) so that the streams take about as long as each other.
+STREAMS = {
+    "main": ("4", "6", "7b", "9b", "16", "14d", "9ac"),
+    "b": ("7a", "8", "14abc", "15cd", "10"),
+    "c": ("11", "12", "13", "15ab"),
+}
+STREAM_ENV = "CHIP_SMOKE_STREAM"   # the stream a process (and all it starts) belongs to
+T0_ENV = "CHIP_SMOKE_T0"           # the script's start (time.time()), for a stream's laps
+RESULTS_ENV = "CHIP_SMOKE_RESULTS" # where a stream writes its kernels' launch counts
+STREAM_DEADLINE = 1080             # seconds after the script's start by which every stream ends
 
 # what each kernel replaces, and its source (the kernels line)
 KERNELS = {
@@ -825,6 +884,35 @@ def run_cli(cwd, *argv, timeout=600, env=None, code=0):
     return proc.stdout + proc.stderr if code else proc.stdout, elapsed
 
 
+def start_cli(cwd, *argv):
+    """``python -m handyrl_tpu_torch.main ARGV`` started in ``cwd`` and left
+    running beside this process's work, its output in files there;
+    ``finish_cli`` waits for it as ``run_cli`` does."""
+    with open(os.path.join(cwd, "cli.out"), "w") as out, \
+            open(os.path.join(cwd, "cli.err"), "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "handyrl_tpu_torch.main", *argv],
+                                cwd=cwd, env=cli_env(), stdout=out, stderr=err)
+    return {"proc": proc, "cwd": cwd, "argv": argv, "t0": time.perf_counter()}
+
+
+def finish_cli(job, timeout=600):
+    """(stdout, seconds) of a ``start_cli`` child once it exits 0; fails the
+    phase on another exit, or kills it at ``timeout``."""
+    proc = job["proc"]
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    elapsed = time.perf_counter() - job["t0"]
+    out, err = (Path(job["cwd"], name).read_text() for name in ("cli.out", "cli.err"))
+    if proc.returncode != 0:
+        print(out[-3000:] + err[-3000:])
+    check(proc.returncode == 0,
+          f"main {' '.join(job['argv'])} exited {proc.returncode}, not 0")
+    return out, elapsed
+
+
 def check_snapshots(model_dir, epochs):
     """Every epoch's snapshot, latest.ckpt and state.ckpt verify against the
     manifest's digests."""
@@ -903,8 +991,11 @@ def phase_learner_cli(results):
     2, through ``python -m handyrl_tpu_torch.main --train`` and then
     ``--eval models/latest.ckpt EVAL_GAMES 4``, on the card."""
     with tempfile.TemporaryDirectory() as tmp:
-        text, n = re.subn(r"(?m)^(\s+epochs:\s*)-?\d+", r"\g<1>2", (ROOT / "config.yaml").read_text())
-        check(n == 1, "config.yaml has no single train_args.epochs line")
+        text = (ROOT / "config.yaml").read_text()
+        for key, value in (("epochs", 2), ("minimum_episodes", CLI_EPISODES[0]),
+                           ("update_episodes", CLI_EPISODES[1])):
+            text, n = re.subn(rf"(?m)^(\s+{key}:\s*)-?\d+", rf"\g<1>{value}", text)
+            check(n == 1, f"config.yaml has no single train_args.{key} line")
         Path(tmp, "config.yaml").write_text(text)
         train_out, train_s = run_cli(tmp, "--train")
         check_snapshots(os.path.join(tmp, "models"), [1, 2])
@@ -1313,14 +1404,15 @@ def remote_books(tag, records, worker_out):
 
 
 def phase_remote_cli(tmp):
-    """9a: the default config.yaml with epochs cut to 3 through ``python -m
+    """9a: the default config.yaml with epochs cut to 3 (CLI_EPISODES) through ``python -m
     handyrl_tpu_torch.main --train-server`` and ``--worker`` (8 actors on
     the card) over loopback, a short heartbeat."""
     import yaml
 
     cfg = yaml.safe_load((ROOT / "config.yaml").read_text())
     entry_port = free_port()
-    cfg["train_args"]["epochs"] = 3
+    cfg["train_args"].update(epochs=3, minimum_episodes=CLI_EPISODES[0],
+                             update_episodes=CLI_EPISODES[1])
     cfg["train_args"]["worker"].update(entry_port=entry_port, data_port=0,
                                        heartbeat_interval=REMOTE_HEARTBEAT)
     cfg["worker_args"].update(server_address="127.0.0.1", entry_port=entry_port)
@@ -1471,13 +1563,16 @@ def phase_battle(tmp):
           f"{sum(float(line.split('=')[1]) > 0 for line in games)}")
 
 
-def phase_remote(results):
+def phase_remote(results, parts="abc"):
     """9: the remote actor plane and network battles; 9b's kernel counts
-    start from 0."""
+    start from 0.  ``parts`` picks the legs (c plays a's checkpoint)."""
     with tempfile.TemporaryDirectory() as tmp:
-        phase_remote_cli(tmp)
-        phase_remote_learner(results)
-        phase_battle(tmp)
+        if "a" in parts:
+            phase_remote_cli(tmp)
+        if "b" in parts:
+            phase_remote_learner(results)
+        if "c" in parts:
+            phase_battle(tmp)
 
 
 # -- phase 10: the batch-assembly plane ---------------------------------------
@@ -1492,9 +1587,9 @@ ASSEMBLY_ENVS = {
 }
 CODEC_EPISODES = 64      # Geister episodes 10(a) encodes and decodes, and 10(b) samples
 PUT_REPEATS = 20         # copies of one slot timed in 10(b), the median kept
-KILL_EPISODES = 100      # minimum_episodes and update_episodes of 10(d)
+KILL_EPISODES = 50       # minimum_episodes and update_episodes of 10(d)
 # minimum_episodes and update_episodes of 10(c)'s 8a and 7a runs
-TURN_EPISODES = {"8a": (8, 8), "7a": (32, 32)}
+TURN_EPISODES = {"8a": (4, 4), "7a": (16, 16)}
 
 
 def random_episodes(env_args, gen_args, n, seed):
@@ -1882,11 +1977,11 @@ SELFPLAY = (
     ("ParallelTicTacToe", {"turn_based_training": False, "observation": False}, 256),
 )
 SELFPLAY_WINDOW = 2.0    # seconds of each rollout's timed window in 11(a)
-REPLAY_EPISODES = 64     # episodes per env replayed through the host env in 11(b)
+REPLAY_EPISODES = 32     # episodes per env replayed through the host env in 11(b)
 # 11(c): 8b's HungryGeese configuration with device self-play and evaluation
 DEVICE_GEESE = {
     "turn_based_training": False, "observation": False, "epochs": 2,
-    "minimum_episodes": 250, "update_episodes": 500,
+    "minimum_episodes": 64, "update_episodes": 128,
     "device_rollout_games": 256, "device_eval_games": 64,
     "eval": {"opponent": ["rulebase"]}, "seed": SEED,
 }
@@ -2370,7 +2465,7 @@ DATA_LOOPS = {
         "policy_target": "UPGO", "value_target": "UPGO", "fused_steps": 4, "seed": SEED},
         64, 32, 512, 2),
 }
-DATA_WINDOW = 3.0        # seconds of (a)'s and (b)'s timed windows
+DATA_WINDOW = 2.0        # seconds of (a)'s and (b)'s timed windows
 DATA_LR = 1e-5           # bench.py's lr for these loops
 # (c) the transformer of phases 5-7 in turn mode from rings: lanes, slots,
 # and the finished episodes the rings hold before the train calls
@@ -2380,7 +2475,7 @@ DATA_GEESE_CLI = dict(DEVICE_GEESE, device_replay=True, device_rollout_games=128
 # (e): 8b's and 8a's learners, one epoch each, device and shm in turns
 DATA_TURNS = ("device", "shm", "shm", "device")
 # (e)'s minimum_episodes and update_episodes: a one-epoch run trains on them
-DATA_TURN_EPISODES = {"8b": (100, 100), "8a": (16, 32)}
+DATA_TURN_EPISODES = {"8b": (64, 64), "8a": (8, 16)}
 
 
 def ring_bytes(replay):
@@ -2751,7 +2846,7 @@ def phase_device_data(results):
     times.append(time.perf_counter())
     data_pipeline_turns()
     times.append(time.perf_counter())
-    segments, procs = leftovers(shm_before)
+    segments, procs = leftovers(shm_before, os.environ.get(STREAM_ENV))
     check(not segments and not procs, f"outlived phase 12: segments {segments}, processes {procs}")
     parts = ", ".join(f"{tag} {t1 - t:.1f} s"
                       for tag, t, t1 in zip(("(a)+(b)+(f)", "(c)", "(d)", "(e)"), times, times[1:]))
@@ -2769,7 +2864,7 @@ SERVE_LOOP_S = 4.0       # the closed-loop window; each open-loop leg takes half
 SERVE_BUCKETS = [1, 2, 4, 8, 16, 32, 64]
 SESSION_CONNS = 8        # 13(b): connections, each playing SESSION_GAMES games at once,
 SESSION_GAMES = 32       # both seats of a game served, each by a session of its own
-SESSION_RUN_S = 10.0
+SESSION_RUN_S = 6.0
 SESSION_SERVING = {
     "port": 0, "max_batch": 64, "warm_buckets": SERVE_BUCKETS, "shed_policy": "none",
     "session_capacity": 256, "session_spill": 1024, "watch_interval": 1, "stats_interval": 0,
@@ -3310,7 +3405,7 @@ def serve_sessions(tmp):
               f"exit {code} {drain_s:.2f} s after the signal (deadline {DRAIN_DEADLINE_S} s); "
               f"{peak.group(0) if peak else 'no peak memory line'}")
     print(f"[serving] 13(b) card memory used (nvidia-smi), peak over the leg: "
-          f"{memory.peak_mib:.0f} MiB, this process's share included")
+          f"{memory.peak_mib:.0f} MiB, every process on the card included (other phases run beside this one)")
     del replay
     torch.cuda.empty_cache()
 
@@ -3387,13 +3482,13 @@ def phase_serving(results):
 
 
 
-FLEET_TURN_S = 3.0         # 14(a): each closed-loop turn, through the fleet or direct
+FLEET_TURN_S = 2.0         # 14(a): each closed-loop turn, through the fleet or direct
 FLEET_SESSION_GAMES = 16   # 14(b): SESSION_CONNS x 16 games x 2 seats = 256 sessions
 FLEET_FAULT_REPLIES = 1500 # 14(b): the victim SIGTERMs itself after this many replies
 FLEET_AFTER_S = 4.0        # 14(b): the load's seconds after the victim's exit
 FLEET_DRAIN_S = 30         # 14(b): the replicas' drain_deadline_seconds
 AUTOSCALE_OFFERED = 1.5    # 14(c): the open loop, in multiples of one replica's saturation
-LEARNER_EPISODES = 32      # 14(d): minimum_episodes and update_episodes of config.yaml's learner
+LEARNER_EPISODES = 8       # 14(d): minimum_episodes and update_episodes of config.yaml's learner
 SIGTERM_STEP = 20          # 14(d): HANDYRL_FAULT_SIGTERM_AT_STEP
 TRACE_TURNS = 2            # 14(d): turns of a run with tracing on and one off, the order
                            # alternating (on, off, off, on)
@@ -3731,7 +3826,7 @@ def fleet_sessions(tmp):
           f"victim, {CHECK_STEPS - half} on the survivor from the migrated state) against the "
           f"InferenceModel on the card with an explicit hidden state: max_abs_err {worst:.3e} "
           f"of the outputs' scale (tolerance {tol:.0e}); card memory used (nvidia-smi), peak "
-          f"{memory.peak_mib:.0f} MiB, this process's share included")
+          f"{memory.peak_mib:.0f} MiB, every process on the card included (other phases run beside this one)")
     check(worst <= tol, "14(b): a migrated session disagrees with the replay")
     del replay
     torch.cuda.empty_cache()
@@ -3757,8 +3852,11 @@ def fleet_autoscale(tmp):
                     "stats_interval": 0},
         "fleet": {"port": 0, "stats_poll_s": 0.2, "stats_interval": 0, "autoscale": {
             "enabled": True, "min_replicas": 1, "max_replicas": 2, "interval_s": 0.2,
-            "shed_slo": 0.01, "depth_high": 16.0, "depth_low": 1.0, "scale_down_after_s": 3.0,
-            "cooldown_s": 1.0, "warm_timeout_s": 300.0}}}})
+            "shed_slo": 0.01, "depth_high": 16.0, "depth_low": 1.0,
+            # calm may start under the load (two replicas can outrun 1.5x a
+            # saturation measured with other phases beside it): the window
+            # outlasts the load's last 3 s and the session check after it
+            "scale_down_after_s": 10.0, "cooldown_s": 1.0, "warm_timeout_s": 300.0}}}})
     factory = ProcessReplicaFactory(args)
     t0 = time.perf_counter()
     fleet = FleetRouter(args["train_args"]["fleet"], replica_factory=factory).run(
@@ -3930,33 +4028,35 @@ def fleet_learner_faults(tmp):
           f"{', '.join(f'{r:.2f}' for r in rates[False])}")
 
 
-def phase_fleet(results):
+def phase_fleet(results, parts="abcd"):
     """14: the fleet tier over serving replicas on the card, and the
-    learner's fault machinery.  No kernel on these paths."""
-    print(f"[fleet] {card_line()}")
+    learner's fault machinery.  No kernel on these paths.  ``parts`` picks
+    the legs."""
+    legs = dict(zip("abcd", (fleet_tictactoe, fleet_sessions, fleet_autoscale,
+                             fleet_learner_faults)))
     times = [time.perf_counter()]
     with tempfile.TemporaryDirectory() as tmp:
-        for part in (fleet_tictactoe, fleet_sessions, fleet_autoscale, fleet_learner_faults):
+        for tag in parts:
             print(f"[fleet] {card_line()}")
-            part(tmp)
+            legs[tag](tmp)
             times.append(time.perf_counter())
-    parts = ", ".join(f"{tag} {t1 - t:.1f} s"
-                      for tag, t, t1 in zip(("(a)", "(b)", "(c)", "(d)"), times, times[1:]))
-    print(f"[fleet] phase 14 in {times[-1] - times[0]:.1f} s: {parts}")
+    took = ", ".join(f"({tag}) {t1 - t:.1f} s" for tag, t, t1 in zip(parts, times, times[1:]))
+    print(f"[fleet] phase 14 {''.join(f'({tag})' for tag in parts)} in "
+          f"{times[-1] - times[0]:.1f} s: {took}")
 
 
 INT8_SESSION_GAMES = 16   # 15(a): SESSION_CONNS x 16 games x 2 seats = 256 sessions, all resident
-INT8_TURN_S = 1.5         # 15(a): each turn of the session load and of 13(a)'s load
-INT8_SERVE_S = 4.0        # 15(a): the int8 --serve child's session load
+INT8_TURN_S = 1.0         # 15(a): each turn of the session load and of 13(a)'s load
+INT8_SERVE_S = 2.0        # 15(a): the int8 --serve child's session load
 INT8_SERVING = dict(SESSION_SERVING, session_capacity=512, weight_dtype="int8", watch_interval=0)
 CALIB_BATCHES = 4         # 15(a): calibration batches of 64 replay observations
 OBS8_EPISODES = 6         # 15(b)(i): Geister episodes of uniform play per plane
 OBS8_STEPS = 3            # 15(b)(i): train steps on each plane
-OBS8_EPISODES_7A = 64     # 15(b)(ii): minimum_episodes and update_episodes of config.yaml's learner
+OBS8_EPISODES_7A = 32     # 15(b)(ii): minimum_episodes and update_episodes of config.yaml's learner
 EXPORT_BATCHES = (1, 64)  # 15(c)(i): the batch sizes a reloaded artifact is checked at
 EXPORT_TOLERANCE = 1e-5   # 15(c)(i): of the outputs' scale, strict fp32 on both devices
-EDGE_TURN_S = 4.0         # 15(c)(ii): 13(a)'s load through the fleet over --serve and --edge
-FLY_EPISODES = (64, 160)  # 15(d): minimum_episodes, update_episodes of the flywheel learner
+EDGE_TURN_S = 3.0         # 15(c)(ii): 13(a)'s load through the fleet over --serve and --edge
+FLY_EPISODES = (48, 64)   # 15(d): minimum_episodes, update_episodes of the flywheel learner
 # 15(d): a rollback signal read at boundary N is taken after N + 1, recorded at N + 2
 FLY_EPOCHS = 6
 FLY_POISON = 2            # 15(d): HANDYRL_FAULT_POISON_SNAPSHOT_AT_EPOCH
@@ -4246,7 +4346,7 @@ def int8_weights(tmp):
         tictactoe_turns()
         int8_serve_child(tmp, kids, module, params)
     print(f"[int8] 15(a) card memory used (nvidia-smi), peak over the leg: "
-          f"{memory.peak_mib:.0f} MiB, this process's share included")
+          f"{memory.peak_mib:.0f} MiB, every process on the card included (other phases run beside this one)")
     del module, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4409,7 +4509,7 @@ def obs8_rings():
 
 
 def obs8_learners(tmp):
-    """15(b)(ii): config.yaml's learner (7a, 2 epochs of 64 + 64 episodes)
+    """15(b)(ii): config.yaml's learner (7a, 2 epochs of 32 + 32 episodes)
     with obs_int8 true and false in turns, on the shm plane and on the
     device plane (observation: true there, which the device stage needs for
     turn-based training): finite losses, updates/s, input_wait_frac."""
@@ -4982,40 +5082,499 @@ def flywheel_run(tmp):
           + f"; the pinned epochs {pins} survived gc_snapshots (keep_checkpoints 2)")
 
 
-def phase_quantize_edge_flywheel(results):
+def phase_quantize_edge_flywheel(results, parts="abcd"):
     """15: int8 weights on the serving path, int8 observations on the
     training paths, exported artifacts and the edge, the data flywheel.
-    15(b)(i) runs B1; nothing else here does."""
+    15(b)(i) runs B1; nothing else here does.  ``parts`` picks the legs."""
+    legs = {"a": int8_weights, "b": lambda tmp: int8_observations(tmp, results),
+            "c": export_edge, "d": flywheel_run}
     print(f"[phase15] {card_line()}")
     times = [time.perf_counter()]
     with tempfile.TemporaryDirectory() as tmp:
-        int8_weights(tmp)
-        times.append(time.perf_counter())
-        int8_observations(tmp, results)
-        times.append(time.perf_counter())
-        export_edge(tmp)
-        times.append(time.perf_counter())
-        flywheel_run(tmp)
-        times.append(time.perf_counter())
+        for tag in parts:
+            legs[tag](tmp)
+            times.append(time.perf_counter())
     _SEEDED.clear()
-    parts = ", ".join(f"{tag} {t1 - t:.1f} s"
-                      for tag, t, t1 in zip(("(a)", "(b)", "(c)", "(d)"), times, times[1:]))
-    print(f"[phase15] phase 15 in {times[-1] - times[0]:.1f} s: {parts}")
+    took = ", ".join(f"({tag}) {t1 - t:.1f} s" for tag, t, t1 in zip(parts, times, times[1:]))
+    print(f"[phase15] phase 15 {''.join(f'({tag})' for tag in parts)} in "
+          f"{times[-1] - times[0]:.1f} s: {took}")
 
 
-def leftovers(shm_before):
+# ---------------------------------------------------------------------------
+# 16: the autovec twins, the host-sync sanitizer, the league
+# ---------------------------------------------------------------------------
+
+AUTOVEC_GAMES = 2048       # 16(a): games per self-play call (bench.py:2425's accelerator size)
+AUTOVEC_VERIFY = 64        # 16(a): verify() games per lift on the card
+AUTOVEC_CALLS = 2          # 16(a): timed generate calls per turn
+AUTOVEC_TURNS = ("hand", "lift", "lift", "hand")
+C4_CLI = {                 # 16(a): --train on ConnectFour with the lifted twin
+    "epochs": 1, "minimum_episodes": 64, "update_episodes": 64, "batch_size": 64,
+    "device_rollout_games": 128, "autovec_verify_games": 8, "worker": {"num_parallel": 2},
+    "seed": SEED,
+}
+SANITIZER_STEPS = 4        # 16(b): batch() calls and train steps in the window
+SANITIZER_EPISODES = 64    # 16(b): host-born episodes staged before the window
+LEAGUE_CLI = {             # 16(c): tests/test_league.py:475-494's geometry
+    "epochs": 8, "update_episodes": 24, "minimum_episodes": 16, "batch_size": 8,
+    "forward_steps": 4, "maximum_episodes": 500, "eval_rate": 0.0,
+    "worker": {"num_parallel": 2}, "keep_checkpoints": 2, "seed": SEED,
+    "league": {"promote_winrate": 0.4, "promote_games": 3, "selfplay_rate": 0.15,
+               "pfsp_weighting": "var"},
+}
+PROMOTED = re.compile(r"league: promotion gate PASSED .* frozen (main-\d+)")
+
+
+def lift_equals_hand(V, n):
+    """16(a): the lifted TicTacToe against the hand twin on the card, n
+    games on the same random legal actions: observations, masks, terminal
+    flags, states and outcomes bit for bit.  Returns the tensors compared."""
+    import torch
+
+    from handyrl_tpu_torch.envs.vector_tictactoe import VectorTicTacToe as H
+
+    gen = card_generator()
+    s_v, s_h = V.init(n, CARD), H.init(n, CARD)
+    compared = 0
+    for t in range(H.max_steps):
+        legal = H.legal_mask(s_h)
+        pairs = [(V.terminal(s_v, t), H.terminal(s_h, t)), (V.legal_mask(s_v), legal),
+                 (V.observation(s_v, t), H.observation(s_h, t))]
+        pairs += [(s_v[k], s_h[k]) for k in s_h]
+        for got, want in pairs:
+            check(got.device.type == CARD and got.dtype == want.dtype and torch.equal(got, want),
+                  f"16(a): the lifted TicTacToe differs from the hand twin at step {t}")
+        compared += len(pairs)
+        scores = torch.rand(legal.shape, generator=gen, device=CARD)
+        action = torch.where(legal, scores, -1.0).argmax(-1)
+        s_v, s_h = V.apply(s_v, action, t), H.apply(s_h, action, t)
+    check(torch.equal(V.outcome(s_v), H.outcome(s_h)), "16(a): outcomes differ")
+    return compared + 1
+
+
+def twin_turns(env_name, twins):
+    """16(a): device self-play, AUTOVEC_GAMES games per call, the same net
+    and seed for each twin, in ``AUTOVEC_TURNS``: env-steps/s per turn, and
+    the launches per game step of one profiled call."""
+    import torch
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models import init_variables
+    from handyrl_tpu_torch.runtime.device_rollout import DeviceRollout
+
+    cfg = normalize_args({"env_args": {"env": env_name}, "train_args": {"seed": SEED}})
+    args = dict(cfg["train_args"], env=cfg["env_args"])
+    module = init_variables(make_env(cfg["env_args"]).net(), SEED)
+    rolls = {tag: DeviceRollout(venv, module, args, AUTOVEC_GAMES, device=CARD)
+             for tag, venv in twins.items()}
+    turns = AUTOVEC_TURNS if len(twins) > 1 else ("lift",)
+    rates = {tag: [] for tag in twins}
+    for tag in turns:
+        roll = rolls[tag]
+        gen = card_generator()
+        roll.generate(None, gen)   # warm-up: the lift's vmap traces, the allocator grows
+        steps = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(AUTOVEC_CALLS):
+            steps += sum(ep["steps"] for ep in roll.generate(None, gen))
+        rates[tag].append(steps / (time.perf_counter() - t0))
+    launches = {}
+    for tag, roll in rolls.items():
+        wall, device_ms, n, _ = profile_launches(lambda: roll.generate(None, card_generator()))
+        launches[tag] = n / roll.venv.max_steps
+        check(n > 0, f"16(a) {env_name} {tag}: the profiler saw no launch")
+        print(f"[autovec] {env_name} {tag} ({roll.venv.__name__}, "
+              f"{type(roll.module).__name__}, {AUTOVEC_GAMES} games x {roll.venv.max_steps} "
+              f"plies): env-steps/s by turn {', '.join(f'{r:.1f}' for r in rates[tag])}; one "
+              f"generate under the profiler: wall {wall:.1f} ms, device {device_ms:.1f} ms "
+              f"({device_ms / wall:.1%} busy), {n} launches, {launches[tag]:.1f} per game step")
+    if len(twins) > 1:
+        mean = {tag: sum(r) / len(r) for tag, r in rates.items()}
+        print(f"[autovec] {env_name} lifted / hand: {mean['lift'] / mean['hand']:.3f}x env-steps/s "
+              f"(turns {', '.join(AUTOVEC_TURNS)}), launches per game step {launches['lift']:.1f} "
+              f"/ {launches['hand']:.1f} (not gated: no target for the card)")
+
+
+def autovec_cli(tmp):
+    """16(a): ``--train`` on ConnectFour with its lifted twin on the card and
+    ``autovec_verify_games``, started; ``autovec_cli_check`` reads it."""
+    run_dir = os.path.join(tmp, "c4")
+    write_config(run_dir, {"env_args": {"env": "ConnectFour"}, "train_args": C4_CLI})
+    return start_cli(run_dir, "--train")
+
+
+def autovec_cli_check(job):
+    """16(a): the learner's verified line, a finite loss, device episodes."""
+    run_dir = job["cwd"]
+    out, run_s = finish_cli(job)
+    line = (f"autovec twin verified: AutoVecConnectFourRules parity over "
+            f"{C4_CLI['autovec_verify_games']} random games")
+    check(line in out, "16(a): the learner printed no autovec verified line")
+    records = read_records(os.path.join(run_dir, "metrics.jsonl"))
+    last = records[-1]
+    check(len(records) == C4_CLI["epochs"] and "loss" in last
+          and math.isfinite(last["loss"]["total"]) and last.get("plane") == "fused"
+          and last.get("device_episodes", 0) > 0,
+          f"16(a) ConnectFour --train: records {records}")
+    check_shm("autovec cli", records, out)
+    print(f"[autovec] ConnectFour --train, device_rollout_games {C4_CLI['device_rollout_games']}: "
+          f"'{line}'; {last.get('device_episodes', 0)} device episodes, mean length "
+          f"{last.get('device_mean_episode_len', 0):.1f}, loss {last['loss']['total']:.4f}, "
+          f"{last['updates_per_sec']:.2f} updates/s; started beside (d), done {run_s:.1f} s "
+          "after its start at the latest")
+
+
+def autovec_card(tmp):
+    """16(a): the lifts on the card: verify, the hand-twin gate, self-play
+    hand against lift, ConnectFour's lift (its CLI runs beside (d))."""
+    from handyrl_tpu_torch.envs.autovec import autovectorize
+    from handyrl_tpu_torch.envs.connect_four import ConnectFourRules
+    from handyrl_tpu_torch.envs.tictactoe import TicTacToeRules
+    from handyrl_tpu_torch.envs.vector_tictactoe import VectorTicTacToe
+
+    lifts = {}
+    for rules in (TicTacToeRules, ConnectFourRules):
+        t0 = time.perf_counter()
+        lifts[rules] = V = autovectorize(rules)
+        t1 = time.perf_counter()
+        V.verify(AUTOVEC_VERIFY, SEED, device=CARD)
+        print(f"[autovec] {V.__name__}: lifted in {t1 - t0:.2f} s (meta-device checks), "
+              f"verify({AUTOVEC_VERIFY}) on the card passed in {time.perf_counter() - t1:.2f} s")
+    compared = lift_equals_hand(lifts[TicTacToeRules], AUTOVEC_GAMES)
+    print(f"[autovec gate] the lifted TicTacToe equals VectorTicTacToe bit for bit over "
+          f"{AUTOVEC_GAMES} games on the card ({compared} tensors compared)")
+    twin_turns("TicTacToe", {"hand": VectorTicTacToe, "lift": lifts[TicTacToeRules]})
+    twin_turns("ConnectFour", {"lift": lifts[ConnectFourRules]})
+
+
+def sanitizer_window():
+    """16(b): HostSyncSanitizer and RecompileSentinel (and CUDA's own sync
+    debug mode, a second witness) around a warm ``batch_pipeline: device``
+    window on 7a's config: SANITIZER_STEPS batch() calls and train steps,
+    no sync and no build; then a deliberate ``.cpu()`` named by this
+    file's line."""
+    import inspect
+    import warnings
+
+    import torch
+    import yaml
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models import init_variables
+    from handyrl_tpu_torch.parallel import TrainContext
+    from handyrl_tpu_torch.runtime.device_batch import DeviceBatchPipeline
+    from handyrl_tpu_torch.runtime.replay import EpisodeStore
+    from handyrl_tpu_torch.utils.sanitizers import HostSyncSanitizer, RecompileSentinel
+
+    raw = yaml.safe_load((ROOT / "config.yaml").read_text())
+    # observation: true, which the device stage needs under turn-based
+    # training; 4 lanes x 16 steps, as 15(b)(ii)
+    raw["train_args"].update(batch_pipeline="device", observation=True, device_stage_lanes=4,
+                             device_stage_chunk=16, seed=SEED)
+    cfg = normalize_args(raw)
+    args = dict(cfg["train_args"], env=cfg["env_args"])
+    episodes = random_episodes(cfg["env_args"], {"observation": True}, SANITIZER_EPISODES, SEED)
+    store = EpisodeStore(1000)
+    ctx = TrainContext(init_variables(make_env(cfg["env_args"]).net(), SEED), args)
+    stop = threading.Event()
+    pipe = DeviceBatchPipeline(args, store, ctx, stop)
+    store.extend(episodes)
+    pipe.start()
+    lr = 1e-5
+    try:
+        ctx.train_step(pipe.batch(), lr)   # warm-up: the first flush, sample and step
+        # the feeder's flushes read the rings' counters on its thread (a
+        # sync): it stages every episode before the window opens
+        check(pipe.wait_idle(), "16(b): the feeder did not stage the episodes")
+        torch.cuda.synchronize()
+        metrics = []
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with HostSyncSanitizer() as sync, RecompileSentinel() as sentinel:
+                    t0 = time.perf_counter()
+                    for _ in range(SANITIZER_STEPS):
+                        metrics.append(ctx.train_step(pipe.batch(), lr))
+                    host_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        # the mode's own notice ("a prototype feature") is not a sync
+        debug = [w for w in caught if "called a synchronizing" in str(w.message)]
+        sites = sorted({f"{w.filename}:{w.lineno}: {str(w.message)[:120]}" for w in debug})
+        print(f"[sanitizer] 16(b) {SANITIZER_STEPS} batch() calls and train steps on 7a's config "
+              f"(batch_pipeline: device, B{args['batch_size']} x T{args['forward_steps']}), "
+              f"{host_ms:.1f} ms on the host: {sync.report()}; {sentinel.report()}; CUDA sync "
+              f"debug mode: {len(debug)} warnings{' at ' + '; '.join(sites) if sites else ''}")
+        if debug:
+            # where CUDA saw the sync: one more step with its debug mode raising
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                ctx.train_step(pipe.batch(), lr)
+            except RuntimeError:
+                import traceback
+
+                print("[sanitizer] 16(b) the sync CUDA saw, raised in its debug mode 'error':\n"
+                      + "".join(traceback.format_exc().splitlines(True)[-12:]))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        check(not sync.events, f"16(b): blocking host syncs in the device window: {sync.report()}")
+        check(sentinel.count == 0, f"16(b): {sentinel.report()}")
+        check(all(math.isfinite(m["total"]) and m["sentinel_bad"] == 0 for m in metrics),
+              "16(b): a non-finite or skipped step in the window")
+        with HostSyncSanitizer() as sync:
+            batch = pipe.batch()
+            leak = inspect.currentframe().f_lineno + 1
+            batch["action"].cpu()   # the deliberate leak
+        report = sync.report()
+        check(f"chip_smoke.py:{leak}" in report,
+              f"16(b): the deliberate leak at chip_smoke.py:{leak} is not named: {report}")
+        print(f"[sanitizer] 16(b) the deliberate leak: {report.splitlines()[-1].strip()}")
+    finally:
+        stop.set()
+        pipe.stop()
+
+
+def league_cli(tmp):
+    """16(c): ``--league`` on TicTacToe at tests/test_league.py's geometry,
+    on the shm plane, started; ``league_cli_check`` reads it."""
+    run_dir = os.path.join(tmp, "league")
+    write_config(run_dir, {"env_args": {"env": "TicTacToe"}, "train_args": LEAGUE_CLI})
+    return start_cli(run_dir, "--league")
+
+
+def league_cli_check(job):
+    """16(c): promotions by the gate, each frozen member's books covering the
+    pool of its time, the registry reloaded, the league_* keys, frozen
+    epochs kept by a GC of keep_checkpoints 2, no substitution."""
+    from handyrl_tpu_torch.league import ANCHOR, League
+    from handyrl_tpu_torch.runtime import checkpoint as ckpt
+
+    run_dir = job["cwd"]
+    out, run_s = finish_cli(job)
+    promoted = PROMOTED.findall(out)
+    check(len(promoted) >= 2, f"16(c): {len(promoted)} promotions by the gate, fewer than 2")
+    model_dir = os.path.join(run_dir, "models")
+    league = League(model_dir)
+    frozen = sorted((m for m in league.members.values() if m.role == "frozen"),
+                    key=lambda m: m.epoch)
+    check([m.name for m in frozen] == promoted and league.promotions == len(promoted),
+          f"16(c): LEAGUE.json holds {sorted(league.members)}, the gate froze {promoted}")
+    for i, m in enumerate(frozen):
+        pool = [ANCHOR] + [x.name for x in frozen[:i]]
+        check(league.payoff.coverage(m.name, pool, 3) == 1.0,
+              f"16(c): {m.name}'s books do not cover {pool} with 3 games each")
+        check(ckpt.verify_snapshot(model_dir, m.epoch) is True,
+              f"16(c): {m.name}'s snapshot did not survive GC")
+    records = read_records(os.path.join(run_dir, "metrics.jsonl"))
+    last = records[-1]
+    check(len(records) == LEAGUE_CLI["epochs"], f"16(c): {len(records)} epoch records")
+    check(all(k in last for k in ("league_population", "league_pool", "league_matches",
+                                  "league_forfeits", "league_payoff_coverage",
+                                  "league_candidate_wp", "league_elo_spread",
+                                  "league_promotions")), f"16(c): league keys {sorted(last)}")
+    check(last["league_population"] == len(league.members)
+          and league.payoff.matches >= last["league_matches"] > 0,
+          f"16(c): the last record {last['league_population']} members, "
+          f"{last['league_matches']} matches; LEAGUE.json {len(league.members)}, "
+          f"{league.payoff.matches}")
+    check(not any("serve_snapshot_substituted" in r for r in records),
+          "16(c): a frozen opponent was served by the latest model")
+    check_shm("league", records, out)
+    collected = [e for e in range(1, LEAGUE_CLI["epochs"] + 1)
+                 if not os.path.exists(os.path.join(model_dir, f"{e}.ckpt"))]
+    # the frozen epochs GC would have taken: older than the newest keep_checkpoints
+    pinned = [m.epoch for m in frozen
+              if m.epoch <= LEAGUE_CLI["epochs"] - LEAGUE_CLI["keep_checkpoints"]]
+    check(pinned, "16(c): no frozen epoch was old enough for GC to take")
+    elo = ", ".join(f"{r['league_elo_spread']}" for r in records)
+    print(f"[league] 16(c) --league, {LEAGUE_CLI['epochs']} epochs of "
+          f"{LEAGUE_CLI['minimum_episodes']} + {LEAGUE_CLI['update_episodes']} episodes: promoted "
+          f"{', '.join(promoted)} by the gate; {league.payoff.matches} matches, coverage 1.0 for "
+          f"each frozen member; keep_checkpoints {LEAGUE_CLI['keep_checkpoints']}: epochs "
+          f"collected {collected}, frozen epochs {pinned} older than that kept; elo spread by "
+          f"epoch {elo}; {last['updates_per_sec']:.2f} updates/s in the last epoch; started "
+          f"beside (d), done {run_s:.1f} s after its start at the latest")
+
+
+def league_transformer(results, tmp):
+    """16(d): the slice's transformer through ``LeagueLearner(args).run()``:
+    run 1 trains 2 epochs, its epoch 1 is frozen as main-1 by the gate's own
+    action; run 2 resumes for one epoch, in which main-1's match jobs are
+    served by the router's resident engine for epoch 1.  Launch counts from
+    0 at each run."""
+    import torch
+
+    from handyrl_tpu_torch.config import normalize_args
+    from handyrl_tpu_torch.league import CANDIDATE, League
+    from handyrl_tpu_torch.league.learner import LeagueLearner
+    from handyrl_tpu_torch.ops.flash_attention import MASKED_FLASH
+    from handyrl_tpu_torch.runtime import checkpoint as ckpt
+    from handyrl_tpu_torch.runtime.replay import decompress_block
+
+    model_dir = os.path.join(tmp, "models")
+
+    def config(epochs, **over):
+        return normalize_args({
+            "env_args": {"env": "Geister", "net": "transformer", "net_args": NET_ARGS},
+            "train_args": dict(TRAIN_ARGS, minimum_episodes=TRANSFORMER_EPISODES,
+                               update_episodes=TRANSFORMER_EPISODES, epochs=epochs,
+                               worker={"num_parallel": 8}, seed=SEED, model_dir=model_dir,
+                               metrics_path=os.path.join(tmp, "metrics.jsonl"),
+                               # no self-play slice; the gate never passes here
+                               # (16(c) and the CPU tests hold its decision)
+                               league={"selfplay_rate": 0.0, "promote_games": 10 ** 6},
+                               **over)})
+
+    before = MASKED_FLASH.launches
+    learner = LeagueLearner(config(2))
+    t0 = time.perf_counter()
+    check(learner.run() == 0, "16(d) run 1 did not end cleanly")
+    run1_s = time.perf_counter() - t0
+    steps = learner.trainer.steps
+    per_step = launches_per_step(learner.args)
+    del learner
+    gc.collect()
+    torch.cuda.empty_cache()
+    league = League(model_dir)
+    # what the gate does when it passes: epoch 1 into the population
+    epoch1_steps = int(ckpt.load_manifest(model_dir)["epochs"]["1"]["steps"])
+    member = league.freeze_candidate(1, epoch1_steps)
+    check(member.name == "main-1", f"16(d): froze {member.name}")
+
+    cfg = config(3, restart_epoch=-1, keep_checkpoints=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    learner = LeagueLearner(cfg)
+    check(learner.model_epoch == 2, f"16(d): run 2 resumed at epoch {learner.model_epoch}")
+    server = learner.model_server
+    seen = {}
+    stop = server.stop
+
+    def stop_and_keep_stats():
+        # the router forgets its engines when it stops: read them first
+        router = server._router
+        seen["engines"] = {mid: e.stats() for mid, e in router._engines.items()}
+        seen["router"] = router.stats()
+        seen["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        stop()
+
+    server.stop = stop_and_keep_stats
+    run2_before, steps0 = MASKED_FLASH.launches, learner.trainer.steps
+    t0 = time.perf_counter()
+    check(learner.run() == 0, "16(d) run 2 did not end cleanly")
+    run2_s = time.perf_counter() - t0
+    run2_launches = MASKED_FLASH.launches - run2_before
+    run2_steps = learner.trainer.steps - steps0
+    launches = MASKED_FLASH.launches - before
+    steps += run2_steps
+
+    check(launches == per_step * steps and run2_launches == per_step * run2_steps > 0,
+          f"16(d): B1 launched {launches} times in {steps} updates ({run2_launches} in "
+          f"{run2_steps} of run 2), expected {per_step} per update")
+    frozen_engine = seen["engines"].get(1)
+    check(frozen_engine is not None and frozen_engine["requests_served"] > 0,
+          f"16(d): main-1 was not served by a resident router engine: {seen['engines']}")
+    check(seen["router"]["substituted"] == 0 and server.substituted_snapshots == 0,
+          f"16(d): substitutions {seen['router']['substituted']}")
+    matches = masked = 0
+    for ep in learner.trainer.store.snapshot():
+        meta = ep["args"].get("league") or {}
+        if meta.get("mode") != "match":
+            continue
+        matches += 1
+        seats = [p for p, name in meta["seats"].items() if name != CANDIDATE]
+        for blk in ep["blocks"]:
+            cols = decompress_block(blk)
+            for p in seats:
+                col = ep["players"].index(p)
+                check(not cols["tmask"][:, col].any() and not cols["omask"][:, col].any(),
+                      f"16(d): a frozen seat's tmask/omask is not zero")
+                masked += 1
+    check(matches > 0, "16(d): no match episode was fed")
+    payoff = learner.league.payoff
+    games = payoff.games(CANDIDATE, "main-1")
+    check(games > 0, "16(d): no candidate-vs-main-1 game in the books")
+    check(ckpt.verify_snapshot(model_dir, 1) is True and not os.path.exists(
+        os.path.join(model_dir, "2.ckpt")),
+          "16(d): GC (keep_checkpoints 1) did not keep main-1's epoch 1 and collect epoch 2")
+    records = read_records(cfg["train_args"]["metrics_path"])
+    check(all(math.isfinite(r["loss"]["total"]) for r in records if "loss" in r)
+          and "loss" in records[-1], "16(d): a non-finite or missing loss")
+    check_shm("league transformer", records)
+    boundary = [r["boundary_snapshot_s"] + r["boundary_save_s"] + r["boundary_publish_s"]
+                for r in records]
+    results["masked_flash_attention"]["launches"] += launches
+    print(f"[league] 16(d) LeagueLearner, Geister d{NET_ARGS['d_model']} L{NET_ARGS['n_layers']} "
+          f"B{TRAIN_ARGS['batch_size']} T{TRAIN_ARGS['forward_steps']} bf16, "
+          f"{TRANSFORMER_EPISODES} episodes per epoch: run 1 (2 epochs) {run1_s:.1f} s, run 2 "
+          f"(epoch 3, main-1 in the pool) {run2_s:.1f} s; main-1 served by the router's engine "
+          f"for epoch 1: {frozen_engine['requests_served']} requests in "
+          f"{frozen_engine['batches_served']} batches, {seen['router']['models']} router engines "
+          f"resident, 0 substituted; {matches} match episodes fed, {masked} frozen-seat blocks "
+          f"zero-masked; candidate vs main-1 {games} games (wp "
+          f"{payoff.win_points(CANDIDATE, 'main-1'):.3f}); B1 {launches} launches in {steps} "
+          f"updates ({per_step} per update); seconds per boundary "
+          f"{', '.join(f'{b:.2f}' for b in boundary)}; run 2's peak memory {seen['peak_gb']:.2f} "
+          "GB (learner, the actors' engine, the router's latest mirrors and main-1's engine "
+          "resident)")
+
+
+def phase_league_autovec(results):
+    """16: the autovec twins on the card, the sanitizer on the device data
+    plane, the league through the CLI and at full width.  16(d) runs B1;
+    nothing else here does.  The CLI runs of (a) and (c) go on in
+    processes of their own beside (d)."""
+    print(f"[phase16] {card_line()}")
+    results.setdefault("masked_flash_attention", {"launches": 0})
+    times = [time.perf_counter()]
+    with tempfile.TemporaryDirectory() as tmp:
+        autovec_card(tmp)
+        times.append(time.perf_counter())
+        sanitizer_window()
+        times.append(time.perf_counter())
+        jobs = [autovec_cli(tmp), league_cli(tmp)]
+        try:
+            league_transformer(results, tmp)
+            times.append(time.perf_counter())
+            autovec_cli_check(jobs[0])
+            league_cli_check(jobs[1])
+        finally:
+            for job in jobs:
+                if job["proc"].poll() is None:
+                    job["proc"].kill()
+                job["proc"].wait()
+        times.append(time.perf_counter())
+    parts = ", ".join(f"{tag} {t1 - t:.1f} s" for tag, t, t1 in zip(
+        ("(a) in this process", "(b)", "(d) with the CLIs of (a) and (c) beside it",
+         "the CLIs' tail"), times, times[1:]))
+    print(f"[phase16] phase 16 in {times[-1] - times[0]:.1f} s: {parts}")
+
+
+def leftovers(shm_before, stream=None):
     """Shared-memory segments and processes of the port alive now: segments
     made since ``shm_before``, this process's children, and CLI processes
-    (a CLI learner's batchers carry its command line)."""
+    (a CLI learner's batchers carry its command line).  With ``stream``,
+    only the processes of that stream (their environment names it) and no
+    segment: the other streams' segments live beside this one's, and the
+    whole script's check, made once every stream has ended, counts them."""
     import multiprocessing as mp
 
-    segments = sorted(n for n in set(os.listdir("/dev/shm")) - shm_before if n.startswith("psm_"))
+    segments = [] if stream else sorted(
+        n for n in set(os.listdir("/dev/shm")) - shm_before if n.startswith("psm_"))
     procs = []
     for pid in os.listdir("/proc"):
         if not pid.isdigit() or int(pid) == os.getpid():
             continue
         try:
             cmdline = Path("/proc", pid, "cmdline").read_bytes().replace(b"\0", b" ").decode()
+            if stream and f"{STREAM_ENV}={stream}".encode() not in \
+                    Path("/proc", pid, "environ").read_bytes().split(b"\0"):
+                continue
         except OSError:
             continue
         if "handyrl_tpu_torch.main" in cmdline:
@@ -5055,6 +5614,138 @@ def profile_call(label, fn, top=12):
                   f"#{rank} {e.key[:90]}")
 
 
+def _phase_6(results):
+    import torch
+
+    env_args, module, episodes = phase_acting(results)
+    phase_training(results, env_args, module, episodes)
+    del module, episodes
+    torch.cuda.empty_cache()
+
+
+def _phase_8(results):
+    from handyrl_tpu_torch.ops.flash_attention import FLASH, MASKED_FLASH
+
+    phase_drc_learner(results)
+    print(f"[drc] kernel launches in phase 8a: masked {MASKED_FLASH.launches}, "
+          f"flash {FLASH.launches}")
+    phase_geese_cli(results)   # in processes of its own
+
+
+PHASES = {
+    "4": phase_flash_op, "6": _phase_6, "7a": phase_learner_cli, "7b": phase_learner,
+    "8": _phase_8, "9ac": lambda results: phase_remote(results, "ac"),
+    "9b": lambda results: phase_remote(results, "b"), "10": phase_assembly,
+    "11": phase_selfplay, "12": phase_device_data, "13": phase_serving,
+    "14abc": lambda results: phase_fleet(results, "abc"),
+    "14d": lambda results: phase_fleet(results, "d"),
+    "15ab": lambda results: phase_quantize_edge_flywheel(results, "ab"),
+    "15cd": lambda results: phase_quantize_edge_flywheel(results, "cd"),
+    "16": phase_league_autovec,
+}
+
+
+def cpu_seconds():
+    """User and system seconds of this process and of its children waited for."""
+    t = os.times()
+    return t.user + t.system + t.children_user + t.children_system
+
+
+def run_phase(name, results, t0, stream):
+    """One phase after 3, every launch count at 0 at its start and read at
+    its end; a lap line with the seconds into the script and the CPU seconds
+    its stream's processes spent on it."""
+    from handyrl_tpu_torch.ops.flash_attention import FLASH, MASKED_FLASH
+
+    FLASH.launches = MASKED_FLASH.launches = 0
+    wall, cpu = time.time(), cpu_seconds()
+    PHASES[name](results)
+    print(f"[launches] kernel launches in phase {name}: masked {MASKED_FLASH.launches}, "
+          f"flash {FLASH.launches}")
+    print(f"[time] phase {name} ended {time.time() - t0:.1f} s into the script: "
+          f"{time.time() - wall:.1f} s, cpu {cpu_seconds() - cpu:.1f} s, stream {stream}",
+          flush=True)
+
+
+def start_stream(name, t0, log_dir):
+    """This script with ``--stream NAME`` in a session of its own, its output
+    in a file; everything it starts carries the stream's name in its
+    environment."""
+    log = Path(log_dir, f"stream_{name}.log")
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--stream", name], cwd=ROOT,
+            stdout=out, stderr=subprocess.STDOUT, start_new_session=True,
+            env=dict(os.environ, PYTHONUNBUFFERED="1", **{
+                STREAM_ENV: name, T0_ENV: repr(t0), RESULTS_ENV: str(log.with_suffix(".json"))}))
+    return {"name": name, "proc": proc, "log": log, "shown": False}
+
+
+def show_stream(stream):
+    """A stream's output, once, framed by its phases and exit code."""
+    if stream["shown"]:
+        return
+    stream["shown"] = True
+    name, code = stream["name"], stream["proc"].returncode
+    print(f"[stream {name}] phases {', '.join(STREAMS[name])}, run in a process of their own "
+          f"beside the others: exit {code}; its output follows")
+    print(stream["log"].read_text(errors="replace").rstrip())
+    print(f"[stream {name}] end of its output", flush=True)
+
+
+def poll_streams(streams):
+    """Show each stream that has ended; fail on one that failed."""
+    for stream in streams:
+        code = stream["proc"].poll()
+        if code is not None:
+            show_stream(stream)
+            check(code == 0, f"stream {stream['name']} (phases {', '.join(STREAMS[stream['name']])})"
+                  f" exited {code}")
+
+
+def finish_streams(streams, t0, results):
+    """Wait for every stream until the deadline, poll them, and add their
+    kernels' launches (12(c), 15(b)(i)) to this process's counts."""
+    for stream in streams:
+        try:
+            stream["proc"].wait(timeout=max(1.0, t0 + STREAM_DEADLINE - time.time()))
+        except subprocess.TimeoutExpired:
+            stop_streams([stream])
+            check(False, f"stream {stream['name']} still running {STREAM_DEADLINE} s into the "
+                  "script; killed")
+    poll_streams(streams)
+    for stream in streams:
+        counts = json.loads(stream["log"].with_suffix(".json").read_text())
+        for name in KERNELS:
+            results[name]["launches"] += counts[name]["launches"]
+
+
+def stop_streams(streams):
+    """Kill the session of each stream still running (its CLIs and workers
+    with it) and show its output."""
+    import signal
+
+    for stream in streams:
+        if stream["proc"].poll() is None:
+            try:
+                os.killpg(stream["proc"].pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            stream["proc"].wait()
+        show_stream(stream)
+
+
+def run_stream(name, results):
+    """``--stream NAME``: the stream's phases in order, in this process."""
+    t0 = float(os.environ.get(T0_ENV) or time.time())
+    print(f"[stream {name}] {card_line()}")
+    for phase in STREAMS[name]:
+        run_phase(phase, results, t0, name)
+    if os.environ.get(RESULTS_ENV):
+        Path(os.environ[RESULTS_ENV]).write_text(json.dumps(
+            {kernel: {"launches": results[kernel]["launches"]} for kernel in KERNELS}))
+
+
 def main(argv):
     import torch
 
@@ -5065,93 +5756,45 @@ def main(argv):
         print("chip_smoke: the handyrl_tpu_torch package is not beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from handyrl_tpu_torch.ops.flash_attention import FLASH, MASKED_FLASH
-
-    def reset_launches():
-        FLASH.launches = MASKED_FLASH.launches = 0
-
-    def lap(phase):
-        print(f"[time] phase {phase} ended {time.perf_counter() - t_script:.1f} s into the script",
-              flush=True)
-
     device_name = torch.cuda.get_device_name(0)
     results = {name: {"launches": 0} for name in KERNELS}
+    if "--stream" in argv:
+        try:
+            run_stream(argv[argv.index("--stream") + 1], results)
+        except SmokeError as exc:
+            print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+            return 1
+        return 0
     shm_before = set(os.listdir("/dev/shm"))
-    t_script = time.perf_counter()
+    t0 = time.time()
+    streams = []
     try:
         phase_device(results)
         phase_kernel_check(results)
         phase_kernel_timing(results, device_name)
-        lap("3")
+        print(f"[time] phase 3 ended {time.time() - t0:.1f} s into the script", flush=True)
         if "--parent" in argv:
             phase_parent(argv[argv.index("--parent") + 1], device_name)
         if "--kernels-only" not in argv:
-            # the two paths through the kernels, each counted from 0
-            reset_launches()
-            phase_flash_op(results)
-            lap("4")
-            reset_launches()
-            env_args, module, episodes = phase_acting(results)
-            phase_training(results, env_args, module, episodes)
-            lap("6")
-            del module, episodes
-            torch.cuda.empty_cache()
-            phase_learner_cli(results)
-            lap("7a")
-            reset_launches()
-            phase_learner(results)
-            lap("7b")
-            # the recurrent and simultaneous-move paths: no kernel on either
-            # (8b runs in processes of its own)
-            reset_launches()
-            phase_drc_learner(results)
-            print(f"[drc] kernel launches in phase 8a: masked {MASKED_FLASH.launches}, "
-                  f"flash {FLASH.launches}")
-            phase_geese_cli(results)
-            lap("8")
-            # the remote actor plane (9b runs the masked kernel) and battles
-            phase_remote(results)
-            lap("9")
-            # the batch-assembly plane under the learners (no kernel)
-            phase_assembly(results)
-            lap("10")
-            # on-device self-play and evaluation (no kernel on these paths)
-            reset_launches()
-            phase_selfplay(results)
-            lap("11")
-            print(f"[selfplay] kernel launches in phase 11: masked {MASKED_FLASH.launches}, "
-                  f"flash {FLASH.launches}")
-            # the device data plane (12(c) runs the masked kernel)
-            reset_launches()
-            phase_device_data(results)
-            lap("12")
-            # the inference serving plane (no kernel on its path)
-            reset_launches()
-            phase_serving(results)
-            lap("13")
-            print(f"[serving] kernel launches in phase 13: masked {MASKED_FLASH.launches}, "
-                  f"flash {FLASH.launches}")
-            # the fleet tier and the learner's fault machinery (no kernel)
-            reset_launches()
-            phase_fleet(results)
-            lap("14")
-            print(f"[fleet] kernel launches in phase 14: masked {MASKED_FLASH.launches}, "
-                  f"flash {FLASH.launches}")
-            # int8 weights and observations, export and the edge, the flywheel
-            # (15(b)(i) runs the masked kernel)
-            reset_launches()
-            phase_quantize_edge_flywheel(results)
-            lap("15")
-            print(f"[phase15] kernel launches in phase 15: masked {MASKED_FLASH.launches}, "
-                  f"flash {FLASH.launches}")
+            # the kernels are built and timed alone; from here on the streams
+            # run at once, each phase's numbers taken with others beside it
+            os.environ[STREAM_ENV] = "main"
+            log_dir = tempfile.mkdtemp(prefix="chip_smoke_streams_")
+            streams = [start_stream(name, t0, log_dir) for name in STREAMS if name != "main"]
+            for phase in STREAMS["main"]:
+                run_phase(phase, results, t0, "main")
+                poll_streams(streams)
+            finish_streams(streams, t0, results)
             segments, procs = leftovers(shm_before)
             check(not segments and not procs,
                   f"outlived their runs: segments {segments}, processes {procs}")
             print("[leftovers] no shared-memory segment and no process of the port outlived "
-                  f"its run; the script took {time.perf_counter() - t_script:.1f} s")
+                  f"its run; the script took {time.time() - t0:.1f} s")
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        stop_streams(streams)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

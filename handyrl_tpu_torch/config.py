@@ -12,7 +12,8 @@ on-device self-play and evaluation, the device data plane, the
 ``serving`` block of ``--serve`` (int8 weights included), ``obs_int8``,
 the ``fleet`` block of ``--fleet`` and ``--edge``, the ``flywheel`` block,
 the divergence sentinel with its rollback, the preemption drain,
-``trace`` and ``profile_dir``.
+``trace`` and ``profile_dir``, the ``league`` block of ``--league`` and
+``autovec_verify_games``.
 """
 
 from __future__ import annotations
@@ -140,6 +141,11 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     # games of the net against eval.opponent's first entry (rulebase or
     # random) on the card (runtime/device_eval.py)
     "device_eval_games": 0,
+    # N > 0: when the env's device twin is autovec-lifted (envs/autovec.py,
+    # __autovec__), play N random step-parity games of the lift against the
+    # numpy rules on the learner's device before training, and refuse to
+    # train on a divergent lift
+    "autovec_verify_games": 0,
     # true: keep the self-play data on the card end to end: the rollout's
     # records go into ring buffers on the card, and every batch is sampled
     # and assembled there (runtime/device_replay.py); needs
@@ -265,6 +271,23 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     # blocks, the shm slots and the staged rings carry int8; the train step
     # and the rings' sampler widen them on the card (models/quantize.py)
     "obs_int8": False,
+    # league training (``--league``, league/): a persistent population of
+    # frozen snapshots and an anchor, PFSP matchmaking over the payoff
+    # ledger, frozen opponents on resident router engines, and a promotion
+    # gate that freezes the candidate into the population
+    "league": {
+        # 'var' weights p(1-p) (near-peers), 'hard' (1-p)^2 (the hardest),
+        # 'even' uniform; p = the candidate's win rate against the member
+        "pfsp_weighting": "var",
+        # the share of generation jobs played latest-vs-latest
+        "selfplay_rate": 0.2,
+        # the gate: >= promote_games games against every active member and
+        # pooled win points (wins + draws/2) >= promote_winrate
+        "promote_winrate": 0.55,
+        "promote_games": 8,
+        # the active pool: the anchor and the newest frozen members
+        "max_population": 16,
+    },
     # the data flywheel (flywheel/): the serving tier harvests served games
     # into episodes, the learner pulls them, and promotions into serving are
     # gated on live win rate with a quality sentinel behind the gate
@@ -333,13 +356,11 @@ DEFAULT_WORKER_ARGS: Dict[str, Any] = {
 # key's path in train_args, its JAX default, and the ROADMAP item that ports
 # it.  The default passes; any other value is refused naming the item
 _MULTI_GPU = "A8 (multiple GPUs)"
-_LEAGUE = "A10 (the league)"
 NOT_PORTED_KEYS = (
-    (("plane",), "fused", "A7 (the device data plane)"),
+    # the split plane spreads actors and learner over chips of their own
+    (("plane",), "fused", _MULTI_GPU),
     # acts only under plane: split
-    (("plane_param_lag_bound",), 0, "A7 (the device data plane)"),
-    # verifies an autovec-lifted twin, and the port has no autovec
-    (("autovec_verify_games",), 0, "A7 (the device data plane)"),
+    (("plane_param_lag_bound",), 0, _MULTI_GPU),
     (("mesh",), {"dp": -1}, _MULTI_GPU),
     (("actor_chips",), 1, _MULTI_GPU),
     (("param_refresh_updates",), 8, _MULTI_GPU),
@@ -355,11 +376,6 @@ NOT_PORTED_KEYS = (
     (("distributed", "plane_port"), 0, _MULTI_GPU),
     (("distributed", "actor_hosts"), 0, _MULTI_GPU),
     (("observability", "rank_metrics"), True, _MULTI_GPU),
-    (("league", "pfsp_weighting"), "var", _LEAGUE),
-    (("league", "selfplay_rate"), 0.2, _LEAGUE),
-    (("league", "promote_winrate"), 0.55, _LEAGUE),
-    (("league", "promote_games"), 8, _LEAGUE),
-    (("league", "max_population"), 16, _LEAGUE),
 )
 
 
@@ -477,6 +493,9 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
         raise ValueError("train_args.device_rollout_games must be >= 0")
     if train["device_eval_games"] < 0:
         raise ValueError("train_args.device_eval_games must be >= 0")
+    if int(train["autovec_verify_games"]) < 0:
+        raise ValueError("train_args.autovec_verify_games must be >= 0 (0 = off)")
+    _validate_league(train["league"])
     if train["device_replay"]:
         if train["device_rollout_games"] <= 0:
             raise ValueError(
@@ -733,6 +752,28 @@ def _validate_trace(tr: Dict[str, Any]) -> None:
         )
 
 
+def _validate_league(league: Dict[str, Any]) -> None:
+    if league["pfsp_weighting"] not in ("var", "hard", "even"):
+        raise ValueError(
+            f"train_args.league.pfsp_weighting={league['pfsp_weighting']!r} "
+            "not one of ('var', 'hard', 'even')"
+        )
+    if not 0.0 <= float(league["selfplay_rate"]) <= 1.0:
+        raise ValueError("train_args.league.selfplay_rate must be in [0, 1]")
+    if not 0.0 < float(league["promote_winrate"]) < 1.0:
+        raise ValueError(
+            "train_args.league.promote_winrate must be in (0, 1) — it is a "
+            "win-points bar over the active population"
+        )
+    if int(league["promote_games"]) < 1:
+        raise ValueError("train_args.league.promote_games must be >= 1")
+    if int(league["max_population"]) < 2:
+        raise ValueError(
+            "train_args.league.max_population must be >= 2 (the anchor "
+            "plus at least one frozen member)"
+        )
+
+
 def _validate_not_ported_values(train: Dict[str, Any]) -> None:
     """The JAX package's checks of keys the port refuses anyway: a value
     both would refuse gets the JAX package's words."""
@@ -763,19 +804,6 @@ def _validate_not_ported_values(train: Dict[str, Any]) -> None:
             f"train_args.observability.rank_metrics={get('observability', 'rank_metrics')!r} "
             "must be a bool"
         )
-    if get("league", "pfsp_weighting") not in ("var", "hard", "even"):
-        raise ValueError(
-            f"train_args.league.pfsp_weighting={get('league', 'pfsp_weighting')!r} "
-            "not one of ('var', 'hard', 'even')"
-        )
-    if not 0.0 <= float(get("league", "selfplay_rate")) <= 1.0:
-        raise ValueError("train_args.league.selfplay_rate must be in [0, 1]")
-    if not 0.0 < float(get("league", "promote_winrate")) < 1.0:
-        raise ValueError("train_args.league.promote_winrate must be in (0, 1)")
-    if int(get("league", "promote_games")) < 1:
-        raise ValueError("train_args.league.promote_games must be >= 1")
-    if int(get("league", "max_population")) < 2:
-        raise ValueError("train_args.league.max_population must be >= 2")
 
 
 def normalize_args(raw: Dict[str, Any]) -> Dict[str, Any]:

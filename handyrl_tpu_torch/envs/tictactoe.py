@@ -3,7 +3,9 @@
 The port's copy of the host environment of ``handyrl_tpu/envs/tictactoe.py``
 (actions 0..8 = row * 3 + col, 'A1'-style strings, three 3x3 observation
 planes), on a flat 9-cell board with a table of the winning lines.
-``vector_env()`` returns its device twin (envs/vector_tictactoe.py).
+``vector_env()`` returns its device twin (envs/vector_tictactoe.py);
+``TicTacToeRules`` holds the same rules as pure numpy functions, which
+``envs/autovec.py`` lifts into a twin of its own.
 """
 
 from __future__ import annotations
@@ -125,3 +127,65 @@ class Environment(BaseEnvironment):
         from ..models import SimpleConvNet
 
         return SimpleConvNet()
+
+
+class TicTacToeRules:
+    """Pure single-game numpy rules to the autovec liftability contract
+    (envs/autovec.py): the same rules as ``Environment`` and the hand
+    twin ``VectorTicTacToe``.  ``autovectorize(TicTacToeRules)`` equals the
+    hand twin bit for bit, so the pair measures the cost of the lift alone.
+
+    State (one game): ``cells`` (9,) int8, ``winner`` () int8.
+    """
+
+    num_actions = 9
+    max_steps = 9
+    num_players = 2
+
+    @staticmethod
+    def _color(step: int) -> int:
+        return 1 if step % 2 == 0 else -1
+
+    @staticmethod
+    def init():
+        return {
+            "cells": np.zeros(9, np.int8),
+            "winner": np.zeros((), np.int8),
+        }
+
+    @staticmethod
+    def observation(state, step: int):
+        """(3, 3, 3) planes for the turn player, as
+        ``VectorTicTacToe.observation``: [ones, my stones, opponent
+        stones]."""
+        me = TicTacToeRules._color(step)
+        grid = state["cells"].reshape(3, 3)
+        return np.stack(
+            [
+                np.ones((3, 3), np.float32),
+                (grid == me).astype(np.float32),
+                (grid == -me).astype(np.float32),
+            ]
+        )
+
+    @staticmethod
+    def legal_mask(state):
+        return state["cells"] == 0
+
+    @staticmethod
+    def terminal(state, step: int):
+        return (state["winner"] != 0) | (step >= 9)
+
+    @staticmethod
+    def apply(state, action, step: int):
+        me = TicTacToeRules._color(step)
+        cells = np.where(np.arange(9) == action, np.int8(me), state["cells"])
+        lines = cells[WIN_LINES]                              # (8, 3)
+        won = (lines.sum(axis=-1) == 3 * me).any()
+        winner = np.where(won, np.int8(me), state["winner"]).astype(np.int8)
+        return {"cells": cells, "winner": winner}
+
+    @staticmethod
+    def outcome(state):
+        w = state["winner"].astype(np.float32)
+        return np.stack([w, -w])

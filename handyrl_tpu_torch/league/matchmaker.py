@@ -1,9 +1,9 @@
-"""The payoff ledger of network battles: ``PayoffMatrix``.
+"""The payoff ledger and PFSP matchmaking of the league.
 
-The port's copy of ``PayoffMatrix`` from ``handyrl_tpu/league/matchmaker.py``,
-the one win-rate ledger that battle matches (runtime/battle.py) record
-into.  Its convention is ``runtime.evaluation.wp_func``'s: win points are
-wins + draws/2 over games.
+The port's copy of ``handyrl_tpu/league/matchmaker.py``.  ``PayoffMatrix``
+is the one win-rate ledger that league matches (league/learner.py) and
+battle matches (runtime/battle.py) record into.  Its convention is
+``runtime.evaluation.wp_func``'s: win points are wins + draws/2 over games.
 
 * a finished match records one entry per ordered pair of distinct member
   names, pairwise from the per-seat scores: a higher score wins, equal
@@ -13,16 +13,21 @@ wins + draws/2 over games.
 * a severed peer forfeits: its seat loses to every surviving seat, and
   survivor pairs record nothing (their game never finished).
 
-The league's ``Matchmaker`` and its PFSP weights are not ported yet
-(ROADMAP A10).
+``Matchmaker`` samples the candidate's opponents by prioritized fictitious
+self-play: each frozen member is weighted by a function of the candidate's
+win rate p against it, 'var' p(1-p) (near-peers), 'hard' (1-p)^2 (hardest
+first) or 'even'.  An unplayed member counts as p = 0.5, the maximum of
+both non-uniform weightings, so new members are probed first.  For the
+same seed and ledger it draws the JAX package's sequence of opponents.
 """
 
 from __future__ import annotations
 
 import math
+import random
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
-__all__ = ["PayoffMatrix"]
+__all__ = ["PayoffMatrix", "Matchmaker", "pfsp_weights"]
 
 
 class PayoffMatrix:
@@ -168,3 +173,58 @@ class PayoffMatrix:
             a, _, b = key.partition("\x00")
             out._books[(a, b)] = [int(x) for x in wdl]
         return out
+
+
+def pfsp_weights(win_rates: Sequence[Optional[float]],
+                 weighting: str = "var") -> List[float]:
+    """PFSP opponent weights from the candidate's win rate p per member
+    (None = unplayed -> 0.5).  Each weight is floored at 1e-3, so no
+    member is ever starved entirely."""
+    out = []
+    for p in win_rates:
+        p = 0.5 if p is None else min(max(float(p), 0.0), 1.0)
+        if weighting == "even":
+            w = 1.0
+        elif weighting == "hard":
+            w = (1.0 - p) ** 2
+        elif weighting == "var":
+            w = p * (1.0 - p)
+        else:
+            raise ValueError(f"unknown pfsp weighting {weighting!r}")
+        out.append(max(w, 1e-3))
+    return out
+
+
+class Matchmaker:
+    """Samples the candidate's next opponent from the active population.
+    Its only state is its RNG: the payoff ledger is the input, so every
+    match recorded steers the next draw."""
+
+    def __init__(self, payoff: PayoffMatrix, weighting: str = "var",
+                 seed: int = 0):
+        self.payoff = payoff
+        self.weighting = weighting
+        self._rng = random.Random(seed ^ 0x1EA90E)
+
+    def sample_opponent(self, candidate: str, pool: Sequence[str],
+                        min_games: int = 0) -> Optional[str]:
+        """PFSP draw over ``pool`` (member names); None on an empty pool.
+
+        ``min_games > 0`` puts a probe quota ahead of the PFSP draw: members
+        with fewer games than that against the candidate are drawn
+        uniformly first, so one decisive first game cannot starve a member
+        (the learner passes its ``promote_games``, the number the gate
+        requires).  Win rates feed the weighting Laplace-smoothed toward 0.5
+        with prior weight 2."""
+        if not pool:
+            return None
+        if min_games > 0:
+            under = [b for b in pool if self.payoff.games(candidate, b) < min_games]
+            if under:
+                return self._rng.choice(under)
+        rates = []
+        for b in pool:
+            p, n = self.payoff.win_points(candidate, b), self.payoff.games(candidate, b)
+            rates.append(None if p is None else (p * n + 0.5 * 2) / (n + 2))
+        weights = pfsp_weights(rates, self.weighting)
+        return self._rng.choices(list(pool), weights=weights)[0]

@@ -9,6 +9,7 @@
     python -m handyrl_tpu_torch.main --serve            # the inference serving plane
     python -m handyrl_tpu_torch.main --fleet            # the fleet over --serve replicas
     python -m handyrl_tpu_torch.main --edge [ARTIFACT]  # an exported .pt2 as edge capacity
+    python -m handyrl_tpu_torch.main --league           # league training (PFSP, promotion gate)
 
 It reads the config.yaml the JAX package's ``main.py`` reads (``--worker``
 reads ``worker_args.server_address`` and the entry port; ``--eval-server``
@@ -20,8 +21,10 @@ reads ``train_args.fleet``: it fronts ``fleet.replicas`` (each started with
 ``--serve``) and, with ``fleet.autoscale.enabled``, spawns and retires
 serving processes of its own on the card.  ``--edge`` serves an artifact
 of ``python -m handyrl_tpu_torch.models.export`` (``fleet.edge_model``
-when none is given) on ``fleet.edge_port``.  The JAX CLI's league mode is
-not ported yet: it exits 1 naming its ROADMAP item.
+when none is given) on ``fleet.edge_port``.  ``--league`` trains a
+population (``train_args.league``): the candidate against PFSP-sampled
+frozen snapshots served from resident router engines, frozen by the
+promotion gate; it exits 75 after a SIGTERM drain, as ``--train`` does.
 """
 
 from __future__ import annotations
@@ -30,12 +33,6 @@ import sys
 from typing import Any, Dict, List, Optional
 
 from .config import normalize_args
-
-NOT_PORTED = {
-    "--league": "ROADMAP A10, item 6 (the league)",
-    "-l": "ROADMAP A10, item 6 (the league)",
-}
-
 
 def load_args(path: str = "config.yaml") -> Dict[str, Any]:
     import yaml
@@ -96,9 +93,10 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         if len(argv) > 1:
             args["edge_model"] = argv[1]
         return edge_main(args, device=device)
-    if mode in NOT_PORTED:
-        print(f"mode {mode} is not ported to handyrl_tpu_torch yet ({NOT_PORTED[mode]})")
-        return 1
+    if mode in ("--league", "-l"):
+        from .league.learner import league_main
+
+        return league_main(load_args(), device=device)
     print("Unknown mode %s" % mode)
     return 1
 

@@ -17,12 +17,19 @@ bf16-representable; a recurrent state stays fp32.  On the card, convolutions
 run in TF32 (PyTorch's default, ``torch.backends.cudnn.allow_tf32``) and
 matmuls in fp32, so an fp32 conv net's step there is TF32 in its convs.
 The ring-attention branch is not ported yet.
+
+A step never waits on the card: the divergence sentinel's verdict stays on
+the device (it is the fused Adam's ``found_inf``, which skips the update
+there), and the metrics come back as ``StepMetrics``, copied to the host
+at their first read, as the JAX step's metrics stay device arrays until
+fetched.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional
+from collections.abc import Mapping
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,6 +41,45 @@ from ..ops import compute_loss_from_outputs
 from ..utils import resolve_device, tree_leaves, tree_map
 
 LOSS_KEYS = ("p", "v", "r", "ent", "total")
+
+
+def make_optimizer(module) -> torch.optim.Adam:
+    """optax's clip(4.0) -> add_decayed_weights(1e-5) -> scale_by_adam ->
+    scale(-lr) is torch Adam with L2 weight decay (not AdamW), after
+    ``clip_grad_norm_``; the lr is set on every step.  Fused, so that a
+    step the sentinel rejects is skipped on the device (``found_inf``)."""
+    return torch.optim.Adam(module.parameters(), lr=0.0, weight_decay=1e-5, fused=True)
+
+
+class StepMetrics(Mapping):
+    """The metrics (name -> float) of one step, or the sum of several, left
+    on the device until the first read, which copies them all to the host
+    at once and sums the steps there, in order."""
+
+    def __init__(self, keys: Sequence[str], parts: List[torch.Tensor]):
+        self._keys = tuple(keys)
+        self._parts = parts     # one (len(keys),) fp32 vector per step, on its device
+        self._host: Optional[Dict[str, float]] = None
+
+    @classmethod
+    def total(cls, metrics: Sequence["StepMetrics"]) -> "StepMetrics":
+        """The sum of several steps' metrics, still on the device."""
+        return cls(metrics[0]._keys, [part for m in metrics for part in m._parts])
+
+    def fetch(self) -> Dict[str, float]:
+        if self._host is None:
+            rows = torch.stack(self._parts).tolist()
+            self._host = dict(zip(self._keys, (sum(col) for col in zip(*rows))))
+        return self._host
+
+    def __getitem__(self, key: str) -> float:
+        return self.fetch()[key]
+
+    def __iter__(self):
+        return iter(self._keys)
+
+    def __len__(self) -> int:
+        return len(self._keys)
 
 
 def _compute_dtype(args: Dict[str, Any]) -> Optional[torch.dtype]:
@@ -253,11 +299,15 @@ class TrainContext:
         self.ff_compact = (not recurrent and args.get("burn_in_steps", 0) == 0
                            and args.get("compact_padding", True))
         self.compute_dtype = _compute_dtype(args)
-        # optax's clip(4.0) -> add_decayed_weights(1e-5) -> scale_by_adam ->
-        # scale(-lr) is torch Adam with L2 weight decay (not AdamW), after
-        # clip_grad_norm_; the lr is set on every step
-        self.optimizer = torch.optim.Adam(self.module.parameters(), lr=0.0, weight_decay=1e-5)
+        self.optimizer = make_optimizer(self.module)
         self.sentinel = bool(args.get("sentinel", True))
+
+    def load_optimizer_state(self, state_dict: Dict[str, Any]) -> None:
+        """Adam's saved state into this context's fused Adam; a state saved
+        by an unfused one has its step counts moved to the params' device."""
+        groups = [dict(g, fused=True, foreach=None, capturable=False)
+                  for g in state_dict["param_groups"]]
+        self.optimizer.load_state_dict(dict(state_dict, param_groups=groups))
 
     def put_batch(self, batch: Dict[str, Any], non_blocking: bool = False,
                   pinned: bool = False) -> Dict[str, Any]:
@@ -336,9 +386,10 @@ class TrainContext:
         trimmed = trim_burn_in(batch, self.args["burn_in_steps"])
         return compute_loss_from_outputs(outputs, trimmed, self.args)
 
-    def train_step(self, batch: Dict[str, Any], lr: float) -> Dict[str, float]:
+    def train_step(self, batch: Dict[str, Any], lr: float) -> StepMetrics:
         """One update from a device batch, or from a host (numpy) one, which
-        goes through ``put_batch`` first; returns metrics.
+        goes through ``put_batch`` first; returns its metrics, still on the
+        device: the step never waits on the card.
 
         With the sentinel on, a step whose loss, gradient norm or lr is not
         finite leaves params and Adam state untouched, contributes zeros to
@@ -350,31 +401,32 @@ class TrainContext:
         losses["total"].backward()
         gnorm = torch.nn.utils.clip_grad_norm_(self.module.parameters(), 4.0)
         zero = torch.zeros((), device=self.device)
-        values = torch.stack([losses.get(k, zero).detach().float() for k in LOSS_KEYS] + [dcnt, gnorm])
-        host = values.tolist()  # the step's one host sync
-        metrics = dict(zip(LOSS_KEYS + ("dcnt",), host[:-1]))
-        bad = self.sentinel and not (
-            math.isfinite(metrics["total"]) and math.isfinite(host[-1]) and math.isfinite(lr)
-        )
-        if bad:
-            metrics = {k: 0.0 for k in metrics}
-        else:
+        values = torch.stack([losses.get(k, zero).detach().float() for k in LOSS_KEYS]
+                             + [dcnt.float()])
+        keys = LOSS_KEYS + ("dcnt",)
+        step = True
+        if self.sentinel:
+            # the verdict stays on the device: the fused Adam skips a rejected
+            # update there (params, moments and step count untouched)
+            ok = torch.isfinite(values[LOSS_KEYS.index("total")]) & torch.isfinite(gnorm)
+            if not math.isfinite(lr):
+                ok = torch.zeros_like(ok)
+                step = False
+            bad = (~ok).float()
+            values = torch.cat([torch.where(ok, values, torch.zeros_like(values)), bad[None]])
+            keys += ("sentinel_bad",)
+            self.optimizer.found_inf = bad
+        if step:
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
             self.optimizer.step()
-        if self.sentinel:
-            metrics["sentinel_bad"] = float(bad)
-        return metrics
+        return StepMetrics(keys, [values])
 
-    def train_steps(self, batches: Dict[str, Any], lr: float) -> Dict[str, float]:
+    def train_steps(self, batches: Dict[str, Any], lr: float) -> StepMetrics:
         """k updates in a row from a stacked (k, B, ...) device tree (see
         ``put_batches``), at one lr; metrics summed over the k steps
         (``sentinel_bad`` counts the skipped ones).  The same as k calls of
         ``train_step`` on the k batches."""
         k = batches["action"].shape[0]
-        total: Dict[str, float] = {}
-        for i in range(k):
-            metrics = self.train_step(tree_map(lambda x, i=i: x[i], batches), lr)
-            for key, value in metrics.items():
-                total[key] = total.get(key, 0.0) + value
-        return total
+        return StepMetrics.total([self.train_step(tree_map(lambda x, i=i: x[i], batches), lr)
+                                  for i in range(k)])

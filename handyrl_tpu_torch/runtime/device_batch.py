@@ -77,6 +77,7 @@ class DeviceBatchPipeline:
         self._stats.update(batches=0.0, device_queue_depth_sum=0.0, gets=0.0)
         self._pending: deque = deque()
         self._pending_cv = threading.Condition()
+        self._feeder_idle = False   # the feeder waits with nothing pending
         self._feeder_thread: Optional[threading.Thread] = None
 
     # -- lifecycle -----------------------------------------------------------
@@ -109,9 +110,12 @@ class DeviceBatchPipeline:
             while not self.stop_event.is_set():
                 with self._pending_cv:
                     if not self._pending:
+                        self._feeder_idle = True
+                        self._pending_cv.notify_all()
                         self._pending_cv.wait(timeout=0.3)
                     episodes = list(self._pending)
                     self._pending.clear()
+                    self._feeder_idle = not episodes
                 if not episodes:
                     continue
                 t0 = time.perf_counter()
@@ -139,6 +143,14 @@ class DeviceBatchPipeline:
                 self.stage.drain()
             except Exception:
                 pass
+
+    def wait_idle(self, timeout: float = 60.0) -> bool:
+        """Wait until the feeder has staged and flushed every episode it was
+        given and waits for more (its flushes read the rings' counters, a
+        host sync on its thread); False on timeout."""
+        with self._pending_cv:
+            return self._pending_cv.wait_for(
+                lambda: self._feeder_idle and not self._pending, timeout)
 
     # -- consumer side -------------------------------------------------------
 

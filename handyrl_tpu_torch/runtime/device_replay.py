@@ -60,6 +60,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel.train_step import StepMetrics
 from ..utils import resolve_device, tree_leaves, tree_map
 from .device_rollout import HostRecord
 
@@ -564,19 +565,15 @@ class DeviceReplay:
 
     def train_fn(self, ctx, fused_steps: int = 1):
         """``fn(gen, lr) -> metrics``: ``fused_steps`` sample+SGD updates from
-        the current rings, metrics summed over them (as
+        the current rings, metrics summed over them on the device (as
         ``TrainContext.train_steps``).  Each update samples under the lock
-        and steps outside it; the step's one read of its metrics keeps the
-        trainer at most one update ahead of the card."""
+        and steps outside it; nothing waits on the card (the trainer reads
+        the metrics one pull late)."""
         B = self.args["batch_size"]
 
-        def fn(gen: torch.Generator, lr: float) -> Dict[str, float]:
-            total: Dict[str, float] = {}
-            for _ in range(fused_steps):
-                metrics = ctx.train_step(self._sample(gen, B), lr)
-                for key, value in metrics.items():
-                    total[key] = total.get(key, 0.0) + value
-            return total
+        def fn(gen: torch.Generator, lr: float) -> StepMetrics:
+            return StepMetrics.total([ctx.train_step(self._sample(gen, B), lr)
+                                      for _ in range(fused_steps)])
 
         return fn
 

@@ -52,7 +52,11 @@ thread pulls harvested episodes from the serving tier into
 quality plane (the trainer rolls back on its own thread), and
 ``gc_snapshots`` spares the epochs the serving tier routes.
 ``HANDYRL_FAULT_POISON_SNAPSHOT_AT_EPOCH=N`` saves epoch N's snapshot with
-negated params while training goes on clean.  The JAX package's
+negated params while training goes on clean.  ``autovec_verify_games: N``
+plays N random step-parity games of an autovec-lifted twin
+(envs/autovec.py) on the learner's device before training.  The league
+(league/learner.py) overrides three seams: ``_make_model_server``,
+``_epoch_hook`` and ``_gc_pinned``.  The JAX package's
 distributed learner and split plane are not ported (ROADMAP).
 """
 
@@ -182,8 +186,7 @@ class Learner:
                 print(f"{state_path} fails digest verification; resuming with a fresh optimizer")
             else:
                 self.trainer.load_state(state_path, self.model_epoch)
-        self.model_server = LocalModelServer(self.module, make_env(args["env_args"]), self.args,
-                                             self.device)
+        self.model_server = self._make_model_server(args)
         router = getattr(self.model_server, "_router", None)
         if router is not None and getattr(router, "weight_dtype", "") == "int8":
             # an int8 router's publish calibrates on this learner's episodes
@@ -253,6 +256,14 @@ class Learner:
         self._device_epoch_steps = 0
         if self._device_games > 0:
             venv = self._vector_env("device_rollout_games")
+            n_verify = int(self.args["autovec_verify_games"])
+            if n_verify > 0 and getattr(venv, "__autovec__", False):
+                # an autovec-lifted twin: refuse to train on a divergent lift
+                # (random step-parity games against the numpy rules; raises
+                # AutovecError naming the observable that diverged)
+                venv.verify(n_verify, int(self.args["seed"]), device=self.device)
+                print(f"autovec twin verified: {venv.__name__} parity over {n_verify} "
+                      "random games")
             if self.args["observation"] and not hasattr(venv, "observe_mask"):
                 raise ValueError(
                     "device_rollout_games with observation: true requires a vector env that "
@@ -453,14 +464,33 @@ class Learner:
         self._epoch_steps0 = steps
         self._epoch_episodes0 = self.num_returned_episodes
         self._flywheel_epoch(record)
+        self._epoch_hook(record)
         self._write_metrics(record)
 
+    # -- the seams a subclass overrides (league/learner.py) -------------------
+
+    def _make_model_server(self, args: Dict[str, Any]):
+        """The server actors resolve model ids through; the league's serves
+        frozen opponents from resident router engines."""
+        return LocalModelServer(self.module, make_env(args["env_args"]), self.args, self.device)
+
+    def _epoch_hook(self, record: Dict[str, Any]) -> None:
+        """Called at each epoch boundary after the new epoch's snapshot is
+        saved, just before its metrics record is written."""
+
+    def _gc_pinned(self):
+        """Epochs the checkpoint GC must never collect (the league's
+        population)."""
+        return ()
+
     def _gc_pin_set(self):
-        """The epochs ``gc_snapshots`` spares beyond the newest verified: the
-        ones the serving tier routes (SERVING.json)."""
+        """The pin set of every ``gc_snapshots`` call: the subclass's pins
+        and the epochs the serving tier routes (SERVING.json)."""
         from ..flywheel.quality import serving_pinned_epochs
 
-        return tuple(sorted(serving_pinned_epochs(self.model_dir)))
+        pins = set(self._gc_pinned())
+        pins |= serving_pinned_epochs(self.model_dir)
+        return tuple(sorted(pins))
 
     def _flywheel_epoch(self, record: Dict[str, Any]) -> None:
         """The boundary's flywheel books: the ingest counters into the

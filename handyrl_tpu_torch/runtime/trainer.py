@@ -54,7 +54,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..parallel import TrainContext
-from ..parallel.train_step import LOSS_KEYS
+from ..parallel.train_step import LOSS_KEYS, make_optimizer
 from ..utils import tree_map
 from ..utils.trace import trace_event, trace_span
 from . import faults
@@ -345,7 +345,7 @@ class Trainer:
                   "branching with a fresh optimizer")
             return False
         self.ctx.module.load_state_dict(host["params"])
-        self.ctx.optimizer.load_state_dict(host["opt_state"])
+        self.ctx.load_optimizer_state(host["opt_state"])
         self.data_cnt_ema = float(host["data_cnt_ema"])
         self.steps = int(host["steps"])
         self.state_host = {k: host[k] for k in ("params", "opt_state", "steps")}
@@ -437,14 +437,18 @@ class Trainer:
         """The epoch on the card: each pull samples, assembles and steps
         ``fused_steps`` updates from the replay's rings, until the learner
         flags the epoch's end (after at least one pull) or the trainer
-        stops.  The step's read of its metrics keeps one update in flight;
-        on the CPU a short sleep per pull hands the replay's lock to the
+        stops.  Reading pull N-1's metrics after pull N is launched keeps
+        one pull in flight, so the concurrent rollout thread gets the card
+        at every boundary (the JAX loop blocks on update N-1 likewise); on
+        the CPU a short sleep per pull hands the replay's lock to the
         rollout thread, which an unfair lock would otherwise starve."""
         train = self.device_replay.train_fn(self.ctx, self.fused)
         on_cpu = self.ctx.device.type == "cpu"
         while not (history and self.update_flag) and not self.stop_event.is_set():
             with trace_span("train_step", plane="learner"):
                 history.append(train(self._replay_gen, self._step_lr(lr, self.fused)))
+            if len(history) > 1:
+                history[-2].fetch()
             self.steps += self.fused
             self._maybe_fault_sigterm()
             if on_cpu:
@@ -452,8 +456,9 @@ class Trainer:
 
     def _finish_epoch(self, history, updates: int, elapsed: float, wait_s: float,
                       warmup_wait_s: float) -> None:
-        # every step's metrics reached the host with the step; the span
-        # holds the epoch's accounting (and a rollback, when one is due)
+        # the epoch's metrics reach the host here (a pull's at its first
+        # read); the span holds that and the epoch's accounting (and a
+        # rollback, when one is due)
         with trace_span("epoch.metrics_fetch", plane="learner"):
             skipped = self._sentinel_account(history) if self.ctx.sentinel else 0
             data_cnt = sum(m["dcnt"] for m in history)
@@ -587,7 +592,7 @@ class Trainer:
         generator moved far from the stream that fed the poison."""
         ctx = self.ctx
         ctx.module.load_state_dict(params)
-        ctx.optimizer = torch.optim.Adam(ctx.module.parameters(), lr=0.0, weight_decay=1e-5)
+        ctx.optimizer = make_optimizer(ctx.module)
         seed = ((int(self.args.get("seed", 0)) ^ 0x7EA1)
                 + 0x9E3779B9 * (self.sentinel_events["sentinel_rollbacks"]
                                 + self.sentinel_events["sentinel_flywheel_rollbacks"])

@@ -398,7 +398,8 @@ def test_watchdog_that_gives_up_says_so_in_the_records(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("env_name,train_args,match", [
     ("HungryGeese", dict(SIMULTANEOUS, observation=True), "observer views"),
-    ("ConnectFour", {}, "vector_env"),
+    # ConnectFour's twin is the autovec lift: episodic, no streaming hooks
+    ("ConnectFour", {"device_replay": True}, "streaming hooks"),
 ])
 def test_learner_refuses_at_startup(tmp_path, env_name, train_args, match):
     cfg = _learner_config(tmp_path, env_name, dict(train_args, device_rollout_games=16))

@@ -55,7 +55,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "runtime/_codec_build.py", "runtime/codec.py", "runtime/batch.py",
         "envs/vector_common.py", "envs/vector_tictactoe.py", "envs/vector_parallel_tictactoe.py",
         "envs/vector_hungry_geese.py", "envs/vector_geister.py", "runtime/device_rollout.py",
-        "runtime/device_eval.py", "runtime/device_replay.py", "runtime/device_batch.py"} <= checked
+        "runtime/device_eval.py", "runtime/device_replay.py", "runtime/device_batch.py",
+        "league/league.py", "league/learner.py", "envs/autovec.py",
+        "utils/sanitizers.py"} <= checked
     offenders = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN) for p in files}
     assert not {k: v for k, v in offenders.items() if v}
 

@@ -100,15 +100,13 @@ def _value(path, value):
 # a value other than the JAX default, by dotted key path
 NON_DEFAULT = {
     "plane": "split", "plane_param_lag_bound": 5,
-    "autovec_verify_games": 4, "mesh": {"dp": 2}, "actor_chips": 2,
+    "mesh": {"dp": 2}, "actor_chips": 2,
     "param_refresh_updates": 5, "distributed.num_processes": 2,
     "distributed.coordinator_address": "10.0.0.1:1234", "distributed.process_id": 1,
     "distributed.initialization_timeout": 60.0, "distributed.heartbeat_interval": 1.0,
     "distributed.heartbeat_timeout": 10.0, "distributed.collective_timeout": 60.0,
     "distributed.health_port": 7000, "distributed.role": "actor", "distributed.plane_port": 7001,
     "distributed.actor_hosts": 2, "observability.rank_metrics": False,
-    "league.pfsp_weighting": "hard", "league.selfplay_rate": 0.5,
-    "league.promote_winrate": 0.6, "league.promote_games": 4, "league.max_population": 8,
 }
 
 # the key paths of the int8 rung and the flywheel, ported and acted on: a
@@ -156,6 +154,40 @@ def test_int8_and_flywheel_keys_act_and_are_checked_as_in_jax(key):
     for normalize in (normalize_args, jax_normalize_args):
         with pytest.raises(ValueError, match=words):
             normalize({"env_args": env, "train_args": _value(path, bad)})
+
+
+# the key paths of the league and autovec_verify_games, ported and acted on:
+# a value other than the default that both packages accept, and one the JAX
+# package refuses with the words its refusal carries
+LEAGUE_AND_AUTOVEC_KEYS = {
+    "league.pfsp_weighting": ("hard", "fair", "pfsp_weighting"),
+    "league.selfplay_rate": (0.5, 1.5, "selfplay_rate must be in"),
+    "league.promote_winrate": (0.6, 1.0, "promote_winrate must be in"),
+    "league.promote_games": (4, 0, "promote_games must be >= 1"),
+    "league.max_population": (8, 1, "max_population must be >= 2"),
+    "autovec_verify_games": (4, -1, "autovec_verify_games must be >= 0"),
+}
+
+
+@pytest.mark.parametrize("key", sorted(LEAGUE_AND_AUTOVEC_KEYS))
+def test_league_and_autovec_keys_act_and_are_checked_as_in_jax(key):
+    """Each of these keys is ported: a non-default value passes both
+    packages (and reaches the port's normalised args), it is not in
+    NOT_PORTED_KEYS, and a value the JAX package refuses is refused by both
+    with the JAX words."""
+    from handyrl_tpu.config import normalize_args as jax_normalize_args
+
+    path = tuple(key.split("."))
+    good, bad, words = LEAGUE_AND_AUTOVEC_KEYS[key]
+    env = {"env": "TicTacToe"}
+    for normalize in (normalize_args, jax_normalize_args):
+        train = normalize({"env_args": env, "train_args": _value(path, good)})["train_args"]
+        for k in path:
+            train = train[k]
+        assert train == good
+        with pytest.raises(ValueError, match=words):
+            normalize({"env_args": env, "train_args": _value(path, bad)})
+    assert all(path != p for p, _, _ in NOT_PORTED_KEYS)
 
 
 @pytest.mark.parametrize("path,default,item", NOT_PORTED_KEYS,

@@ -852,10 +852,11 @@ def test_cli_serves_and_drains_on_sigterm(tmp_path, start):
 
 @pytest.mark.parametrize("mode", ["--fleet", "--edge", "--league"])
 def test_modes_still_refused_name_a10(mode, capsys, tmp_path, monkeypatch):
-    """``--league`` exits 1 naming its ROADMAP A10 item.  ``--fleet`` and
-    ``--edge`` are ported: neither is refused, and with no replica or no
-    artifact configured each says so (tests/test_torch_fleet.py and
-    tests/test_torch_export_edge.py run them)."""
+    """``--fleet``, ``--edge`` and ``--league`` are ported: none is refused,
+    and with no replica, no artifact, or a league registry ahead of the
+    resumed epoch each says so (tests/test_torch_fleet.py,
+    tests/test_torch_export_edge.py and tests/test_torch_league.py run
+    them)."""
     from handyrl_tpu_torch.main import main
 
     if mode == "--edge":
@@ -872,8 +873,17 @@ def test_modes_still_refused_name_a10(mode, capsys, tmp_path, monkeypatch):
             main([mode], device="cpu")
         assert "not ported" not in capsys.readouterr().out
         return
-    assert main([mode], device="cpu") == 1
-    assert "ROADMAP A10" in capsys.readouterr().out
+    from handyrl_tpu_torch.league import League
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "config.yaml").write_text(
+        "env_args: {env: TicTacToe}\ntrain_args: {worker: {num_parallel: 1}}\n")
+    league = League("models")
+    league.add("main-9", 9)
+    league.save()
+    with pytest.raises(ValueError, match="main-9"):
+        main([mode], device="cpu")
+    assert "not ported" not in capsys.readouterr().out
 
 
 def _cfg(**serving):
