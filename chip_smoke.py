@@ -232,6 +232,28 @@ Phases, each of which fails the run when it fails:
    per boundary.  (a)'s CLI and (c) run in processes of their own beside
    (d).  Alone: ``python3 -c "import chip_smoke as cs;
    cs.phase_league_autovec({})"``.
+17. a learner of several processes and an actor host, each process run as
+   a user runs it (``main(["--train"])`` from a directory holding
+   config.yaml, ``PROCESS_ID`` set), B1 launches reported by each through
+   a file: (a) two ranks of the training slice's transformer on the one
+   card (global B16 = 8 per rank x T512 bf16, 4 + 2 x 4 episodes, 8 actors
+   each, a 1 s heartbeat): backend gloo as the placement gives it, B1
+   n_layers times per update on each rank, rank 1's params CRC32 equal to
+   the coordinator's saved epoch 2, only rank 0 wrote models/ and
+   metrics.jsonl, updates/s and the gradient all-reduce's ms and bytes per
+   step; with two cards or more the same with one rank per card under
+   NCCL (else "not run (1 card)"); (b) 7a's config on two ranks with
+   ``HANDYRL_FAULT_KILL_PROCESS_AT_EPOCH=1:1``: the coordinator
+   drain-saves a verified checkpoint and exits 75 within heartbeat_timeout
+   plus the drain deadline, a relaunch resumes that epoch on both ranks and
+   ends 0 (minimum and update episodes cut to 50 and 25); (c) a learner of
+   12(c)'s transformer (``device_replay``, 32
+   lanes, ``actor_hosts: 1``) fed by one ``distributed.role: actor``
+   process at 32 lanes: records in its rings, the param versions the host
+   polls rise, the host SIGKILLed and the learner ends 0 with
+   ``dist_actor_host_losses`` >= 1; the gateway's record bytes/s, the
+   params blob's bytes and fetch seconds, the lag.  Alone: ``python3 -c
+   "import chip_smoke as cs; cs.phase_distributed({})"``.
 
 Every learner phase (7a, 7b, 8a, 8b, 9a, 9b, 11c, 11d, 16(a)'s CLI, 16(c), 16(d); 12(e)'s shm
 runs) runs on the port's default
@@ -241,18 +263,21 @@ batcher died or fell back; it prints the pipeline's stage seconds and the
 put's ms per batch.  The script fails if a shared-memory segment or a
 process of the port outlives it.
 
-Phases 4, 5-6, 7b, 9b, 12(c), 15(b)(i) and 16(d) are the paths through the port's
-kernels.  Every phase after 3 starts with every launch count at 0, and
-the counts are read at its end (8b, 9a, 9c, 11c, 12(d)'s CLI, 13(b)'s
-server and 14's replicas, fleet and CLI learners run in processes of
-their own and launch neither kernel).
+Phases 4, 5-6, 7b, 9b, 12(c), 15(b)(i), 16(d), 17(a) and 17(c) are the paths
+through the port's kernels.  Every phase after 3 starts with every launch
+count at 0, and the counts are read at its end (8b, 9a, 9c, 11c, 12(d)'s
+CLI, 13(b)'s server and 14's replicas, fleet and CLI learners run in
+processes of their own and launch neither kernel; 17's ranks and learner,
+processes of their own too, write their counts to a file each, which the
+phase adds).
 
 Phases 1-3 run alone.  After them the phases run in three streams at once
-(``STREAMS``): 4, 5-6, 7b, 9b, 16, 14(d) and 9(a)+(c) in this process;
-7a, 8, 14(a)-(c), 15(c)-(d) and 10 in one child process of this script
-(``--stream b``); 11, 12, 13 and 15(a)-(b) in another (``--stream c``).
-The kernels line's launches are 7b's, 9b's and 16(d)'s here plus those
-the streams report when they end (12(c), 15(b)(i)).  A stream's output
+(``STREAMS``): 4, 5-6, 7b, 9b, 16, 14(d), 9(a)+(c) and 17(a)-(b) (side by
+side) in this process; 7a, 8, 14(a)-(c), 15(c)-(d) and 10 in one child process of this
+script (``--stream b``); 11, 12, 13, 15(a)-(b) and 17(c) in another
+(``--stream c``).  The kernels line's launches are 7b's, 9b's, 16(d)'s and
+17(a)'s ranks' here plus those the streams report when they end (12(c),
+15(b)(i), 17(c)'s learner).  A stream's output
 is printed whole once it has ended; a stream that fails fails the run,
 and a failure kills the streams still running.  Each phase's lap line
 gives its seconds and the CPU seconds its stream's processes spent on
@@ -320,9 +345,9 @@ SEED = 0
 # and 9c plays 9a's checkpoint.  9, 14 and 15 are split into legs
 # (``PHASES``) so that the streams take about as long as each other.
 STREAMS = {
-    "main": ("4", "6", "7b", "9b", "16", "14d", "9ac"),
+    "main": ("4", "6", "7b", "9b", "16", "14d", "9ac", "17ab"),
     "b": ("7a", "8", "14abc", "15cd", "10"),
-    "c": ("11", "12", "13", "15ab"),
+    "c": ("11", "12", "13", "15ab", "17c"),
 }
 STREAM_ENV = "CHIP_SMOKE_STREAM"   # the stream a process (and all it starts) belongs to
 T0_ENV = "CHIP_SMOKE_T0"           # the script's start (time.time()), for a stream's laps
@@ -5554,6 +5579,309 @@ def phase_league_autovec(results):
          "the CLIs' tail"), times, times[1:]))
     print(f"[phase16] phase 16 in {times[-1] - times[0]:.1f} s: {parts}")
 
+DIST_HEARTBEAT = 1.0      # 17: the health plane's heartbeat interval, seconds
+DIST_HEARTBEAT_TIMEOUT = 30.0
+DIST_DRAIN_S = 60.0       # 17(b): the learners' drain_deadline_seconds (the default)
+DIST_ACTOR_EPOCHS = 3     # 17(c): the gateway-fed learner's epochs
+DIST_LOST_EPISODES = (50, 25)  # 17(b): minimum_episodes and update_episodes (config.yaml: 400, 200)
+# intra-op threads of each rank and actor host, as torchrun sets them for
+# several processes on one host (8 cores shared with the other streams)
+DIST_THREADS = "2"
+# a rank or an actor host as a user runs it, its kernels' launches written
+# to CHIP_SMOKE_LAUNCHES when main() returns
+RANK_CHILD = r"""
+import json, os, sys
+from handyrl_tpu_torch.main import main
+from handyrl_tpu_torch.ops.flash_attention import FLASH, MASKED_FLASH
+code = main(["--train"])
+with open(os.environ["CHIP_SMOKE_LAUNCHES"], "w") as f:
+    json.dump({"masked_flash_attention": MASKED_FLASH.launches,
+               "flash_attention": FLASH.launches}, f)
+sys.exit(code)
+"""
+RANK_LINE = re.compile(r"distributed learner: process (\d+)/(\d+) \((\w+)\) on (\S+), backend (\w+)")
+CRC_LINE = re.compile(r"distributed learner: process (\d+) params crc32 ([0-9a-f]{8}) at step (\d+)")
+POLL_LINE = re.compile(r"actor host \d+: params -> version (\d+) \((\d+) bytes in ([\d.]+) s, "
+                       r"lag (\d+) updates\)")
+
+
+def free_ports():
+    """A port p with p + 1 (the health plane) and p + 2 (the gateway) free."""
+    import socket
+
+    for _ in range(100):
+        port = free_port()
+        if port > 65000:
+            continue
+        try:
+            for p in (port + 1, port + 2):
+                with socket.socket() as sock:
+                    sock.bind(("", p))
+            return port
+        except OSError:
+            continue
+    check(False, "no three free ports in a row")
+
+
+def start_rank(cwd, tag, rank=0, env=None):
+    """``RANK_CHILD`` in ``cwd`` with ``PROCESS_ID=rank``, its output and its
+    launch counts in files beside ``cwd``."""
+    base = Path(str(cwd) + f".{tag}{rank}")
+    out, err = open(f"{base}.out", "w"), open(f"{base}.err", "w")
+    proc = subprocess.Popen([sys.executable, "-c", RANK_CHILD], cwd=cwd, stdout=out, stderr=err,
+                            env=dict(cli_env(), PROCESS_ID=str(rank), PYTHONUNBUFFERED="1",
+                                     OMP_NUM_THREADS=DIST_THREADS,
+                                     CHIP_SMOKE_LAUNCHES=f"{base}.json", **(env or {})))
+    out.close()
+    err.close()
+    return {"proc": proc, "base": base, "rank": rank, "t0": time.perf_counter(), "end": None}
+
+
+def finish_rank(job, timeout):
+    """(exit code, stdout, stderr, launch counts or None) of a ``start_rank``
+    child; killed at ``timeout``."""
+    proc = job["proc"]
+    try:
+        proc.wait(timeout=max(1.0, timeout))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    if job["end"] is None:
+        job["end"] = time.perf_counter()
+    out, err = (Path(f"{job['base']}.{ext}").read_text(errors="replace") for ext in ("out", "err"))
+    counts = Path(f"{job['base']}.json")
+    return proc.returncode, out, err, json.loads(counts.read_text()) if counts.exists() else None
+
+
+def wait_ranks(jobs, timeout):
+    """Each job's ``finish_rank``, the end time of each taken as it exits."""
+    deadline = time.perf_counter() + timeout
+    while any(j["proc"].poll() is None for j in jobs) and time.perf_counter() < deadline:
+        for j in jobs:
+            if j["end"] is None and j["proc"].poll() is not None:
+                j["end"] = time.perf_counter()
+        time.sleep(0.2)
+    return [finish_rank(j, deadline - time.perf_counter()) for j in jobs]
+
+
+def tail(results):
+    return "\n".join(f"--- exit {rc}\n{out[-2500:]}\n{err[-2500:]}" for rc, out, err, _ in results)
+
+
+def dist_config(port, train, env_args=None, **dist):
+    return {"env_args": env_args or {"env": "Geister", "net": "transformer", "net_args": NET_ARGS},
+            "train_args": dict(train, distributed=dict({
+                "coordinator_address": f"127.0.0.1:{port}", "heartbeat_interval": DIST_HEARTBEAT,
+                "heartbeat_timeout": DIST_HEARTBEAT_TIMEOUT}, **dist))}
+
+
+def dist_ranks(results, tmp, leg):
+    """17(a): two ranks of the slice's transformer; ``leg`` 'gloo' shares
+    the one card, 'nccl' puts one rank on each of two cards."""
+    from handyrl_tpu_torch.parallel.distributed import params_crc32
+    from handyrl_tpu_torch.runtime import checkpoint as ckpt
+
+    cwd = Path(tmp, leg)
+    train = dict(TRAIN_ARGS, minimum_episodes=TRANSFORMER_EPISODES,
+                 update_episodes=TRANSFORMER_EPISODES, epochs=2, worker={"num_parallel": 8},
+                 seed=SEED)
+    write_config(cwd, dist_config(free_ports(), train, num_processes=2))
+    t0 = time.perf_counter()
+    done = wait_ranks([start_rank(cwd, leg, r) for r in (0, 1)], 900)
+    run_s = time.perf_counter() - t0
+    check([rc for rc, *_ in done] == [0, 0], f"17(a) {leg}: exits {[rc for rc, *_ in done]}\n"
+          + tail(done))
+    ranks = [RANK_LINE.findall(out) for _, out, _, _ in done]
+    check(all(len(r) == 1 for r in ranks), f"17(a) {leg}: rank lines {ranks}")
+    backends = {r[0][4] for r in ranks}
+    devices = [r[0][3] for r in ranks]
+    check(backends == {leg}, f"17(a): backend {backends} on {devices}, the placement gives {leg}")
+    crcs = [CRC_LINE.findall(out) for _, out, _, _ in done]
+    check(all(len(c) == 1 for c in crcs), f"17(a) {leg}: crc lines {crcs}")
+    (_, crc0, steps0), (_, crc1, steps1) = crcs[0][0], crcs[1][0]
+    saved = ckpt.load_params(str(cwd / "models" / "2.ckpt"))
+    check(crc0 == crc1 == f"{params_crc32(saved):08x}" and steps0 == steps1,
+          f"17(a) {leg}: params crc32 {crc0} at step {steps0} / {crc1} at step {steps1}, the "
+          f"saved epoch 2 {params_crc32(saved):08x}")
+    check(sorted(os.listdir(cwd)) == ["config.yaml", "metrics.jsonl", "models"],
+          f"17(a) {leg}: the run's directory holds {sorted(os.listdir(cwd))}: only rank 0 writes")
+    check_snapshots(str(cwd / "models"), [1, 2])
+    records = read_records(cwd / "metrics.jsonl")
+    check(len(records) == 2 and all(r.get("dist_backend") == leg for r in records),
+          f"17(a) {leg}: records {[(r['epoch'], r.get('dist_backend')) for r in records]}")
+    per_step = launches_per_step(TRAIN_ARGS)
+    launches = [counts["masked_flash_attention"] for _, _, _, counts in done]
+    check(all(n == per_step * int(steps0) for n in launches) and int(steps0) > 0,
+          f"17(a) {leg}: B1 launched {launches} times by the ranks in {steps0} updates each, "
+          f"expected {per_step} per update")
+    results["masked_flash_attention"]["launches"] += sum(launches)
+    print_epochs(f"dist {leg}", records)
+    for r in records:
+        if "dist_allreduce_ms" in r:
+            print(f"[dist] 17(a) {leg} epoch {r['epoch']}: {r['updates_per_sec']:.3f} updates/s "
+                  f"({r['train_steps_per_sec']:.3f} while training), gradient all-reduce "
+                  f"{r['dist_allreduce_ms']:.2f} ms and {r['dist_allreduce_bytes'] / 1e6:.1f} MB "
+                  f"per step over {r['dist_allreduce_calls']} steps, input wait "
+                  f"{r['input_wait_frac']:.1%}, rank reports {r.get('rank_reports')}")
+    print(f"[dist] 17(a) {leg}: 2 ranks on {devices}, backend {leg}, {steps0} updates each in "
+          f"{run_s:.1f} s; params crc32 {crc0} on both ranks and in models/2.ckpt; B1 "
+          f"{launches} ({per_step} per update per rank); only rank 0 wrote models/ and "
+          "metrics.jsonl")
+
+
+def dist_lost_rank(tmp):
+    """17(b): 7a's config on two ranks, rank 1 killed at epoch 1; exit 75
+    within heartbeat_timeout + the drain deadline; a relaunch resumes."""
+    import yaml
+
+    from handyrl_tpu_torch.runtime import checkpoint as ckpt
+
+    base = yaml.safe_load((ROOT / "config.yaml").read_text())
+    train = dict(base["train_args"], epochs=3, minimum_episodes=DIST_LOST_EPISODES[0],
+                 update_episodes=DIST_LOST_EPISODES[1], drain_deadline_seconds=DIST_DRAIN_S)
+    cwd = Path(tmp, "lost")
+    write_config(cwd, dist_config(free_ports(), train, base["env_args"], num_processes=2))
+    jobs = [start_rank(cwd, "kill", r, env={"HANDYRL_FAULT_KILL_PROCESS_AT_EPOCH": "1:1"})
+            for r in (0, 1)]
+    done = wait_ranks(jobs, 600)
+    check([rc for rc, *_ in done] == [75, 1], f"17(b): exits {[rc for rc, *_ in done]}, "
+          "expected 75 (the survivor) and 1 (the killed rank)\n" + tail(done))
+    gap = jobs[0]["end"] - jobs[1]["end"]
+    check(gap <= DIST_HEARTBEAT_TIMEOUT + DIST_DRAIN_S,
+          f"17(b): the survivor exited {gap:.1f} s after the lost rank, over heartbeat_timeout "
+          f"{DIST_HEARTBEAT_TIMEOUT:.0f} + drain {DIST_DRAIN_S:.0f} s")
+    err0 = done[0][2]
+    fault = [line for line in err0.splitlines() if "host fault" in line]
+    drained = re.findall(r"drain checkpoint: epoch (\d+)", err0)
+    check(fault and drained, "17(b): the coordinator announced no host fault or drain checkpoint")
+    epoch = int(drained[0])
+    check(ckpt.latest_verified_epoch(str(cwd / "models")) == epoch,
+          f"17(b): the drained epoch {epoch} does not verify as the newest")
+    cfg = json.loads((cwd / "config.yaml").read_text())
+    cfg["train_args"].update(restart_epoch=-1)
+    cfg["train_args"]["distributed"]["coordinator_address"] = f"127.0.0.1:{free_ports()}"
+    write_config(cwd, cfg)
+    t0 = time.perf_counter()
+    again = wait_ranks([start_rank(cwd, "resume", r) for r in (0, 1)], 600)
+    check([rc for rc, *_ in again] == [0, 0], f"17(b) relaunch: exits "
+          f"{[rc for rc, *_ in again]}\n" + tail(again))
+    resumed = [re.findall(r"auto-resume \(restart_epoch: -1\): epoch (\d+)", out)
+               for _, out, _, _ in again]
+    check(resumed == [[str(epoch)], [str(epoch)]], f"17(b): the ranks resumed {resumed}, "
+          f"expected epoch {epoch} on both")
+    crcs = {c for _, out, _, _ in again for c in CRC_LINE.findall(out)}
+    check(len({c[1] for c in crcs}) == 1, f"17(b): the relaunched ranks ended apart: {crcs}")
+    print(f"[dist] 17(b) rank 1 killed at epoch 1: the coordinator exited 75 {gap:.1f} s after "
+          f"it ({fault[0][:160]}), drain checkpoint epoch {epoch} verified; the relaunch resumed "
+          f"epoch {epoch} on both ranks and ended 0 in {time.perf_counter() - t0:.1f} s")
+
+
+def dist_actor_host(results, tmp):
+    """17(c): a gateway-fed learner of 12(c)'s transformer and one actor
+    host on the same card; the host SIGKILLed mid-run."""
+    import signal
+
+    lanes, slots, finished = DATA_TRANSFORMER
+    train = dict(TRAIN_ARGS, seq_attention="flash", minimum_episodes=finished,
+                 update_episodes=finished, epochs=DIST_ACTOR_EPOCHS, seed=SEED,
+                 device_rollout_games=lanes, device_replay=True, device_replay_slots=slots,
+                 device_replay_k_steps=32, worker={"num_parallel": 1})
+    port = free_ports()
+    learner_dir, actor_dir = Path(tmp, "learner"), Path(tmp, "actor")
+    write_config(learner_dir, dist_config(port, train, num_processes=1, actor_hosts=1))
+    write_config(actor_dir, dist_config(port, train, num_processes=1, role="actor"))
+    learner = start_rank(learner_dir, "learner")
+    actor = start_rank(actor_dir, "actor")
+    metrics = learner_dir / "metrics.jsonl"
+    # the host is killed once it has polled a param version (the learner's
+    # first boundary published, records already in the rings)
+    deadline = time.perf_counter() + 600
+    while time.perf_counter() < deadline and learner["proc"].poll() is None:
+        if POLL_LINE.search(Path(f"{actor['base']}.out").read_text(errors="replace")):
+            break
+        time.sleep(0.5)
+    check(actor["proc"].poll() is None, "17(c): the actor host ended before its SIGKILL\n"
+          + tail([finish_rank(actor, 1)]))
+    actor["proc"].send_signal(signal.SIGKILL)
+    actor["proc"].wait()
+    # the records written before the host was gone
+    killed_at = len(read_records(metrics))
+    done = wait_ranks([learner, actor], 900)
+    (rc, out, err, counts), (arc, aout, aerr, acounts) = done
+    check(rc == 0 and arc == -signal.SIGKILL, f"17(c): learner exit {rc}, actor host {arc}\n"
+          + tail(done))
+    records = read_records(metrics)
+    check(killed_at >= 1 and records[killed_at - 1]["plane_record_batches"] > 0,
+          f"17(c): no record batch reached the rings before the SIGKILL ({killed_at} records)")
+    check(killed_at < len(records), f"17(c): the learner wrote no epoch record after the "
+          f"SIGKILL ({killed_at} of {len(records)})")
+    last = records[-1]
+    check(last["dist_actor_host_losses"] >= 1 and last["dist_actor_hosts"] == 0,
+          f"17(c): losses {last.get('dist_actor_host_losses')}, live {last.get('dist_actor_hosts')}")
+    check(len(records) == DIST_ACTOR_EPOCHS and all("loss" in r for r in records[1:]),
+          f"17(c): {len(records)} records")
+    polls = POLL_LINE.findall(aout)
+    versions = [int(v) for v, *_ in polls]
+    check(polls and versions == sorted(set(versions)) and versions[0] > 0,
+          f"17(c): the host's polled versions {versions} do not rise")
+    per_step = launches_per_step(TRAIN_ARGS)
+    # every update the trainer took, those after the last record included
+    crc = CRC_LINE.findall(out)
+    check(len(crc) == 1, f"17(c): the learner printed {len(crc)} crc lines")
+    steps = int(crc[0][2])
+    check(counts["masked_flash_attention"] == per_step * steps,
+          f"17(c): the learner launched B1 {counts['masked_flash_attention']} times in {steps} "
+          f"updates, expected {per_step} per update")
+    results["masked_flash_attention"]["launches"] += counts["masked_flash_attention"]
+    rate = last["plane_record_bytes"] / max(last["plane_record_span_s"], 1e-9)
+    print_epochs("dist actor host", records)
+    for v, nbytes, secs, lag in polls:
+        print(f"[dist] 17(c) the host polled version {v}: {int(nbytes) / 1e6:.1f} MB in "
+              f"{float(secs):.3f} s, lag {lag} updates")
+    print(f"[dist] 17(c) learner (device_replay, {lanes} lanes) fed by one actor host at {lanes} "
+          f"lanes: {last['plane_record_batches']} record batches, "
+          f"{last['plane_record_bytes'] / 1e6:.1f} MB into the rings in "
+          f"{last['plane_record_span_s']:.1f} s, {rate / 1e6:.2f} MB/s of records "
+          f"({last['plane_record_batches'] / max(last['plane_record_span_s'], 1e-9):.2f} blocks/s); "
+          f"host SIGKILLed after {killed_at} records, the "
+          f"learner ended 0 with dist_actor_host_losses {last['dist_actor_host_losses']}; B1 "
+          f"{counts['masked_flash_attention']} ({per_step} per update, {steps} updates), the "
+          f"host's {acounts['masked_flash_attention'] if acounts else 'n/a (killed)'}")
+
+
+def phase_distributed(results, parts="abc"):
+    """17: the learner of several processes and the actor host (see the
+    docstring's phase 17)."""
+    import torch
+
+    results.setdefault("masked_flash_attention", {"launches": 0})
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b)'s processes run beside (a)'s: this process only starts and
+        # waits for them, on a thread for (b)
+        lost = {}
+        if "b" in parts:
+            def run_lost():
+                try:
+                    dist_lost_rank(tmp)
+                except BaseException as exc:
+                    lost["error"] = exc
+            lost["thread"] = threading.Thread(target=run_lost, name="phase-17b")
+            lost["thread"].start()
+        try:
+            if "a" in parts:
+                dist_ranks(results, tmp, "gloo")
+                if torch.cuda.device_count() >= 2:
+                    dist_ranks(results, tmp, "nccl")
+                else:
+                    print(f"[dist] 17(a) nccl leg: not run ({torch.cuda.device_count()} card)")
+        finally:
+            if "thread" in lost:
+                lost["thread"].join()
+        if "error" in lost:
+            raise lost["error"]
+        if "c" in parts:
+            dist_actor_host(results, tmp)
+
 
 def leftovers(shm_before, stream=None):
     """Shared-memory segments and processes of the port alive now: segments
@@ -5642,6 +5970,8 @@ PHASES = {
     "15ab": lambda results: phase_quantize_edge_flywheel(results, "ab"),
     "15cd": lambda results: phase_quantize_edge_flywheel(results, "cd"),
     "16": phase_league_autovec,
+    "17ab": lambda results: phase_distributed(results, "ab"),
+    "17c": lambda results: phase_distributed(results, "c"),
 }
 
 

@@ -12,8 +12,10 @@ on-device self-play and evaluation, the device data plane, the
 ``serving`` block of ``--serve`` (int8 weights included), ``obs_int8``,
 the ``fleet`` block of ``--fleet`` and ``--edge``, the ``flywheel`` block,
 the divergence sentinel with its rollback, the preemption drain,
-``trace`` and ``profile_dir``, the ``league`` block of ``--league`` and
-``autovec_verify_games``.
+``trace`` and ``profile_dir``, the ``league`` block of ``--league``,
+``autovec_verify_games``, and a learner of several processes: ``mesh``
+(``dp``), ``distributed.*`` (actor hosts included) and
+``observability.rank_metrics``.
 """
 
 from __future__ import annotations
@@ -165,6 +167,47 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     # pushes a draining notice to every peer, waits this long for its
     # sessions to be pulled, and exits 75
     "drain_deadline_seconds": 60.0,
+    # the learner's ranks (parallel/distributed.py): an axis -> size dict
+    # over one device per rank; only 'dp' is acted on (other axes of size 1
+    # pass), -1 fills
+    "mesh": {"dp": -1},
+    # a learner of several processes: set coordinator_address ("host:port"
+    # of rank 0) and num_processes (and process_id or PROCESS_ID) to join
+    # one torch.distributed group; initialization_timeout bounds startup
+    # against a dead or mis-addressed coordinator (a loud error, never a
+    # hang); the heartbeat and collective knobs drive the health plane
+    # (parallel/health.py): a lost or wedged peer is found within
+    # heartbeat_timeout (collective_timeout for a silent wedge), the
+    # coordinator drain-saves a verified checkpoint and every survivor
+    # exits 75 for a restart_epoch: -1 relaunch
+    "distributed": {
+        "coordinator_address": None,
+        "num_processes": 1,
+        "process_id": None,
+        "initialization_timeout": 300.0,
+        "heartbeat_interval": 5.0,
+        "heartbeat_timeout": 30.0,
+        "collective_timeout": 300.0,
+        # the health plane's TCP port on the coordinator's host (0 =
+        # coordinator port + 1)
+        "health_port": 0,
+        # 'learner' processes join the group and train; 'actor' processes
+        # stay outside it (runtime/actor_host.py) and stream self-play
+        # records to the learner's plane gateway, polling params back
+        "role": "learner",
+        # the plane gateway's TCP port on the coordinator's host (0 =
+        # health port + 1)
+        "plane_port": 0,
+        # actor-host processes expected at the gateway (0 = none); a lost
+        # one degrades throughput, it never stops the run
+        "actor_hosts": 0,
+    },
+    "observability": {
+        # several processes: followers send a per-epoch metric snapshot on
+        # their heartbeats, and rank 0's metrics.jsonl carries rank_*
+        # aggregates over every rank
+        "rank_metrics": True,
+    },
     # a torch.profiler capture (CPU and CUDA activities) of the first
     # trained epoch, written as a Chrome trace under this directory
     "profile_dir": None,
@@ -354,28 +397,17 @@ DEFAULT_WORKER_ARGS: Dict[str, Any] = {
 
 # keys of the JAX package's defaults that the port does not act on: the
 # key's path in train_args, its JAX default, and the ROADMAP item that ports
-# it.  The default passes; any other value is refused naming the item
-_MULTI_GPU = "A8 (multiple GPUs)"
+# it.  The default passes; any other value is refused naming the item.  What
+# is left needs cards of their own: a learner device beside actor devices
+# (the split plane), NCCL across cards, tensor parallel axes
+_OWN_CARDS = "A8 (cards of their own: plane: split, NCCL across cards, mp, ring attention)"
 NOT_PORTED_KEYS = (
     # the split plane spreads actors and learner over chips of their own
-    (("plane",), "fused", _MULTI_GPU),
+    (("plane",), "fused", _OWN_CARDS),
     # acts only under plane: split
-    (("plane_param_lag_bound",), 0, _MULTI_GPU),
-    (("mesh",), {"dp": -1}, _MULTI_GPU),
-    (("actor_chips",), 1, _MULTI_GPU),
-    (("param_refresh_updates",), 8, _MULTI_GPU),
-    (("distributed", "num_processes"), 1, _MULTI_GPU),
-    (("distributed", "coordinator_address"), None, _MULTI_GPU),
-    (("distributed", "process_id"), None, _MULTI_GPU),
-    (("distributed", "initialization_timeout"), 300.0, _MULTI_GPU),
-    (("distributed", "heartbeat_interval"), 5.0, _MULTI_GPU),
-    (("distributed", "heartbeat_timeout"), 30.0, _MULTI_GPU),
-    (("distributed", "collective_timeout"), 300.0, _MULTI_GPU),
-    (("distributed", "health_port"), 0, _MULTI_GPU),
-    (("distributed", "role"), "learner", _MULTI_GPU),
-    (("distributed", "plane_port"), 0, _MULTI_GPU),
-    (("distributed", "actor_hosts"), 0, _MULTI_GPU),
-    (("observability", "rank_metrics"), True, _MULTI_GPU),
+    (("plane_param_lag_bound",), 0, _OWN_CARDS),
+    (("actor_chips",), 1, _OWN_CARDS),
+    (("param_refresh_updates",), 8, _OWN_CARDS),
 )
 
 
@@ -533,12 +565,17 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
     _validate_fleet(train["fleet"])
     _validate_trace(train["trace"])
     _validate_not_ported_values(train)
+    _validate_distributed(train)
+    for axis, size in train["mesh"].items():
+        if axis != "dp" and size != 1:
+            raise ValueError(
+                f"train_args.mesh={train['mesh']!r}: the axis {axis!r} selects a plane that is "
+                f"not ported to handyrl_tpu_torch yet (only 'dp' is): ROADMAP {_OWN_CARDS}"
+            )
     for path, default, item in NOT_PORTED_KEYS:
         value = train
         for key in path:
             value = value.get(key, default) if isinstance(value, dict) else default
-        if path == ("mesh",) and _one_device_mesh(value):
-            continue   # every axis of size 1 (or -1: all of the port's one device)
         if value != default:
             raise ValueError(
                 f"train_args.{'.'.join(path)}={value!r} selects a plane that is not ported to "
@@ -641,10 +678,6 @@ def _validate_flywheel(fly: Dict[str, Any]) -> None:
             f"train_args.flywheel.harvest_port={fly['harvest_port']!r} must "
             "be a TCP port in [0, 65535] (0 = follow serving.port)"
         )
-
-
-def _one_device_mesh(mesh: Any) -> bool:
-    return isinstance(mesh, dict) and bool(mesh) and all(size in (1, -1) for size in mesh.values())
 
 
 def _validate_fleet(fleet: Dict[str, Any]) -> None:
@@ -785,25 +818,141 @@ def _validate_not_ported_values(train: Dict[str, Any]) -> None:
             value = value.get(key, defaults[path]) if isinstance(value, dict) else defaults[path]
         return value
 
-    mesh = get("mesh")
-    if not isinstance(mesh, dict) or not mesh:
-        raise ValueError("train_args.mesh must be a non-empty axis->size dict")
     if int(get("actor_chips")) < 1:
         raise ValueError("train_args.actor_chips must be >= 1")
     if int(get("param_refresh_updates")) < 1:
         raise ValueError("train_args.param_refresh_updates must be >= 1")
-    if int(get("distributed", "num_processes")) < 1:
-        raise ValueError("train_args.distributed.num_processes must be >= 1")
-    if get("distributed", "role") not in ("learner", "actor"):
+
+
+def _validate_distributed(train: Dict[str, Any]) -> None:
+    """``mesh``, ``distributed.*`` and ``observability.rank_metrics``, with
+    the JAX package's checks and words."""
+    mesh = train["mesh"]
+    if not isinstance(mesh, dict) or not mesh:
+        raise ValueError("train_args.mesh must be a non-empty axis->size dict")
+    for axis, size in mesh.items():
+        if not isinstance(size, int) or isinstance(size, bool) or (size < 1 and size != -1):
+            raise ValueError(f"train_args.mesh={mesh!r}: axis {axis!r} size must be a "
+                             "positive int or -1 (fill)")
+    if not isinstance(train["observability"]["rank_metrics"], bool):
         raise ValueError(
-            f"train_args.distributed.role={get('distributed', 'role')!r} not one of "
-            "('learner', 'actor')"
-        )
-    if not isinstance(get("observability", "rank_metrics"), bool):
-        raise ValueError(
-            f"train_args.observability.rank_metrics={get('observability', 'rank_metrics')!r} "
+            f"train_args.observability.rank_metrics={train['observability']['rank_metrics']!r} "
             "must be a bool"
         )
+    dist = train["distributed"]
+    if dist["coordinator_address"] is not None:
+        # the pre-flight, the store and the health plane parse host:port
+        # out of this: a missing port fails here, with the knob named
+        _host, _, _port = str(dist["coordinator_address"]).rpartition(":")
+        if not _host or not _port.isdigit() or not 1 <= int(_port) <= 65535:
+            raise ValueError(
+                f"train_args.distributed.coordinator_address="
+                f"{dist['coordinator_address']!r} must be 'host:port' with a "
+                "TCP port (the address of process 0)"
+            )
+    if int(dist["num_processes"]) < 1:
+        raise ValueError("train_args.distributed.num_processes must be >= 1")
+    if dist["process_id"] is not None and int(dist["process_id"]) < 0:
+        raise ValueError("train_args.distributed.process_id must be >= 0")
+    if float(dist["initialization_timeout"]) <= 0:
+        raise ValueError(
+            "train_args.distributed.initialization_timeout must be > 0 "
+            "(it bounds the process group's initialization against a dead or "
+            "mis-addressed coordinator — 0 would restore the indefinite "
+            "startup hang)"
+        )
+    if float(dist["heartbeat_interval"]) < 0:
+        raise ValueError(
+            "train_args.distributed.heartbeat_interval must be >= 0 "
+            "(0 disables the cross-host health plane)"
+        )
+    if float(dist["heartbeat_timeout"]) <= 0:
+        raise ValueError("train_args.distributed.heartbeat_timeout must be > 0")
+    if (float(dist["heartbeat_interval"]) > 0
+            and float(dist["heartbeat_timeout"]) <= 2 * float(dist["heartbeat_interval"])):
+        raise ValueError(
+            "train_args.distributed.heartbeat_timeout must exceed 2x "
+            "heartbeat_interval — a single delayed beat must not count a "
+            "live host as lost"
+        )
+    if float(dist["collective_timeout"]) < 0:
+        raise ValueError(
+            "train_args.distributed.collective_timeout must be >= 0 "
+            "(0 disables the collective watchdog)"
+        )
+    if not isinstance(dist["health_port"], int) or not 0 <= dist["health_port"] <= 65535:
+        raise ValueError(
+            f"train_args.distributed.health_port={dist['health_port']!r} "
+            "must be a TCP port (0 = coordinator port + 1)"
+        )
+    if (dist["health_port"] == 0 and dist["coordinator_address"] is not None
+            and float(dist["heartbeat_interval"]) > 0
+            and int(str(dist["coordinator_address"]).rpartition(":")[2]) >= 65535):
+        raise ValueError(
+            "train_args.distributed.health_port derives as coordinator "
+            "port + 1 = 65536, which is not a TCP port — set "
+            "distributed.health_port explicitly"
+        )
+    if str(dist["role"]) not in ("learner", "actor"):
+        raise ValueError(
+            f"train_args.distributed.role={dist['role']!r} not one of "
+            "('learner', 'actor') — learners join the process group; actor "
+            "hosts stream records to the plane gateway"
+        )
+    if not isinstance(dist["plane_port"], int) or not 0 <= dist["plane_port"] <= 65535:
+        raise ValueError(
+            f"train_args.distributed.plane_port={dist['plane_port']!r} "
+            "must be a TCP port (0 = health port + 1)"
+        )
+    if int(dist["actor_hosts"]) < 0:
+        raise ValueError("train_args.distributed.actor_hosts must be >= 0")
+    actor_tier = int(dist["actor_hosts"]) > 0 or str(dist["role"]) == "actor"
+    if actor_tier and not dist["coordinator_address"]:
+        raise ValueError(
+            "train_args.distributed.actor_hosts/role: actor need "
+            "distributed.coordinator_address — the plane gateway binds on "
+            "(and actor hosts dial) the coordinator host"
+        )
+    if str(dist["role"]) == "actor" and int(train["device_rollout_games"]) <= 0:
+        raise ValueError(
+            "train_args.distributed.role: actor needs device_rollout_games "
+            "> 0 — a dedicated actor host generates with the on-device "
+            "streaming rollout (host self-play already has the worker tier)"
+        )
+    if (dist["plane_port"] == 0 and dist["coordinator_address"] is not None and actor_tier
+            and (dist["health_port"]
+                 or int(str(dist["coordinator_address"]).rpartition(":")[2]) + 1) >= 65535):
+        raise ValueError(
+            "train_args.distributed.plane_port derives as health port + 1 "
+            "= 65536, which is not a TCP port — set "
+            "distributed.plane_port explicitly"
+        )
+    # the group only comes up with a coordinator_address, so the shard
+    # checks key on both
+    if int(dist["num_processes"]) > 1 and dist["coordinator_address"]:
+        nprocs = int(dist["num_processes"])
+        if int(train["batch_size"]) % nprocs != 0:
+            raise ValueError(
+                f"train_args.batch_size={train['batch_size']} must divide "
+                f"evenly across distributed.num_processes={nprocs} — each "
+                "process assembles batch_size/num_processes local rows for "
+                "the collective train step"
+            )
+        if int(train["device_rollout_games"]) > 0 and (
+                int(train["device_rollout_games"]) % nprocs != 0):
+            raise ValueError(
+                f"train_args.device_rollout_games="
+                f"{train['device_rollout_games']} must divide evenly across "
+                f"distributed.num_processes={nprocs} — each process runs "
+                "device_rollout_games/num_processes lanes on its local "
+                "actor devices"
+            )
+        for axis, size in mesh.items():
+            if axis == "dp" and size not in (-1, nprocs):
+                raise ValueError(
+                    f"train_args.mesh={mesh!r} must cover the {nprocs} ranks of "
+                    "distributed.num_processes (one device per rank; -1 fills)"
+                )
 
 
 def normalize_args(raw: Dict[str, Any]) -> Dict[str, Any]:

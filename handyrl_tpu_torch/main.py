@@ -25,6 +25,12 @@ when none is given) on ``fleet.edge_port``.  ``--league`` trains a
 population (``train_args.league``): the candidate against PFSP-sampled
 frozen snapshots served from resident router engines, frozen by the
 promotion gate; it exits 75 after a SIGTERM drain, as ``--train`` does.
+
+A learner of several processes runs ``--train`` once per rank, each with
+``distributed.process_id`` in its config or ``PROCESS_ID`` in its
+environment (parallel/distributed.py); with ``distributed.role: actor``
+``--train`` runs a dedicated actor host instead (runtime/actor_host.py),
+which streams self-play records to the learner's plane gateway.
 """
 
 from __future__ import annotations
@@ -49,9 +55,16 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         return 1
     mode = argv[0]
     if mode in ("--train", "-t"):
+        args = load_args()
+        if (args["train_args"].get("distributed") or {}).get("role") == "actor":
+            # an actor host: on-device self-play only, outside the
+            # learner's process group
+            from .runtime.actor_host import actor_host_main
+
+            return actor_host_main(args, device=device)
         from .runtime.learner import train_main
 
-        return train_main(load_args(), device=device)
+        return train_main(args, device=device)
     if mode in ("--train-server", "-ts"):
         from .runtime.learner import train_server_main
 

@@ -18,6 +18,13 @@ run in TF32 (PyTorch's default, ``torch.backends.cudnn.allow_tf32``) and
 matmuls in fp32, so an fp32 conv net's step there is TF32 in its convs.
 The ring-attention branch is not ported yet.
 
+Under a process group of several ranks (parallel/distributed.py) each rank
+takes its shard of the global batch, and the step sums the ranks'
+gradients and their losses/data-count vector in one flat bucket before the
+clip: the JAX loss is a sum over the global batch, so the summed gradient
+is the global batch's, the clip's global norm is taken on it, and the
+sentinel's verdict is the same on every rank.
+
 A step never waits on the card: the divergence sentinel's verdict stays on
 the device (it is the fused Adam's ``found_inf``, which skips the update
 there), and the metrics come back as ``StepMetrics``, copied to the host
@@ -301,6 +308,10 @@ class TrainContext:
         self.compute_dtype = _compute_dtype(args)
         self.optimizer = make_optimizer(self.module)
         self.sentinel = bool(args.get("sentinel", True))
+        # the gradient bucket's all-reduce under a group of several ranks
+        from .distributed import BucketAllReduce, process_count
+
+        self.grad_reduce = BucketAllReduce() if process_count() > 1 else None
 
     def load_optimizer_state(self, state_dict: Dict[str, Any]) -> None:
         """Adam's saved state into this context's fused Adam; a state saved
@@ -393,16 +404,25 @@ class TrainContext:
 
         With the sentinel on, a step whose loss, gradient norm or lr is not
         finite leaves params and Adam state untouched, contributes zeros to
-        the metrics, and sets ``sentinel_bad``."""
+        the metrics, and sets ``sentinel_bad``.  Under several ranks the
+        metrics are the global batch's (summed over the ranks)."""
         if isinstance(batch["action"], np.ndarray):
             batch = self.put_batch(batch)
         self.optimizer.zero_grad(set_to_none=True)
         losses, dcnt = self.loss(batch)
         losses["total"].backward()
-        gnorm = torch.nn.utils.clip_grad_norm_(self.module.parameters(), 4.0)
         zero = torch.zeros((), device=self.device)
         values = torch.stack([losses.get(k, zero).detach().float() for k in LOSS_KEYS]
                              + [dcnt.float()])
+        if self.grad_reduce is not None:
+            # the global batch's gradient and metrics: summed over the ranks
+            # in one bucket, before the clip and the sentinel read them
+            params = [p for p in self.module.parameters() if p.requires_grad]
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            self.grad_reduce([p.grad for p in params] + [values])
+        gnorm = torch.nn.utils.clip_grad_norm_(self.module.parameters(), 4.0)
         keys = LOSS_KEYS + ("dcnt",)
         step = True
         if self.sentinel:

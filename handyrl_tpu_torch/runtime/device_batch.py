@@ -55,6 +55,9 @@ class DeviceBatchPipeline:
         self.store = store
         self.ctx = ctx
         self.stop_event = stop_event or threading.Event()
+        # this process's share of the global batch: the trainer hands its
+        # pipeline the local batch (``local_batch_size``), and under several
+        # ranks each samples its own rings, staged on its own card
         self._batch = int(args["batch_size"])
         self._fused = max(1, int(args.get("fused_steps", 1)))
         # raises on a misconfigured window mode (a recurrent net without
@@ -67,8 +70,10 @@ class DeviceBatchPipeline:
             chunk_steps=int(args.get("device_stage_chunk", 64)),
             device=ctx.device,
         )
+        from ..parallel.distributed import process_index
+
         self._gen = torch.Generator(device=ctx.device).manual_seed(
-            int(args.get("seed", 0)) ^ 0xD17A)
+            (int(args.get("seed", 0)) ^ 0xD17A) + 1009 * process_index())
         self._eligible = False
         self._started = False
         self._lock = threading.Lock()

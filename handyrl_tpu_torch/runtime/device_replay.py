@@ -393,6 +393,10 @@ class DeviceReplay:
         # deferred stats (ingest_counted(defer=True)): read one ingest late,
         # so the read overlaps the next ingest instead of waiting on its own
         self._stats_fifo: deque = deque()
+        # who wrote the last block: a block from another source (an actor
+        # host's gateway after the learner's own rollout) restarts the lanes
+        self._source: Optional[str] = None
+        self._count_lock = threading.Lock()
 
     # -- rings and ingest ---------------------------------------------------
 
@@ -475,32 +479,50 @@ class DeviceReplay:
             "outcome_sq_sum": (outcome ** 2 * donef).sum(),
         }
 
-    def ingest(self, records) -> HostRecord:
-        """Fold a (K, B, ...) record batch (one rollout launch, or a chunk of
-        host-born episodes as numpy) into the rings.  Returns the block's
+    def ingest(self, records, source: str = "local") -> HostRecord:
+        """Fold a (K, B, ...) record batch (one rollout launch, a chunk of
+        host-born episodes as numpy, or an actor host's records received by
+        the plane gateway, runtime/plane.py) into the rings.  Returns the block's
         stats on their way to the host (``.numpy()`` waits for them).
-        Host-born records cross to the card before the lock is taken."""
+        Host-born records cross to the card before the lock is taken.
+
+        A lane holds one stream of games: a block from another ``source``
+        than the last one first restarts every lane (``_restart_lanes``),
+        so no episode spans two sources' games."""
         records = {k: _as_tensor(v, self.device) for k, v in records.items()}
         with self.lock, torch.no_grad():
             if self.rings is None:
                 self.rings = self._init_rings(records)
+            elif self._source not in (None, source):
+                self._restart_lanes()
+            self._source = source
             self._write(records)
             stats = HostRecord(self._stats(records))
             self._pending = stats
         return stats
 
+    def _restart_lanes(self) -> None:
+        """Every lane's episode in progress is cut: its resident steps stay
+        unfinished, hence never sampled, and the next step written opens a
+        new episode.  The steps that follow are the tail of the new
+        source's game, a whole game's suffix in order."""
+        rings = self.rings
+        rings["cur_start_g"].fill_(rings["g"])
+
     def _account(self, stats: HostRecord) -> Dict[str, np.ndarray]:
         """Read one ingest's stats on the host (waits for that ingest only)
-        and fold them into the cumulative counters."""
+        and fold them into the cumulative counters (the rollout thread and
+        the plane gateway's serve thread both count)."""
         host = stats.numpy()
-        self.counters["episodes"] += int(host["episodes"])
-        self.counters["game_steps"] += int(host["game_steps"])
-        self.counters["player_steps"] += int(host["player_steps"])
-        self.counters["outcome_sum"] += float(host["outcome_sum"].sum())
-        self.counters["outcome_sq_sum"] += float(host["outcome_sq_sum"])
+        with self._count_lock:
+            self.counters["episodes"] += int(host["episodes"])
+            self.counters["game_steps"] += int(host["game_steps"])
+            self.counters["player_steps"] += int(host["player_steps"])
+            self.counters["outcome_sum"] += float(host["outcome_sum"].sum())
+            self.counters["outcome_sq_sum"] += float(host["outcome_sq_sum"])
         return host
 
-    def ingest_counted(self, records, defer: bool = False):
+    def ingest_counted(self, records, defer: bool = False, source: str = "local"):
         """``ingest`` and the host read of its stats, added to ``counters``.
 
         ``defer=True`` reads the stats of ingest N only after ingest N+1 has
@@ -508,7 +530,7 @@ class DeviceReplay:
         it returns the PREVIOUS ingest's stats (None on the first call), and
         ``flush_counted`` reads the tail.  The totals are the same either
         way."""
-        stats = self.ingest(records)
+        stats = self.ingest(records, source)
         if not defer:
             return self._account(stats)
         self._stats_fifo.append(stats)
@@ -563,13 +585,26 @@ class DeviceReplay:
             return batch, {k: v.cpu().numpy() for k, v in info[0].items()}
         return batch
 
+    def sample_host(self, gen: torch.Generator, batch_size: int) -> Dict[str, Any]:
+        """``batch_size`` windows sampled from the rings and brought to the
+        host as numpy, a batch ``TrainContext.put_batch`` takes.  The JAX
+        package needs this hop on every step of a run of several processes
+        (its rings and its collective step live on different meshes); here
+        each rank's rings and its step share the rank's one device, so the
+        trainer samples on the card and this serves the checks."""
+        return tree_map(lambda x: x.cpu().numpy(), self._sample(gen, batch_size))
+
     def train_fn(self, ctx, fused_steps: int = 1):
         """``fn(gen, lr) -> metrics``: ``fused_steps`` sample+SGD updates from
         the current rings, metrics summed over them on the device (as
         ``TrainContext.train_steps``).  Each update samples under the lock
         and steps outside it; nothing waits on the card (the trainer reads
-        the metrics one pull late)."""
-        B = self.args["batch_size"]
+        the metrics one pull late).  Each samples this process's share of
+        the global batch (``local_batch_size``): under several ranks every
+        rank samples its own rings, and the step sums the gradients."""
+        from ..parallel.distributed import local_batch_size
+
+        B = local_batch_size(int(self.args["batch_size"]))
 
         def fn(gen: torch.Generator, lr: float) -> StepMetrics:
             return StepMetrics.total([ctx.train_step(self._sample(gen, B), lr)

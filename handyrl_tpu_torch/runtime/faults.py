@@ -17,11 +17,17 @@ the object.
 * ``HANDYRL_FAULT_SIGTERM_REPLICA="N"``: a serving replica SIGTERMs its
   own process after its N-th reply, driving the preemption drain that the
   fleet router answers by migrating its sessions.
-* ``HANDYRL_FAULT_KILL_PROCESS_AT_EPOCH="E:R"`` and
-  ``HANDYRL_FAULT_WEDGE_PROCESS="E:R"``: parsed here; the multi-process
-  learner that acts on them waits for ROADMAP A8.
-* ``HANDYRL_FAULT_POISON_SNAPSHOT_AT_EPOCH="E"``: parsed here; the data
-  flywheel that acts on it waits for ROADMAP A10.
+* ``HANDYRL_FAULT_KILL_PROCESS_AT_EPOCH="E:R"`` (bare ``"E"`` = rank
+  0): the learner process of rank R dies hard (``os._exit``) when its
+  model epoch reaches E, a lost host; the survivors find it through the
+  health plane (parallel/health.py), the coordinator drain-saves, and
+  every survivor exits 75.
+* ``HANDYRL_FAULT_WEDGE_PROCESS="E:R"``: the same trigger, but rank R
+  freezes instead: its heartbeats stop, its trainer stops joining
+  collectives, its threads stay up.  The survivors escape through the
+  heartbeat timeout or the collective watchdog, never hang.
+* ``HANDYRL_FAULT_POISON_SNAPSHOT_AT_EPOCH="E"``: the learner saves a
+  negated snapshot at epoch E (the flywheel's gate must catch it).
 """
 
 from __future__ import annotations
@@ -94,7 +100,7 @@ def _epoch_rank(name: str) -> Optional[Tuple[int, int]]:
 
 
 def poison_snapshot_epoch() -> Optional[int]:
-    """The model epoch at which a sabotaged snapshot would be saved."""
+    """The model epoch at which a sabotaged snapshot is saved."""
     raw = _get("HANDYRL_FAULT_POISON_SNAPSHOT_AT_EPOCH")
     if raw is None:
         return None
@@ -110,10 +116,10 @@ def poison_snapshot_epoch() -> Optional[int]:
 
 
 def kill_process_at_epoch() -> Optional[Tuple[int, int]]:
-    """(epoch, rank) at which that process would die hard."""
+    """(epoch, rank) at which that process dies hard."""
     return _epoch_rank("HANDYRL_FAULT_KILL_PROCESS_AT_EPOCH")
 
 
 def wedge_process_at_epoch() -> Optional[Tuple[int, int]]:
-    """(epoch, rank) at which that process would freeze."""
+    """(epoch, rank) at which that process freezes (silent, not dead)."""
     return _epoch_rank("HANDYRL_FAULT_WEDGE_PROCESS")

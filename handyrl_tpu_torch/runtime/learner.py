@@ -56,8 +56,23 @@ negated params while training goes on clean.  ``autovec_verify_games: N``
 plays N random step-parity games of an autovec-lifted twin
 (envs/autovec.py) on the learner's device before training.  The league
 (league/learner.py) overrides three seams: ``_make_model_server``,
-``_epoch_hook`` and ``_gc_pinned``.  The JAX package's
-distributed learner and split plane are not ported (ROADMAP).
+``_epoch_hook`` and ``_gc_pinned``.
+
+A learner of several processes (``distributed.num_processes`` > 1, one
+``--train`` per rank, ``train_main`` joining the group first) trains one
+model: every rank has its own actors (Python's ``random`` seeded ``seed +
+1009 * rank``), its own rings and its own share of the global batch; the
+coordinator (rank 0) alone resumes from the manifest (the others take its
+verdict), writes checkpoints and metrics.jsonl, and decides the epochs,
+which reach the others through the trainer's cadence.  The health plane
+and the collective watchdog (parallel/health.py) bound a lost or wedged
+peer: the coordinator drain-saves a verified checkpoint and every
+survivor exits 75 (``HANDYRL_FAULT_KILL_PROCESS_AT_EPOCH`` and
+``HANDYRL_FAULT_WEDGE_PROCESS`` inject both).  With
+``distributed.actor_hosts`` > 0 the coordinator serves the plane gateway
+(runtime/plane.py): actor hosts' record blocks land in its rings, and
+each boundary's params are published to them, versioned by step count.
+The split plane (``plane: split``) is not ported (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -116,9 +131,25 @@ class Learner:
         train_args["env"] = args["env_args"]
         self.args = train_args
         self.device = resolve_device(device)
-        random.seed(self.args["seed"])
-        if trace.configure(self.args["trace"]):
-            print(f"trace: spans -> {trace.current_path()}")
+        # the rank of a learner of several processes (train_main has joined
+        # the group); one process sees a count of 1 and none of it applies
+        from ..parallel.distributed import is_coordinator, process_count, process_index
+
+        self._dist_nprocs = process_count()
+        self._dist_rank = process_index() if self._dist_nprocs > 1 else 0
+        self._dist_follower = self._dist_nprocs > 1 and not is_coordinator()
+        # each rank's actors play other games; the model's init stays the
+        # base seed's on every rank, so the params start identical
+        random.seed(self.args["seed"] + 1009 * self._dist_rank)
+        self._fault_kill_proc = faults.kill_process_at_epoch()
+        self._fault_wedge_proc = faults.wedge_process_at_epoch()
+        self._health = None
+        self._collective_watchdog = None
+        self._host_faulted = False
+        self._plane_gateway = None
+        self._rank_metrics = bool((self.args.get("observability") or {}).get("rank_metrics", True))
+        if trace.configure(self.args["trace"], rank=self._dist_rank):
+            print(f"trace: spans -> {trace.current_path()} (rank {self._dist_rank})")
         # the preemption drain (run() installs the handlers)
         self.drain_deadline = float(self.args["drain_deadline_seconds"])
         self._drain_requested = False
@@ -139,11 +170,19 @@ class Learner:
         auto_resumed = False
         if self.model_epoch < 0:
             # the newest snapshot that verifies, older ones where the newest
-            # is corrupt; 0 = a fresh start
-            self.model_epoch = latest_verified_epoch(self.model_dir)
-            auto_resumed = self.model_epoch > 0
+            # is corrupt; 0 = a fresh start.  Under several ranks only the
+            # coordinator scans (it owns the files) and every rank resumes
+            # its verdict; a rank that cannot read that epoch fails loudly
+            if self._dist_nprocs > 1:
+                from ..parallel.distributed import broadcast_resume_epoch
+
+                local = 0 if self._dist_follower else latest_verified_epoch(self.model_dir)
+                self.model_epoch = broadcast_resume_epoch(local)
+            else:
+                self.model_epoch = latest_verified_epoch(self.model_dir)
+            auto_resumed = self.model_epoch > 0 and not self._dist_follower
             print(f"auto-resume (restart_epoch: -1): epoch {self.model_epoch}"
-                  if auto_resumed else
+                  if self.model_epoch > 0 else
                   "auto-resume (restart_epoch: -1): no verified snapshot; fresh start")
         if self.model_epoch > 0:
             self.module.load_state_dict(
@@ -171,6 +210,7 @@ class Learner:
                 self.env, obs=self.env.observation(self.env.players()[0]))
         self.trainer = Trainer(self.args, self.module, self.device)
         self.trainer.device_replay = self._replay
+        self._setup_distributed()
         # the configured plane; an shm pipeline may still fall back to
         # threads when it starts, so each record reads the live mode.  The
         # codec accelerator is built here, before any batcher is forked
@@ -196,6 +236,7 @@ class Learner:
             router.calibration_source = lambda: calibration_batches_from_store(
                 store, router.calibration_batches)
         self.model_server.publish(self.model_epoch, self.trainer.state_host["params"])
+        self._setup_gateway()
         self.remote = remote
         if remote:
             from .server import WorkerServer
@@ -229,6 +270,57 @@ class Learner:
         self._metrics_tail_checked = False
         self._next_update_episodes = self.args["minimum_episodes"] + update_episodes
 
+    def _setup_distributed(self) -> None:
+        """Under several ranks: the trainer's cadence over the ``dp`` mesh,
+        the collective watchdog and the health plane (both started by
+        ``run``), and the disarm at the agreed finish."""
+        if self._dist_nprocs <= 1:
+            return
+        from ..parallel.distributed import DistributedCadence, backend
+        from ..parallel.health import CollectiveWatchdog, HostHealthPlane
+        from ..parallel.mesh import make_mesh
+
+        dist_args = dict(self.args.get("distributed") or {})
+        mesh = make_mesh(self.args.get("mesh"))
+        self.trainer.cadence = DistributedCadence(mesh)
+        timeout = float(dist_args.get("collective_timeout") or 0.0)
+        if timeout > 0:
+            self._collective_watchdog = CollectiveWatchdog(
+                timeout, lambda reason: self._host_fault(reason, "collective_timeout"))
+            self.trainer.collective_watchdog = self._collective_watchdog
+        if dist_args.get("coordinator_address"):
+            self._health = HostHealthPlane(dist_args, self._dist_rank, self._dist_nprocs,
+                                           lambda reason, kind: self._host_fault(reason, kind))
+        # the agreed stop or drain reaches every rank in one broadcast: from
+        # there a peer's silence is teardown, not a fault
+        self.trainer.on_agreed_finish = self._disarm_host_fault
+        self.trainer.on_collective_fault = lambda reason: self._host_fault(reason, "peer_loss")
+        self.dist_backend = backend()
+        print("distributed learner: process %d/%d (%s) on %s, backend %s, mesh %s, health "
+              "plane %s, collective watchdog %s"
+              % (self._dist_rank, self._dist_nprocs,
+                 "follower" if self._dist_follower else "coordinator", self.device,
+                 self.dist_backend, mesh.shape,
+                 "on" if (self._health and self._health.enabled) else "off",
+                 f"{timeout:.0f}s" if timeout > 0 else "off"), flush=True)
+
+    def _setup_gateway(self) -> None:
+        """``distributed.actor_hosts`` > 0: the coordinator serves the plane
+        gateway (followers never do: the hosts dial the one port derived
+        from the coordinator's), publishing its initial params at version
+        ``steps``.  The gateway's records land in the device rings."""
+        dist_args = dict(self.args.get("distributed") or {})
+        if int(dist_args.get("actor_hosts") or 0) <= 0 or self._dist_follower:
+            return
+        if self._replay is None:
+            raise ValueError(
+                "distributed.actor_hosts > 0 needs device_replay: true on the learner tier — "
+                "actor-host record batches land in the device replay rings")
+        from .plane import PlaneGateway
+
+        self._plane_gateway = PlaneGateway(dist_args, on_records=self._gateway_on_records)
+        self._plane_gateway.publish(self.trainer.state_host["params"], self.trainer.steps)
+
     def _vector_env(self, key: str):
         vector_env = getattr(self.env, "vector_env", None)
         if vector_env is None:
@@ -239,7 +331,8 @@ class Learner:
     def _setup_device_planes(self) -> None:
         """The rollout and the evaluator of the device twin, each
         with a copy of the module on this learner's device."""
-        self._device_games = int(self.args["device_rollout_games"])
+        # each rank runs its share of the lanes
+        self._device_games = int(self.args["device_rollout_games"]) // self._dist_nprocs
         self._device_roll = None
         self._replay = None
         self._device_eval = None
@@ -453,6 +546,7 @@ class Learner:
             record.update(self._watchdog_events)
         if self.model_server.substituted_snapshots:
             record["serve_snapshot_substituted"] = self.model_server.substituted_snapshots
+        self._dist_record(record, steps)
         if trace.enabled():
             record.update(trace.trace_stats())
         if self.remote:  # the remote actor plane's books, cumulative
@@ -520,6 +614,7 @@ class Learner:
         and the publish took."""
         print("updated model(%d)" % steps)
         self.model_epoch += 1
+        self._dist_fault_hooks()
         save_params = params
         if self._fault_poison_epoch is not None and self.model_epoch == self._fault_poison_epoch:
             # fault injection (runtime/faults.py): the SAVED snapshot is negated,
@@ -529,12 +624,17 @@ class Learner:
                   "NEGATED params (training params stay clean)", flush=True)
             save_params = {k: -v if v.is_floating_point() else v for k, v in params.items()}
         t0 = time.perf_counter()
-        with trace_span("checkpoint.save", plane="learner", epoch=self.model_epoch):
-            save_epoch_snapshot(self.model_dir, self.model_epoch, save_params,
-                                self.trainer.save_payload(self.model_epoch), steps)
-        gc_snapshots(self.model_dir, int(self.args["keep_checkpoints"]), pin=self._gc_pin_set())
+        if not self._dist_follower:   # one rank owns the checkpoint files
+            with trace_span("checkpoint.save", plane="learner", epoch=self.model_epoch):
+                save_epoch_snapshot(self.model_dir, self.model_epoch, save_params,
+                                    self.trainer.save_payload(self.model_epoch), steps)
+            gc_snapshots(self.model_dir, int(self.args["keep_checkpoints"]),
+                         pin=self._gc_pin_set())
         t1 = time.perf_counter()
         self.model_server.publish(self.model_epoch, params)
+        if self._plane_gateway is not None and steps > self._plane_gateway.version:
+            # a reference: the gateway packs it at the first poll, off this thread
+            self._plane_gateway.publish(params, steps)
         return t1 - t0, time.perf_counter() - t1
 
     def _repair_metrics_tail(self, path: str) -> None:
@@ -561,7 +661,7 @@ class Learner:
         """One write per record, flushed and fsynced: a kill costs at most
         the last line."""
         path = self.args.get("metrics_path")
-        if not path:
+        if not path or self._dist_follower:   # rank 0 writes metrics.jsonl
             return
         if not self._metrics_tail_checked:
             self._metrics_tail_checked = True
@@ -684,12 +784,25 @@ class Learner:
                 else:
                     fut.set_result(reply)
 
-                if self.num_returned_episodes >= self._next_update_episodes and not self.shutdown_flag:
+                if self._dist_follower:
+                    self._follower_boundary()
+                elif self.num_returned_episodes >= self._next_update_episodes and not self.shutdown_flag:
+                    if self._dist_nprocs > 1 and not self.trainer._warmed_up():
+                        # a boundary before the warm-up is this rank's alone
+                        # (a follower's boundary is the cadence's snapshot):
+                        # counting it would put the ranks' epochs apart
+                        continue
                     self._next_update_episodes += self.args["update_episodes"]
                     self.update()
-                    if 0 <= self.args["epochs"] <= self.model_epoch:
+                    shutdown = 0 <= self.args["epochs"] <= self.model_epoch
+                    # under the cadence: release the trainer's boundary with
+                    # the decision, so every rank stops or goes on together
+                    self.trainer.proceed(shutdown)
+                    if shutdown:
                         self.shutdown_flag = True
         finally:
+            if self._plane_gateway is not None:
+                self._plane_gateway.begin_stop()   # the actor hosts hear "stop" and leave 0
             self.trainer.stop()
             if self.remote:
                 self.worker.shutdown()
@@ -706,7 +819,9 @@ class Learner:
                 if not fut.done():
                     fut.set_result(None)
             if self._trainer_thread is not None:
-                timeout = 60.0
+                # several ranks: the thread may still be in the last agreed
+                # broadcast, waiting for a slower rank
+                timeout = 120.0 if self._dist_nprocs > 1 else 60.0
                 if self._drain_requested:
                     # bounded by what is left of the deadline: a wedged
                     # trainer cannot eat it, and the checkpoint then saves the
@@ -771,7 +886,10 @@ class Learner:
 
     def _write_drain_checkpoint(self) -> None:
         """The drain's final save, through the same atomic, manifest-recorded
-        path as every boundary, so ``restart_epoch: -1`` resumes it."""
+        path as every boundary, so ``restart_epoch: -1`` resumes it.  The
+        coordinator's alone under several ranks."""
+        if self._dist_follower:
+            return
         self.model_epoch += 1
         params, payload, steps = self.trainer.drain_payload(self.model_epoch)
         with trace_span("checkpoint.save", plane="learner", epoch=self.model_epoch):
@@ -845,7 +963,7 @@ class Learner:
         ``gen`` is the thread's generation token; a restarted generation
         draws another stream than the one it replaces."""
         rng = torch.Generator(device=self.device).manual_seed(
-            self.args["seed"] + 0x5EED + 0x1009 * (gen - 1))
+            self.args["seed"] + 0x5EED + 0x1009 * (gen - 1) + 1009 * self._dist_rank)
         roll = self._device_roll
         try:
             # grad mode is per thread
@@ -915,8 +1033,11 @@ class Learner:
             while self._rollout_live(gen):
                 if self._maybe_wedge(gen, blocks):
                     return
-                if self.num_returned_episodes >= self._next_update_episodes:
-                    # backpressure: the epoch's budget is met; let the trainer run
+                gateway = self._plane_gateway
+                if (self.num_returned_episodes >= self._next_update_episodes
+                        or (gateway is not None and gateway.actor_hosts > 0)):
+                    # backpressure: the epoch's budget is met, or an actor host
+                    # feeds the rings (one source at a time); let the trainer run
                     time.sleep(0.02)
                     self._rollout_beat()
                     continue
@@ -979,6 +1100,12 @@ class Learner:
         """Train to ``epochs`` epochs (or until stopped); returns 0, or
         ``EXIT_RESUMABLE`` (75) after a preemption drain."""
         self._install_signal_handlers()
+        if self._health is not None:
+            self._health.start()
+        if self._collective_watchdog is not None:
+            self._collective_watchdog.start()
+        if self._plane_gateway is not None:
+            self._plane_gateway.start()
         try:
             self._trainer_thread = threading.Thread(target=self.trainer.run, daemon=True,
                                                     name="trainer")
@@ -1010,9 +1137,182 @@ class Learner:
         finally:
             if self._flywheel_ingestor is not None:
                 self._flywheel_ingestor.stop()
+            if self._plane_gateway is not None:
+                self._plane_gateway.stop()
+            self._disarm_host_fault()
+            if self._health is not None:
+                self._health.stop()
             self._restore_signal_handlers()
             trace.shutdown()   # the ring's tail; nothing when tracing is off
+        from ..parallel.distributed import is_initialized, params_crc32
+
+        if is_initialized():
+            # the ranks' params are bit for bit the same: each prints its
+            # fingerprint, which equals that of the coordinator's last save
+            print("distributed learner: process %d params crc32 %08x at step %d"
+                  % (self._dist_rank, params_crc32(self.trainer.state_host["params"]),
+                     self.trainer.state_host["steps"]), flush=True)
         return EXIT_RESUMABLE if self._drain_requested else 0
+
+    # -- several processes: the follower's boundary, faults, the gateway -------
+
+    def _follower_boundary(self) -> None:
+        """A follower's epoch boundaries are the coordinator's: the trainer's
+        queue holds a snapshot only once the cadence ended the epoch on
+        every rank.  An agreed drain is adopted here, so this rank exits 75
+        too; an agreed stop, once its snapshot is consumed, drains the
+        workers."""
+        if self.trainer.drain_agreed and not self._drain_requested:
+            self._drain_requested = True
+            self._drain_t0 = time.time()
+            self.shutdown_flag = True
+            print(f"[handyrl_tpu_torch] coordinator-agreed drain: shutting down within "
+                  f"{self.drain_deadline:.0f}s and exiting {EXIT_RESUMABLE} for the "
+                  "coordinated relaunch", file=sys.stderr, flush=True)
+        elif not self._drain_requested and not self.trainer.update_queue.empty():
+            # the local rollout's budget follows the agreed epochs
+            self._next_update_episodes += self.args["update_episodes"]
+            self.update()
+        elif (self.trainer.finished and self.trainer.update_queue.empty()
+              and not self._drain_requested):
+            self.shutdown_flag = True
+
+    def _dist_record(self, record: Dict[str, Any], steps: int) -> None:
+        """The epoch record's keys of a run of several processes: the
+        backend, the cumulative health counters and the per-rank
+        aggregates (a follower's snapshot rides its next heartbeat), and
+        the gateway's books."""
+        if self._dist_nprocs > 1:
+            record["dist_processes"] = self._dist_nprocs
+            record["dist_backend"] = self.dist_backend
+            record.update(self._dist_events())
+            if self._health is not None and self._rank_metrics:
+                snap = self._rank_snapshot(steps)
+                if self._dist_follower:
+                    self._health.offer_metrics(snap)
+                else:
+                    record.update(self._health.rank_aggregates(snap))
+        gateway = self._plane_gateway
+        if gateway is not None:
+            record["dist_actor_hosts"] = int(gateway.actor_hosts)
+            record["dist_actor_host_losses"] = int(gateway.actor_host_losses)
+            record.update(plane_record_batches=gateway.record_batches,
+                          plane_record_bytes=gateway.record_bytes,
+                          plane_record_span_s=round(gateway.record_span_s, 4),
+                          plane_bytes_out=gateway.bytes_out,
+                          plane_param_version=gateway.version,
+                          plane_param_fetches=gateway.param_fetches)
+
+    def _rank_snapshot(self, steps: Optional[int] = None) -> Dict[str, Any]:
+        """This rank's per-epoch snapshot for the coordinator's rank_*
+        aggregates (small: it rides a heartbeat line)."""
+        stats = self.trainer.stats or {}
+        return {"epoch": self.model_epoch,
+                "steps": int(self.trainer.steps if steps is None else steps),
+                "train_steps_per_sec": stats.get("train_steps_per_sec"),
+                "input_wait_frac": stats.get("input_wait_frac")}
+
+    def _dist_events(self) -> Dict[str, int]:
+        """Cumulative health counters for the dist_* keys."""
+        health_ev = self._health.events if self._health is not None else {}
+        wd = self._collective_watchdog
+        return {"dist_heartbeat_misses": int(health_ev.get("heartbeat_misses", 0)),
+                "dist_collective_timeouts": 1 if (wd is not None and wd.fired) else 0,
+                "dist_peer_loss_drains": int(health_ev.get("peer_losses", 0))
+                + int(health_ev.get("coordinator_losses", 0))}
+
+    def _disarm_host_fault(self) -> None:
+        """The agreed stop or drain broadcast returned: every rank is past
+        its last collective, so the detectors stand down before the ranks'
+        teardowns drift apart."""
+        if self._health is not None:
+            self._health.disarm()
+        if self._collective_watchdog is not None:
+            self._collective_watchdog.stop()
+
+    def _host_fault(self, reason: str, kind: str) -> None:
+        """A peer is lost or a collective wedged (on a health or watchdog
+        thread, while the trainer may wait in a collective that never
+        completes and cannot be cancelled): the coordinator drain-saves
+        from the last consistent host snapshot, and every rank leaves by
+        ``os._exit(75)``, since the interpreter's teardown would wait on the
+        wedged thread.  75 asks the supervisor to relaunch every rank with
+        ``restart_epoch: -1``."""
+        from ..parallel.health import announce_fault
+
+        if self._host_faulted:
+            return
+        self._host_faulted = True
+        announce_fault(reason, kind, EXIT_RESUMABLE)
+        try:
+            if not self._dist_follower:
+                record: Dict[str, Any] = {"epoch": self.model_epoch,
+                                          "dist_processes": self._dist_nprocs,
+                                          "dist_backend": getattr(self, "dist_backend", None)}
+                record.update(self._dist_events())
+                if self._health is not None and self._rank_metrics:
+                    try:
+                        record.update(self._health.rank_aggregates(self._rank_snapshot()))
+                    except Exception:
+                        pass   # the drain save lands regardless
+                self._write_metrics(record)
+                self._write_drain_checkpoint()
+        except Exception:
+            import traceback
+
+            traceback.print_exc()
+            print("[handyrl_tpu_torch] host-fault drain save failed (above); the previous "
+                  "epoch's verified checkpoint remains the resume point", file=sys.stderr)
+        # the batch pipeline's children and segment go before the process,
+        # within a bound: the trainer thread may be stuck for good
+        stopper = threading.Thread(target=self.trainer.batcher.stop, daemon=True)
+        stopper.start()
+        stopper.join(timeout=10.0)
+        sys.stderr.flush()
+        sys.stdout.flush()
+        os._exit(EXIT_RESUMABLE)
+
+    def _dist_fault_hooks(self) -> None:
+        """The rank-scoped fault injections, at each boundary's publish."""
+        kill = self._fault_kill_proc
+        if kill is not None and self.model_epoch >= kill[0] and self._dist_rank == kill[1]:
+            print(f"[fault] killing process rank {self._dist_rank} at epoch {self.model_epoch} "
+                  "(HANDYRL_FAULT_KILL_PROCESS_AT_EPOCH)", file=sys.stderr, flush=True)
+            os._exit(1)
+        wedge = self._fault_wedge_proc
+        if wedge is not None and self.model_epoch >= wedge[0] and self._dist_rank == wedge[1]:
+            print(f"[fault] wedging process rank {self._dist_rank} at epoch {self.model_epoch} "
+                  "(HANDYRL_FAULT_WEDGE_PROCESS): heartbeats stop, collectives stop, threads "
+                  "stay up", file=sys.stderr, flush=True)
+            if self._health is not None:
+                self._health.stop_heartbeats()
+            self.trainer._fault_wedge_process = True
+            while True:   # the frozen host never comes back
+                time.sleep(60.0)
+
+    def _gateway_on_records(self, records: Dict[str, Any]) -> None:
+        """An actor host's record block (on a gateway serve thread): its
+        lane width checked, ingested into this rank's rings, and its
+        counters booked through the server loop, as the rollout thread's
+        are.  ``ingest_counted`` reads its stats at once (the deferred
+        FIFO is the rollout thread's)."""
+        widths = {x.shape[1] for x in records.values()}
+        if widths != {self._device_games}:
+            raise ValueError(
+                f"plane gateway: record batch lane width {sorted(widths)} != this learner's "
+                f"{self._device_games} per-process lanes (device_rollout_games / "
+                "num_processes must match on both tiers)")
+        stats = self._replay.ingest_counted(records, source="gateway")
+        episodes = int(stats["episodes"])
+        if episodes <= 0 and int(stats["game_steps"]) <= 0:
+            return
+        counts = {"episodes": episodes, "players": self._replay.venv.num_players,
+                  "model_id": self.model_epoch, "game_steps": int(stats["game_steps"]),
+                  "outcome_sum": float(stats["outcome_sum"].sum()),
+                  "outcome_sq_sum": float(stats["outcome_sq_sum"])}
+        # fire and forget: the serve thread keeps answering its host; the
+        # server loop books the counts when it gets there
+        self._requests.put(("device_counts", counts, Future()))
 
     def _start_flywheel_ingest(self) -> None:
         """Start the harvest ingest (flywheel/ingest.py) when the flywheel is
@@ -1040,8 +1340,19 @@ class Learner:
 
 def train_main(args: Dict[str, Any], device=None) -> int:
     """``--train``: one learner with local actor threads, on the card
-    unless ``device`` says otherwise."""
-    return Learner(args, device=device).run()
+    unless ``device`` says otherwise.  With ``distributed.coordinator_address``
+    set, this process first joins the group as its rank (on its placed
+    card, or ``device``) and leaves it after the run."""
+    from ..parallel.distributed import init_distributed, shutdown_distributed
+
+    dist_args = args["train_args"].get("distributed") or {}
+    if not dist_args.get("coordinator_address"):
+        return Learner(args, device=device).run()
+    _rank, placed = init_distributed(dist_args, device)
+    try:
+        return Learner(args, device=placed).run()
+    finally:
+        shutdown_distributed()
 
 
 def train_server_main(args: Dict[str, Any], device=None) -> int:

@@ -38,6 +38,19 @@ injections (runtime/faults.py) and the spans ``train_step``,
 ``batch.wait`` and ``epoch.metrics_fetch`` (utils/trace.py) sit in the
 epoch loop; ``profile_dir`` captures the first trained epoch with
 ``torch.profiler``.
+
+Under a learner of several processes (parallel/distributed.py) the epoch's
+end, the run's stop and a drain are the coordinator's: the learner sets
+``cadence`` and the loop asks it once per step (``agree_step``) and once
+per boundary (``agree_stop``), so every rank takes the same steps; each
+step's gradient bucket is summed over the ranks (parallel/train_step.py),
+on this process's share of the batch (``local_batch_size``).  The
+collective watchdog (parallel/health.py) is armed around every collective
+once the first step is done; ``HANDYRL_FAULT_WEDGE_PROCESS`` freezes the
+thread before its next one.  A sentinel rollback is agreed too: the
+coordinator's manifest verdict goes out through ``agree_rollback_epoch``
+and its params through ``broadcast_params``, so every rank installs the
+same bytes.
 """
 
 from __future__ import annotations
@@ -54,6 +67,9 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..parallel import TrainContext
+from ..parallel.distributed import (
+    CMD_DRAIN, CMD_END, CollectiveError, local_batch_size, process_index,
+)
 from ..parallel.train_step import LOSS_KEYS, make_optimizer
 from ..utils import tree_map
 from ..utils.trace import trace_event, trace_span
@@ -263,8 +279,14 @@ class Trainer:
         self.store = EpisodeStore(args["maximum_episodes"])
         self.stop_event = threading.Event()
         self.fused = max(1, int(args.get("fused_steps", 1)))
-        self.batcher = make_pipeline(args, self.store, self.ctx, self.stop_event)
+        # this process's share of the global batch: the pipelines assemble
+        # it (a forked shm batcher reads it from its args, never from the
+        # process group), and the gradients are summed over the ranks
+        self.local_batch = local_batch_size(int(args["batch_size"]))
+        self.batcher = make_pipeline(dict(args, batch_size=self.local_batch), self.store,
+                                     self.ctx, self.stop_event)
         self._pipe_stats0: Dict[str, Any] = {}
+        self._reduce_stats0 = {"calls": 0, "seconds": 0.0}
         # the run's first batch wait is the pipeline's warm-up, reported
         # apart from the steady-state input_wait_frac
         self._warmup_wait_pending = True
@@ -293,8 +315,23 @@ class Trainer:
         # under device_replay: true; the epoch loop then samples, assembles
         # and steps from its rings, and the batch pipeline is never started
         self.device_replay = None
+        self._rank = process_index()
         self._replay_gen = torch.Generator(device=self.ctx.device).manual_seed(
-            int(args.get("seed", 0)) ^ 0x7EA1)
+            (int(args.get("seed", 0)) ^ 0x7EA1) + 1009 * self._rank)
+        # the coordinator's cadence under several ranks, set by the learner:
+        # epoch end, stop and drain are then agreed, never decided locally,
+        # or the other ranks would wait in a collective forever
+        self.cadence = None
+        self.collective_watchdog = None
+        self.on_agreed_finish = None   # the learner disarms its health plane here
+        self.on_collective_fault = None  # a failed collective: the learner's host fault
+        self.finished = False          # run() returned through an agreed stop
+        self.drain_agreed = False      # the epoch ended with the DRAIN bit
+        self._drain_flag = False       # coordinator: send DRAIN next
+        self._fault_wedge_process = False  # freeze before the next collective
+        self._proceed_queue: queue.Queue = queue.Queue(maxsize=1)
+        self._awaiting_proceed = False
+        self._collective_dispatched = False  # arms the watchdog after the first step
         # host copy of params + optimizer state, replaced at each epoch end
         # on the trainer's thread: what checkpoints and publishing read
         self.state_host = self._snapshot()
@@ -359,7 +396,7 @@ class Trainer:
             raise RuntimeError("the episode store is empty")
         windows = [
             self.store.sample_window(a["forward_steps"], a["burn_in_steps"], a["compress_steps"])
-            for _ in range(a["batch_size"])
+            for _ in range(self.local_batch)
         ]
         return make_batch(windows, a)
 
@@ -384,7 +421,12 @@ class Trainer:
         else:
             while num_steps is None or len(history) < num_steps:
                 if num_steps is None:
-                    if history and self.update_flag:
+                    if self.cadence is not None:
+                        # the coordinator's epoch end: every rank takes the
+                        # same steps, or the next collective waits forever
+                        if self._agree_step(bool(history)) & CMD_END:
+                            break
+                    elif history and self.update_flag:
                         break
                     t0 = time.perf_counter()
                     batch = self.batcher.batch()
@@ -396,16 +438,26 @@ class Trainer:
                         wait_s += waited
                     trace_event("batch.wait", waited, plane="learner")
                     if batch is None:  # stopping
+                        if self.cadence is not None and self.cadence.is_coordinator:
+                            # end the epoch THROUGH the cadence: a bare break
+                            # would strand the followers in the broadcast
+                            self._drain_flag = True
+                            continue
                         break
                     k = self.fused
                 else:
                     batch, k = self.sample_batch(), 1
                 step_lr = self._step_lr(lr, k)
-                with trace_span("train_step", plane="learner"):
-                    if k > 1:
-                        history.append(self.ctx.train_steps(batch, step_lr))
-                    else:
-                        history.append(self.ctx.train_step(batch, step_lr))
+                self._arm(f"train_step @ step {self.steps}")
+                try:
+                    with trace_span("train_step", plane="learner"):
+                        if k > 1:
+                            history.append(self.ctx.train_steps(batch, step_lr))
+                        else:
+                            history.append(self.ctx.train_step(batch, step_lr))
+                finally:
+                    self._disarm()
+                self._collective_dispatched = True
                 updates += k
                 self.steps += k
                 self._maybe_fault_sigterm()
@@ -437,18 +489,35 @@ class Trainer:
         """The epoch on the card: each pull samples, assembles and steps
         ``fused_steps`` updates from the replay's rings, until the learner
         flags the epoch's end (after at least one pull) or the trainer
-        stops.  Reading pull N-1's metrics after pull N is launched keeps
+        stops; under the cadence, until the coordinator's END.  Reading pull N-1's metrics after pull N is launched keeps
         one pull in flight, so the concurrent rollout thread gets the card
         at every boundary (the JAX loop blocks on update N-1 likewise); on
         the CPU a short sleep per pull hands the replay's lock to the
         rollout thread, which an unfair lock would otherwise starve."""
         train = self.device_replay.train_fn(self.ctx, self.fused)
         on_cpu = self.ctx.device.type == "cpu"
-        while not (history and self.update_flag) and not self.stop_event.is_set():
-            with trace_span("train_step", plane="learner"):
-                history.append(train(self._replay_gen, self._step_lr(lr, self.fused)))
-            if len(history) > 1:
-                history[-2].fetch()
+        while True:
+            if self.cadence is not None:
+                # each rank samples its share from its own rings on its
+                # own card and steps; the epoch's end is the coordinator's
+                if self._agree_step(bool(history)) & CMD_END:
+                    break
+                if self.stop_event.is_set():
+                    if self.cadence.is_coordinator:
+                        self._drain_flag = True
+                        continue
+                    break
+            elif (history and self.update_flag) or self.stop_event.is_set():
+                break
+            self._arm(f"train_step @ step {self.steps}")
+            try:
+                with trace_span("train_step", plane="learner"):
+                    history.append(train(self._replay_gen, self._step_lr(lr, self.fused)))
+                if len(history) > 1:
+                    history[-2].fetch()
+            finally:
+                self._disarm()
+            self._collective_dispatched = True
             self.steps += self.fused
             self._maybe_fault_sigterm()
             if on_cpu:
@@ -460,6 +529,14 @@ class Trainer:
         # read); the span holds that and the epoch's accounting (and a
         # rollback, when one is due)
         with trace_span("epoch.metrics_fetch", plane="learner"):
+            # the wait for the card (and, under NCCL, the epoch's last
+            # collectives) is watched like a collective
+            self._arm("epoch-end metrics fetch")
+            try:
+                for m in history:
+                    m.fetch()
+            finally:
+                self._disarm()
             skipped = self._sentinel_account(history) if self.ctx.sentinel else 0
             data_cnt = sum(m["dcnt"] for m in history)
             self.last_loss = {k: sum(m[k] for m in history) / max(data_cnt, 1)
@@ -474,6 +551,16 @@ class Trainer:
             self.stats.update(self.sentinel_events)   # cumulative
         if warmup_wait_s:
             self.stats["input_wait_warmup_s"] = round(warmup_wait_s, 4)
+        reduce = self.ctx.grad_reduce
+        if reduce is not None:   # the gradient bucket's collective, this epoch
+            cur = reduce.stats()
+            prev, self._reduce_stats0 = self._reduce_stats0, cur
+            calls = cur["calls"] - prev["calls"]
+            if calls > 0:
+                seconds = cur["seconds"] - prev["seconds"]
+                self.stats.update(dist_allreduce_ms=round(seconds / calls * 1e3, 4),
+                                  dist_allreduce_bytes=cur["bucket_bytes"],
+                                  dist_allreduce_calls=calls)
         # skipped steps added nothing to data_cnt, so they leave the divisor
         applied = updates - skipped
         if applied > 0:
@@ -531,6 +618,9 @@ class Trainer:
         self._sentinel_streak = 0
         self._loss_ema = None
         model_dir = self.args.get("model_dir", "models")
+        if self.cadence is not None:
+            self._agreed_rollback(ckpt, model_dir)
+            return
         try:
             epoch = ckpt.latest_verified_epoch(model_dir)
         except ckpt.CheckpointError as exc:
@@ -549,6 +639,47 @@ class Trainer:
               f"(step counter stays at {self.steps}; fresh optimizer; re-seeded sampling "
               "generator)", file=sys.stderr)
 
+    def _agreed_rollback(self, ckpt, model_dir: str) -> None:
+        """The rollback across ranks.  Every rank is here together (the
+        streak comes from the summed step metrics, the same everywhere),
+        but only the coordinator owns the checkpoint files: its manifest
+        verdict and then the snapshot's params ride broadcasts, so every
+        rank rolls back to one entry (or none does) and the params stay
+        bit for bit the same."""
+        from ..parallel.distributed import broadcast_params
+
+        local_epoch = 0
+        if self.cadence.is_coordinator:
+            try:
+                local_epoch = ckpt.latest_verified_epoch(model_dir)
+            except ckpt.CheckpointError as exc:
+                print(f"[sentinel] rollback wanted but the manifest is corrupt ({exc}); "
+                      "keeping current params on every process", file=sys.stderr)
+        self._arm("sentinel rollback agreement")
+        try:
+            epoch = self.cadence.agree_rollback_epoch(local_epoch)
+        finally:
+            self._disarm()
+        if epoch <= 0:
+            print("[sentinel] divergence streak hit the rollback threshold but the coordinator "
+                  "has no verified snapshot; keeping current params (in-step skips already "
+                  "suppressed the bad updates)", file=sys.stderr)
+            return
+        if self.cadence.is_coordinator:
+            params = ckpt.load_verified_params(model_dir, epoch, pre_verified=True)
+        else:
+            params = self.state_host["params"]   # like-shaped; the broadcast fills it
+        self._arm("sentinel rollback params broadcast")
+        try:
+            params = broadcast_params(params)
+        finally:
+            self._disarm()
+        self.sentinel_events["sentinel_rollbacks"] += 1
+        self._reset_state_from(params)
+        print(f"[sentinel] rolled back to verified epoch {epoch} on every process after a "
+              f"divergence streak (step counter stays at {self.steps}; fresh optimizer; "
+              "re-seeded sampling generator)", file=sys.stderr)
+
     def request_rollback(self, epoch: int) -> None:
         """Ask for a rollback to verified ``epoch`` (<= 0: the newest
         verified), the serving tier's quality signal.  Called from the
@@ -561,6 +692,11 @@ class Trainer:
         if requested is None:
             return
         self._requested_rollback = None
+        if self.cadence is not None:
+            # one rank's reset would leave the ranks' params apart
+            print("[flywheel] quality rollback requested while the cadence of several "
+                  "processes is active; skipping the one-sided reset", file=sys.stderr)
+            return
         from . import checkpoint as ckpt
 
         model_dir = self.args.get("model_dir", "models")
@@ -597,6 +733,7 @@ class Trainer:
                 + 0x9E3779B9 * (self.sentinel_events["sentinel_rollbacks"]
                                 + self.sentinel_events["sentinel_flywheel_rollbacks"])
                 + self.steps)
+        seed += 1009 * self._rank
         self._replay_gen = torch.Generator(device=ctx.device).manual_seed(seed % (1 << 63))
         self.state_host = self._snapshot()
 
@@ -610,7 +747,16 @@ class Trainer:
     def update(self):
         """Ask for an epoch boundary; blocks until the epoch's (params,
         steps) are ready.  Before the warm-up threshold nothing has trained:
-        (None, steps) at once."""
+        (None, steps) at once.  A follower asks for nothing: the
+        coordinator's broadcast ends the epoch on every rank, and its
+        learner calls this once the snapshot is in the queue."""
+        if self.cadence is not None and not self.cadence.is_coordinator:
+            while not self.stop_event.is_set():
+                try:
+                    return self.update_queue.get(timeout=1.0)
+                except queue.Empty:
+                    continue
+            return None, self.steps
         if not self._warmed_up():
             return None, self.steps
         self.update_flag = True
@@ -627,8 +773,82 @@ class Trainer:
 
     def request_drain(self) -> None:
         """The preemption drain: stop mid-epoch; the thread's snapshot on
-        its way out is what the drain's checkpoint saves."""
-        self.stop()
+        its way out is what the drain's checkpoint saves.  Under the
+        cadence the coordinator sets the DRAIN bit instead, and the next
+        broadcast ends the epoch on every rank; a follower's own SIGTERM
+        cannot drive the cadence, so it waits for the agreed drain."""
+        if self.cadence is None:
+            self.stop()
+        elif self.cadence.is_coordinator:
+            self._drain_flag = True
+
+    def proceed(self, stop: bool) -> None:
+        """Coordinator under the cadence: the learner's continue/stop
+        decision for the epoch it just consumed, which run() broadcasts so
+        that every rank stops (or goes on) together.  A no-op unless run()
+        waits for it."""
+        if self.cadence is None or not self._awaiting_proceed:
+            return
+        self._proceed_queue.put(bool(stop))
+
+    def _await_proceed(self):
+        """The learner's decision (True = stop), or None when stop() came
+        with no decision delivered.  A decision already delivered is still
+        returned after a stop: the followers wait in the broadcast for it."""
+        while not self.stop_event.is_set():
+            try:
+                return self._proceed_queue.get(timeout=1.0)
+            except queue.Empty:
+                continue
+        try:
+            return self._proceed_queue.get_nowait()
+        except queue.Empty:
+            return None
+
+    def _agreed_finish(self) -> None:
+        """The stop or drain broadcast returned here and, a collective, on
+        every rank: the run is over everywhere, and the learner disarms
+        its health plane now, before the ranks' teardowns drift apart."""
+        if self.on_agreed_finish is not None:
+            self.on_agreed_finish()
+
+    # -- cadence and watchdog plumbing -----------------------------------------
+
+    def _wedge_forever(self) -> None:
+        """HANDYRL_FAULT_WEDGE_PROCESS landed on this rank: a frozen host,
+        this thread never progresses and never exits."""
+        print("[fault] trainer wedged: no longer joining collectives "
+              "(HANDYRL_FAULT_WEDGE_PROCESS)", file=sys.stderr, flush=True)
+        while True:
+            time.sleep(60.0)
+
+    def _arm(self, tag: str) -> None:
+        wd = self.collective_watchdog
+        if wd is not None and self._collective_dispatched:
+            # the first step builds kernels and warms the allocator: the
+            # heartbeat plane covers a peer lost before it
+            wd.arm(tag)
+
+    def _disarm(self) -> None:
+        wd = self.collective_watchdog
+        if wd is not None:
+            wd.disarm()
+
+    def _agree_step(self, stepped: bool) -> int:
+        """One cadence broadcast per loop iteration: the coordinator's
+        epoch end (the boundary asked for and a step taken) and its DRAIN
+        bit, received by every rank."""
+        if self._fault_wedge_process:
+            self._wedge_forever()
+        self._arm("cadence agree_step")
+        try:
+            cmd = self.cadence.agree_step(end=stepped and self.update_flag,
+                                          drain=self._drain_flag)
+        finally:
+            self._disarm()
+        if cmd & CMD_DRAIN:
+            self.drain_agreed = True
+        return cmd
 
     def _start_profile(self):
         """``profile_dir``: a torch.profiler capture of the first trained
@@ -649,6 +869,41 @@ class Trainer:
         path = os.path.join(profile_dir, f"trainer_epoch.{os.getpid()}.pt.trace.json")
         prof.export_chrome_trace(path)
         print(f"wrote profiler trace to {path}")
+
+    def _agree_boundary(self) -> bool:
+        """After an epoch's snapshot under the cadence: True when the run
+        ends here on every rank.  An agreed drain ends it with no further
+        collective; otherwise the coordinator waits for its learner's
+        decision and broadcasts it (``agree_stop``), followers join the
+        broadcast at once."""
+        if self.drain_agreed:
+            self.finished = True
+            self._agreed_finish()
+            return True
+        if self.cadence.is_coordinator:
+            stop_local = self._await_proceed()
+            self._awaiting_proceed = False
+            if stop_local is None:
+                return True
+            # only the coordinator arms here: a follower reaches this
+            # broadcast at once, the coordinator after its boundary's save,
+            # which may outlast the collective bound on a healthy run
+            self._arm("cadence agree_stop")
+        else:
+            stop_local = False
+            self._awaiting_proceed = False
+            if self.stop_event.is_set():
+                # forced down locally: it cannot drive the cadence; the
+                # peers leave through the collective watchdog
+                return True
+        try:
+            stop = self.cadence.agree_stop(stop_local)
+        finally:
+            self._disarm()
+        if stop:
+            self.finished = True
+            self._agreed_finish()
+        return stop
 
     def run(self) -> None:
         """The trainer thread: wait for ``minimum_episodes``, then train
@@ -672,6 +927,8 @@ class Trainer:
                         prof = None
                 self.state_host = self._snapshot()
                 self.update_flag = False
+                if self.cadence is not None:
+                    self._awaiting_proceed = True
                 item = (self.state_host["params"], self.steps)
                 while not self.stop_event.is_set():
                     try:
@@ -679,6 +936,17 @@ class Trainer:
                         break
                     except queue.Full:
                         continue
+                if self.cadence is not None and self._agree_boundary():
+                    return
+        except CollectiveError as exc:
+            if self.on_collective_fault is None:
+                traceback.print_exc()
+                self.error = exc
+                self.stop()
+                return
+            # a peer is gone (its connections closed under our collective):
+            # the learner's host fault drain-saves and leaves 75
+            self.on_collective_fault(f"a collective failed: {exc}")
         except Exception as exc:
             traceback.print_exc()
             self.error = exc

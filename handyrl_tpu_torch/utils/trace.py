@@ -20,7 +20,14 @@ same Chrome trace as the JAX package's::
 * With ``annotate_device`` each span also enters
   ``torch.profiler.record_function`` under its name, so the host spans
   bracket the kernels in a profiler capture (``profile_dir``).
-* In a run of several processes rank N > 0 writes ``trace.rankN.jsonl``.
+* In a run of several processes rank N > 0 writes ``trace.rankN.jsonl``
+  (an actor host of rank R ``trace.rank{1000+R}.jsonl``).  Their spans:
+  ``cadence.agree_step``, ``cadence.agree_stop``, ``cadence.agree_rollback``
+  (each the whole rendezvous: under skew, the wait for the slowest rank),
+  ``collective.all_reduce`` (the gradient bucket), ``dispatch.wait`` /
+  ``dispatch.run`` (parallel/mesh.py), ``health.heartbeat``, and the
+  gateway's ``plane.param_publish``, ``plane.record_xfer`` and
+  ``plane.param_fetch``.
 """
 
 from __future__ import annotations

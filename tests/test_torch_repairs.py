@@ -10,7 +10,10 @@
   the JAX package checks it.
 * C4: every key path of the JAX package's ``DEFAULT_TRAIN_ARGS`` is in the
   port's defaults or refused by name in ``NOT_PORTED_KEYS``; a value both
-  packages check is refused by both, in the same words.
+  packages check is refused by both, in the same words.  The keys of a
+  learner of several processes (``mesh`` over ``dp``, ``distributed.*``,
+  ``observability.rank_metrics``) are acted on and checked as in JAX;
+  another mesh axis is refused naming the ROADMAP item.
 """
 
 import importlib
@@ -99,14 +102,7 @@ def _value(path, value):
 
 # a value other than the JAX default, by dotted key path
 NON_DEFAULT = {
-    "plane": "split", "plane_param_lag_bound": 5,
-    "mesh": {"dp": 2}, "actor_chips": 2,
-    "param_refresh_updates": 5, "distributed.num_processes": 2,
-    "distributed.coordinator_address": "10.0.0.1:1234", "distributed.process_id": 1,
-    "distributed.initialization_timeout": 60.0, "distributed.heartbeat_interval": 1.0,
-    "distributed.heartbeat_timeout": 10.0, "distributed.collective_timeout": 60.0,
-    "distributed.health_port": 7000, "distributed.role": "actor", "distributed.plane_port": 7001,
-    "distributed.actor_hosts": 2, "observability.rank_metrics": False,
+    "plane": "split", "plane_param_lag_bound": 5, "actor_chips": 2, "param_refresh_updates": 5,
 }
 
 # the key paths of the int8 rung and the flywheel, ported and acted on: a
@@ -334,6 +330,87 @@ def test_values_the_jax_package_refuses_are_refused_alike(train_args, match):
     from handyrl_tpu.config import normalize_args as jax_normalize_args
 
     raw = {"env_args": {"env": "TicTacToe"}, "train_args": train_args}
+    for normalize in (normalize_args, jax_normalize_args):
+        with pytest.raises(ValueError, match=match):
+            normalize(raw)
+
+
+ADDR = {"coordinator_address": "10.0.0.1:1234"}
+# the keys of a learner of several processes, ported and acted on: the key,
+# a config setting it that both packages accept, a config both refuse, and
+# the refusal's words
+DISTRIBUTED_KEYS = [
+    ("mesh", {"mesh": {"dp": 2}}, {"mesh": ["dp"]}, "mesh must be a non-empty"),
+    ("distributed.num_processes", {"distributed": {"num_processes": 2}},
+     {"distributed": {"num_processes": 0}}, "num_processes must be >= 1"),
+    ("distributed.coordinator_address", {"distributed": ADDR},
+     {"distributed": {"coordinator_address": "10.0.0.1"}}, "must be 'host:port'"),
+    ("distributed.process_id", {"distributed": {"process_id": 1}},
+     {"distributed": {"process_id": -1}}, "process_id must be >= 0"),
+    ("distributed.initialization_timeout", {"distributed": {"initialization_timeout": 60.0}},
+     {"distributed": {"initialization_timeout": 0.0}}, "initialization_timeout must be > 0"),
+    ("distributed.heartbeat_interval", {"distributed": {"heartbeat_interval": 1.0}},
+     {"distributed": {"heartbeat_interval": -1.0}}, "heartbeat_interval must be >= 0"),
+    ("distributed.heartbeat_timeout", {"distributed": {"heartbeat_timeout": 40.0}},
+     {"distributed": {"heartbeat_interval": 5.0, "heartbeat_timeout": 10.0}}, "must exceed 2x"),
+    ("distributed.collective_timeout", {"distributed": {"collective_timeout": 60.0}},
+     {"distributed": {"collective_timeout": -1.0}}, "collective_timeout must be >= 0"),
+    ("distributed.health_port", {"distributed": {"health_port": 7000}},
+     {"distributed": {"health_port": 70000}}, "health_port"),
+    ("distributed.role", {"device_rollout_games": 8, "distributed": dict(ADDR, role="actor")},
+     {"distributed": dict(ADDR, role="actor")}, "role: actor needs device_rollout_games"),
+    ("distributed.plane_port", {"distributed": {"plane_port": 7001}},
+     {"distributed": {"plane_port": -1}}, "plane_port"),
+    ("distributed.actor_hosts", {"distributed": dict(ADDR, actor_hosts=2)},
+     {"distributed": {"actor_hosts": 1}}, "need distributed.coordinator_address"),
+    ("observability.rank_metrics", {"observability": {"rank_metrics": False}},
+     {"observability": {"rank_metrics": "yes"}}, "rank_metrics"),
+]
+
+
+def _at(tree, key):
+    for k in key.split("."):
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.parametrize("key,train_args,bad,match", DISTRIBUTED_KEYS,
+                         ids=[k for k, _, _, _ in DISTRIBUTED_KEYS])
+def test_distributed_keys_act_and_are_checked_as_in_jax(key, train_args, bad, match):
+    """Each key is ported: not in NOT_PORTED_KEYS, its value reaches the
+    normalised args of both packages alike, and a value the JAX package
+    refuses is refused by both in the same words."""
+    from handyrl_tpu.config import normalize_args as jax_normalize_args
+
+    env = {"env": "TicTacToe"}
+    port = normalize_args({"env_args": env, "train_args": train_args})["train_args"]
+    jax_args = jax_normalize_args({"env_args": env, "train_args": train_args})["train_args"]
+    assert _at(port, key) == _at(jax_args, key) == _at(train_args, key)
+    for normalize in (normalize_args, jax_normalize_args):
+        with pytest.raises(ValueError, match=match):
+            normalize({"env_args": env, "train_args": bad})
+    assert all(tuple(key.split(".")) != p for p, _, _ in NOT_PORTED_KEYS)
+
+
+@pytest.mark.parametrize("mesh", [{"dp": 2, "mp": 2}, {"dp": -1, "sp": 4}])
+def test_mesh_axes_but_dp_are_refused_by_name(mesh):
+    """Tensor and sequence parallel axes need cards of their own: refused
+    naming the ROADMAP item; a size-1 axis beside dp passes."""
+    env = {"env": "TicTacToe"}
+    with pytest.raises(ValueError, match="ROADMAP A8"):
+        normalize_args({"env_args": env, "train_args": {"mesh": mesh}})
+    assert normalize_args({"env_args": env, "train_args": {"mesh": {"dp": -1, "mp": 1}}})
+
+
+@pytest.mark.parametrize("train_args,match", [
+    ({"batch_size": 9}, "must divide evenly across distributed.num_processes"),
+    ({"batch_size": 8, "device_rollout_games": 9}, "device_rollout_games=9 must divide"),
+])
+def test_shards_must_divide_over_the_ranks_as_in_jax(train_args, match):
+    from handyrl_tpu.config import normalize_args as jax_normalize_args
+
+    raw = {"env_args": {"env": "TicTacToe"},
+           "train_args": dict(train_args, distributed=dict(ADDR, num_processes=2))}
     for normalize in (normalize_args, jax_normalize_args):
         with pytest.raises(ValueError, match=match):
             normalize(raw)
