@@ -254,6 +254,27 @@ Phases, each of which fails the run when it fails:
    ``dist_actor_host_losses`` >= 1; the gateway's record bytes/s, the
    params blob's bytes and fetch seconds, the lag.  Alone: ``python3 -c
    "import chip_smoke as cs; cs.phase_distributed({})"``.
+18. sequence-parallel training (``seq_attention: ring``), ranks of one gloo
+   group sharing the card, each a process of its own: (a) the masked ring
+   op at the slice's shapes (rows 32 = B16 x 2 players, T512, 16 heads,
+   D96, bf16, window 32, key mask from the seed) on sp 2 and sp 4: each
+   rank's output and dQ/dK/dV against B1 and its recompute backward on the
+   whole window in this process (2e-2 of scale); ms per forward+backward,
+   ring bytes per layer, peak memory per rank; (b) one train step of
+   ``TrainContext(seq_attention='ring')`` on sp 2 against a one-process
+   ``TrainContext(seq_attention='flash')``, both from seed 0's weights at
+   7b's width on one seeded batch (B16 x T512 bf16): total, p, v within
+   5e-2 of scale, dcnt equal, the updates (Adam's first step) within 2 lr
+   and 90% of them within 0.1 lr, both ranks' params crc32 equal, B1 8
+   launches in the flash step; (c) 7b's configuration through ``--train``
+   on two ranks with ``mesh: {sp: 2}`` (2 epochs of 4 + 4 episodes, 8
+   actors on the sp leader, none on the member): both exit 0, their params
+   crc32 equal to the saved epoch 2's, only rank 0 wrote; updates/s while
+   training beside 7b's, ``dist_ring_ms``/``_bytes`` and
+   ``dist_allreduce_ms`` per step, peak memory per rank.  No kernel on the
+   ring path; the NCCL leg needs a card per rank ("not run (1 card)").
+   (c) runs beside (a) and (b).  Alone: ``python3 -c "import chip_smoke
+   as cs; cs.phase_ring({})"``.
 
 Every learner phase (7a, 7b, 8a, 8b, 9a, 9b, 11c, 11d, 16(a)'s CLI, 16(c), 16(d); 12(e)'s shm
 runs) runs on the port's default
@@ -263,8 +284,8 @@ batcher died or fell back; it prints the pipeline's stage seconds and the
 put's ms per batch.  The script fails if a shared-memory segment or a
 process of the port outlives it.
 
-Phases 4, 5-6, 7b, 9b, 12(c), 15(b)(i), 16(d), 17(a) and 17(c) are the paths
-through the port's kernels.  Every phase after 3 starts with every launch
+Phases 4, 5-6, 7b, 9b, 12(c), 15(b)(i), 16(d), 17(a), 17(c) and 18(b)'s
+flash reference are the paths through the port's kernels.  Every phase after 3 starts with every launch
 count at 0, and the counts are read at its end (8b, 9a, 9c, 11c, 12(d)'s
 CLI, 13(b)'s server and 14's replicas, fleet and CLI learners run in
 processes of their own and launch neither kernel; 17's ranks and learner,
@@ -272,12 +293,12 @@ processes of their own too, write their counts to a file each, which the
 phase adds).
 
 Phases 1-3 run alone.  After them the phases run in three streams at once
-(``STREAMS``): 4, 5-6, 7b, 9b, 16, 14(d), 9(a)+(c) and 17(a)-(b) (side by
-side) in this process; 7a, 8, 14(a)-(c), 15(c)-(d) and 10 in one child process of this
-script (``--stream b``); 11, 12, 13, 15(a)-(b) and 17(c) in another
-(``--stream c``).  The kernels line's launches are 7b's, 9b's, 16(d)'s and
-17(a)'s ranks' here plus those the streams report when they end (12(c),
-15(b)(i), 17(c)'s learner).  A stream's output
+(``STREAMS``): 4, 5-6, 7b, 16, 14(d), 9(a)+(c), 17(a)-(b) (side by
+side) and 18 in this process; 7a, 8, 14(a)-(c), 15(c)-(d) and 10 in one child process of this
+script (``--stream b``); 11, 12, 13, 15(a)-(b), 17(c) and 9b in another
+(``--stream c``).  The kernels line's launches are 7b's, 16(d)'s,
+17(a)'s ranks' and 18(b)'s flash step's here plus those the streams report
+when they end (9b, 12(c), 15(b)(i), 17(c)'s learner).  A stream's output
 is printed whole once it has ended; a stream that fails fails the run,
 and a failure kills the streams still running.  Each phase's lap line
 gives its seconds and the CPU seconds its stream's processes spent on
@@ -338,6 +359,7 @@ HEAD_DIMS = (16, 32, 64, 96, 128)   # the kernels' instantiated head dims
 TRAIN_STEPS = 4          # the first one is warm-up, left out of the rates
 EPISODES = 4
 SEED = 0
+RATES = {}               # updates/s while training, by phase (7b's, printed beside 18(c)'s)
 # The phases after 3 run in three streams at once: "main" in this process
 # (it holds every phase whose launches the kernels line counts: 4, 6, 7b
 # and 16), the others each in a child process of this script.  A stream
@@ -345,9 +367,9 @@ SEED = 0
 # and 9c plays 9a's checkpoint.  9, 14 and 15 are split into legs
 # (``PHASES``) so that the streams take about as long as each other.
 STREAMS = {
-    "main": ("4", "6", "7b", "9b", "16", "14d", "9ac", "17ab"),
+    "main": ("4", "6", "7b", "16", "14d", "9ac", "17ab", "18"),
     "b": ("7a", "8", "14abc", "15cd", "10"),
-    "c": ("11", "12", "13", "15ab", "17c"),
+    "c": ("11", "12", "13", "15ab", "17c", "9b"),
 }
 STREAM_ENV = "CHIP_SMOKE_STREAM"   # the stream a process (and all it starts) belongs to
 T0_ENV = "CHIP_SMOKE_T0"           # the script's start (time.time()), for a stream's laps
@@ -418,17 +440,18 @@ def qkv(B, T, H, D, dtype, g):
     return [torch.randn(B, T, H, D, device="cuda", generator=g).to(dtype) for _ in range(3)]
 
 
-def attention_inputs(rows, T, H, D, dtype, seed, observed=0.7):
+def attention_inputs(rows, T, H, D, dtype, seed, observed=0.7, device="cuda"):
     """q, k, v ~ N(0, 1); key masks ~70% observed up to a per-row episode
     end, then unobserved padding — the shape of the training windows."""
     import torch
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = qkv(rows, T, H, D, dtype, g)
-    ends = torch.randint(T // 4, T + 1, (rows, 1), device="cuda", generator=g)
-    t = torch.arange(T, device="cuda")[None]
-    key_mask = ((torch.rand(rows, T, device="cuda", generator=g) < observed) & (t < ends)).float()
-    slopes = torch.tensor([2.0 ** (-8.0 * (i + 1) / H) for i in range(H)], device="cuda")
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(rows, T, H, D, device=device, generator=g).to(dtype)
+               for _ in range(3))
+    ends = torch.randint(T // 4, T + 1, (rows, 1), device=device, generator=g)
+    t = torch.arange(T, device=device)[None]
+    key_mask = ((torch.rand(rows, T, device=device, generator=g) < observed) & (t < ends)).float()
+    slopes = torch.tensor([2.0 ** (-8.0 * (i + 1) / H) for i in range(H)], device=device)
     return q, k, v, key_mask, slopes
 
 
@@ -1088,6 +1111,7 @@ def phase_learner(results):
               "models/2.ckpt does not load bit for bit, or is not what the actors were served")
         engine = learner.model_server.engine
         print_epochs("learner", records)
+        RATES["7b"] = [r for r in records if "loss" in r][-1]["train_steps_per_sec"]
         check_shm("learner", records)
         # epoch 0's games are the random model's (model id 0): the engine
         # serves epoch 1's, two requests per Geister move (both players
@@ -5593,10 +5617,12 @@ RANK_CHILD = r"""
 import json, os, sys
 from handyrl_tpu_torch.main import main
 from handyrl_tpu_torch.ops.flash_attention import FLASH, MASKED_FLASH
+import torch
 code = main(["--train"])
 with open(os.environ["CHIP_SMOKE_LAUNCHES"], "w") as f:
     json.dump({"masked_flash_attention": MASKED_FLASH.launches,
-               "flash_attention": FLASH.launches}, f)
+               "flash_attention": FLASH.launches,
+               "peak_bytes": torch.cuda.max_memory_allocated()}, f)
 sys.exit(code)
 """
 RANK_LINE = re.compile(r"distributed learner: process (\d+)/(\d+) \((\w+)\) on (\S+), backend (\w+)")
@@ -5883,6 +5909,389 @@ def phase_distributed(results, parts="abc"):
             dist_actor_host(results, tmp)
 
 
+RING_SHAPE = (32, 512, 16, 96)   # 18(a): rows (B16 x 2 players), T, heads, head dim
+RING_WINDOW = 32                 # memory_len of the slice's transformer
+RING_SIZES = (2, 4)              # 18(a): the sp groups of the op
+RING_REPEATS = 3                 # 18(a): timed forward+backward calls, after one warm-up
+RING_SEED = 18
+RING_LR = 1e-4                   # 18(b): the one step's lr
+RING_TOLERANCE = 2e-2            # 18(a): bf16, of the reference's scale
+# 18(b): the ring's step against the one-process flash step, both in bf16
+# through 8 layers: the metrics within 6's kernel-against-einsum bound (the
+# ring casts the probabilities to bf16 before V, as JAX does; B1 keeps them
+# fp32), the data count exactly
+RING_STEP_TOLERANCE = 5e-2
+RING_RANK = r"""
+import sys
+import chip_smoke as cs
+sys.exit(cs.ring_rank(*sys.argv[1:]))
+"""
+
+
+def ring_inputs():
+    """18(a)'s q, k, v, key mask, slopes and output gradient, on the card,
+    from ``RING_SEED``: the same in every process."""
+    import torch
+
+    rows, T, H, D = RING_SHAPE
+    q, k, v, key_mask, slopes = attention_inputs(rows, T, H, D, torch.bfloat16, RING_SEED,
+                                                 device=CARD)
+    g = torch.Generator(device=CARD).manual_seed(RING_SEED + 1)
+    dout = torch.randn(q.shape, device=CARD, generator=g).to(torch.bfloat16)
+    return q, k, v, key_mask, slopes, dout
+
+
+def ring_rank(mode, rank, nprocs, port, outdir):
+    """One rank of 18(a)/(b) (``RING_RANK``, a process of its own): the
+    masked ring op's forward and backward on its shard at the slice's
+    shapes, and with ``mode`` 'step' one train step of ``seq_attention:
+    ring`` on the group; results in ``outdir`` (tensors) and a JSON line."""
+    import torch
+
+    from handyrl_tpu_torch.ops.flash_attention import MASKED_FLASH
+    from handyrl_tpu_torch.ops.ring_attention import masked_ring_attention_shard
+    from handyrl_tpu_torch.parallel import distributed
+    from handyrl_tpu_torch.parallel.mesh import make_mesh
+
+    rank, nprocs = int(rank), int(nprocs)
+    torch.set_num_threads(int(DIST_THREADS))
+    _, device = distributed.init_distributed({
+        "coordinator_address": f"127.0.0.1:{port}", "num_processes": nprocs,
+        "process_id": rank, "initialization_timeout": 300.0})
+    torch.cuda.set_device(device)
+    mesh = make_mesh({"sp": nprocs})
+    mesh.build_groups()
+    sp = mesh.group("sp")
+    report = {"rank": rank, "device": str(device), "backend": distributed.backend()}
+
+    q, k, v, key_mask, slopes, dout = ring_inputs()
+    counts = torch.cumsum(key_mask, dim=1)   # the global cumsum, sliced below
+    T = RING_SHAPE[1]
+    t = T // nprocs
+    cut = slice(sp.index * t, (sp.index + 1) * t)
+    qs, ks, vs = (x[:, cut].contiguous().requires_grad_() for x in (q, k, v))
+    mask_s, counts_s, dout_s = (x[:, cut].contiguous() for x in (key_mask, counts, dout))
+
+    def op():
+        for x in (qs, ks, vs):
+            x.grad = None
+        out = masked_ring_attention_shard(qs, ks, vs, mask_s, counts_s, slopes, sp, RING_WINDOW)
+        (out.float() * dout_s.float()).sum().backward()
+        torch.cuda.synchronize()
+        return out
+
+    launches0 = MASKED_FLASH.launches
+    out = op()   # warm-up
+    before = sp.stats()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(RING_REPEATS):
+        t0 = time.perf_counter()
+        out = op()
+        times.append((time.perf_counter() - t0) * 1e3)
+    after = sp.stats()
+    torch.save({"out": out.detach().cpu(), "dq": qs.grad.cpu(), "dk": ks.grad.cpu(),
+                "dv": vs.grad.cpu()}, Path(outdir, f"op{nprocs}.rank{rank}.pt"))
+    report["op"] = {"ms": sorted(times)[len(times) // 2], "all_ms": times,
+                    "bytes": (after["bytes"] - before["bytes"]) / RING_REPEATS,
+                    "shifts": (after["shifts"] - before["shifts"]) / RING_REPEATS,
+                    "shift_ms": (after["seconds"] - before["seconds"]) / RING_REPEATS * 1e3,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": MASKED_FLASH.launches - launches0}
+    del q, k, v, qs, ks, vs, out
+    if mode == "step":
+        report["step"] = ring_train_rank(mesh, sp, rank, device, outdir)
+    Path(outdir, f"{mode}{nprocs}.rank{rank}.json").write_text(json.dumps(report))
+    distributed.shutdown_distributed()
+    return 0
+
+
+def ring_train_args(**extra):
+    from handyrl_tpu_torch.config import normalize_args
+
+    env_args = {"env": "Geister", "net": "transformer", "net_args": NET_ARGS}
+    cfg = normalize_args({"env_args": env_args, "train_args": dict(TRAIN_ARGS, **extra)})
+    return dict(cfg["train_args"], env=env_args)
+
+
+def ring_train_rank(mesh, sp, rank, device, outdir):
+    """18(b) on one rank: ``TrainContext(seq_attention='ring')`` on the
+    group from the seed's weights, one step on the parent's batch."""
+    import torch
+
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models import init_variables
+    from handyrl_tpu_torch.ops.flash_attention import MASKED_FLASH
+    from handyrl_tpu_torch.parallel import TrainContext
+    from handyrl_tpu_torch.parallel.distributed import params_crc32
+
+    args = ring_train_args(seq_attention="ring", mesh={"sp": sp.size})
+    module = init_variables(make_env(args["env"]).net(), SEED)
+    ctx = TrainContext(module, args, device, mesh=mesh)
+    batch = torch.load(Path(outdir, "batch.pt"), weights_only=False)
+    before = sp.stats()
+    launches0 = MASKED_FLASH.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = dict(ctx.train_step(batch, RING_LR).fetch())
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    after = sp.stats()
+    if rank == 0:
+        torch.save({n: p.detach().cpu() for n, p in module.named_parameters()},
+                   Path(outdir, "ring_params.pt"))
+    return {"metrics": metrics, "crc": f"{params_crc32(module.state_dict()):08x}",
+            "step_s": step_s, "ring_bytes": after["bytes"] - before["bytes"],
+            "ring_shifts": after["shifts"] - before["shifts"],
+            "ring_ms": (after["seconds"] - before["seconds"]) * 1e3,
+            "allreduce_ms": ctx.grad_reduce.stats()["seconds"] * 1e3,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": MASKED_FLASH.launches - launches0}
+
+
+def start_ring_ranks(mode, nprocs, outdir):
+    port = free_ports()
+    jobs = []
+    for r in range(nprocs):
+        base = Path(outdir, f"{mode}{nprocs}.rank{r}")
+        out, err = open(f"{base}.out", "w"), open(f"{base}.err", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", RING_RANK, mode, str(r), str(nprocs), str(port), str(outdir)],
+            cwd=ROOT, stdout=out, stderr=err,
+            env=dict(cli_env(), PYTHONUNBUFFERED="1", OMP_NUM_THREADS=DIST_THREADS))
+        out.close()
+        err.close()
+        jobs.append({"proc": proc, "base": base, "rank": r, "t0": time.perf_counter(),
+                     "end": None})
+    return jobs
+
+
+def finish_ring_ranks(tag, jobs, mode, nprocs, outdir, timeout):
+    done = wait_ranks(jobs, timeout)
+    check([rc for rc, *_ in done] == [0] * nprocs,
+          f"{tag}: ranks exited {[rc for rc, *_ in done]}\n" + tail(done))
+    return [json.loads(Path(outdir, f"{mode}{nprocs}.rank{r}.json").read_text())
+            for r in range(nprocs)]
+
+
+def ring_reference():
+    """B1 and its recompute backward on the whole window, in this process:
+    what every rank's shard is held against."""
+    import torch
+
+    from handyrl_tpu_torch.ops.flash_attention import masked_flash_attention
+
+    q, k, v, key_mask, slopes, dout = ring_inputs()
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = masked_flash_attention(q, k, v, key_mask, slopes, RING_WINDOW)
+    (out.float() * dout.float()).sum().backward()
+    return {"out": out.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+
+
+def check_ring_op(nprocs, reports, ref, outdir):
+    import torch
+
+    T = RING_SHAPE[1]
+    t = T // nprocs
+    worst = {}
+    for r in range(nprocs):
+        got = torch.load(Path(outdir, f"op{nprocs}.rank{r}.pt"))
+        for key, want in ref.items():
+            part = want[:, r * t:(r + 1) * t].float()
+            err = (got[key].to(part.device).float() - part).abs().max().item()
+            scale = want.float().abs().max().item()
+            worst[key] = max(worst.get(key, 0.0), err / scale)
+            check(err <= RING_TOLERANCE * scale,
+                  f"18(a) sp {nprocs} rank {r}: {key} max_abs_err {err:.3e} over "
+                  f"{RING_TOLERANCE} x scale {scale:.3e}")
+    for rep in reports:
+        check(rep["op"]["launches"] == 0, f"18(a): rank {rep['rank']} launched a kernel")
+    ms = [rep["op"]["ms"] for rep in reports]
+    op = reports[0]["op"]
+    print(f"[ring] 18(a) sp {nprocs} ({reports[0]['backend']} on {reports[0]['device']} for "
+          f"every rank): the masked ring at {RING_SHAPE} bf16, window {RING_WINDOW}, within "
+          f"{RING_TOLERANCE} of B1's scale on every shard (worst "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f"); forward+backward {min(ms):.1f}-{max(ms):.1f} ms per rank (median of "
+          f"{RING_REPEATS}), of it {op['shift_ms']:.1f} ms in {op['shifts']:.0f} shifts; ring "
+          f"bytes per layer {op['bytes'] / 1e6:.1f} MB sent per rank; peak memory per rank "
+          + ", ".join(f"{rep['op']['peak_gb']:.2f}" for rep in reports) + " GB; 0 launches")
+
+
+def ring_batch(outdir):
+    """18(b)'s batch: B16 x T512 windows of random-play Geister episodes,
+    seeded, saved for the ranks."""
+    import torch
+
+    from handyrl_tpu_torch.runtime import EpisodeStore, make_batch
+
+    args = ring_train_args(seq_attention="flash")
+    store = EpisodeStore(64)
+    store.extend(random_episodes(args["env"], {"observation": True}, EPISODES, RING_SEED))
+    random.seed(RING_SEED)
+    windows = [store.sample_window(args["forward_steps"], args["burn_in_steps"],
+                                   args["compress_steps"]) for _ in range(args["batch_size"])]
+    batch = make_batch(windows, args)
+    torch.save(batch, Path(outdir, "batch.pt"))
+    return batch
+
+
+def ring_flash_step(results, batch):
+    """18(b)'s one-process reference: the same weights and batch through
+    ``TrainContext(seq_attention='flash')``, B1 on the path."""
+    import torch
+
+    from handyrl_tpu_torch.envs import make_env
+    from handyrl_tpu_torch.models import init_variables
+    from handyrl_tpu_torch.ops.flash_attention import MASKED_FLASH
+    from handyrl_tpu_torch.parallel import TrainContext
+
+    args = ring_train_args(seq_attention="flash")
+    module = init_variables(make_env(args["env"]).net(), SEED)
+    ctx = TrainContext(module, args)
+    before = {n: p.detach().clone() for n, p in module.named_parameters()}
+    launches0 = MASKED_FLASH.launches
+    metrics = dict(ctx.train_step(batch, RING_LR).fetch())
+    torch.cuda.synchronize()
+    launches = MASKED_FLASH.launches - launches0
+    check(launches == launches_per_step(args),
+          f"18(b): the flash step launched B1 {launches} times, expected {launches_per_step(args)}")
+    results["masked_flash_attention"]["launches"] += launches
+    after = {n: p.detach() for n, p in module.named_parameters()}
+    return metrics, before, after, launches
+
+
+def check_ring_step(reports, flash, outdir):
+    import torch
+
+    metrics, before, after, launches = flash
+    steps = [rep["step"] for rep in reports]
+    check(steps[0]["crc"] == steps[1]["crc"], f"18(b): the ranks' params crc32 "
+          f"{[s['crc'] for s in steps]} differ")
+    check(steps[0]["metrics"] == steps[1]["metrics"], "18(b): the ranks' metrics differ")
+    ring = steps[0]["metrics"]
+    check(all(s["launches"] == 0 for s in steps), "18(b): a ring rank launched a kernel")
+    check(ring["sentinel_bad"] == 0 and ring["dcnt"] == metrics["dcnt"],
+          f"18(b): sentinel {ring['sentinel_bad']}, dcnt {ring['dcnt']} against {metrics['dcnt']}")
+    for key in ("total", "p", "v"):
+        err, scale = abs(ring[key] - metrics[key]), max(1.0, abs(metrics[key]))
+        check(math.isfinite(ring[key]) and err <= RING_STEP_TOLERANCE * scale,
+              f"18(b): {key} {ring[key]:.5f} against the flash step's {metrics[key]:.5f}")
+    params = torch.load(Path(outdir, "ring_params.pt"))
+    worst, agree, total = 0.0, 0, 0
+    for n, p in params.items():
+        d_ring = p.to(before[n].device) - before[n]
+        d_flash = after[n] - before[n]
+        diff = (d_ring - d_flash).abs()
+        worst = max(worst, diff.max().item())
+        agree += int((diff <= 0.1 * RING_LR).sum())
+        total += diff.numel()
+    # Adam's first step moves a weight by ~lr * sign(gradient): the steps
+    # differ by at most a sign flip, where a gradient is near 0
+    check(worst <= 2 * RING_LR * 1.01, f"18(b): the updates differ by {worst:.3e} > 2 lr")
+    check(agree >= 0.9 * total, f"18(b): {agree / total:.2%} of the updates within 0.1 lr")
+    s = steps[0]
+    print(f"[ring] 18(b) one train step at 7b's width (B{TRAIN_ARGS['batch_size']} x "
+          f"T{TRAIN_ARGS['forward_steps']} {TRAIN_ARGS['compute_dtype']}, "
+          f"{NET_ARGS['n_layers']} layers) on sp 2 against the one-process flash step: total "
+          f"{ring['total']:.5f} / {metrics['total']:.5f}, p {ring['p']:.5f} / {metrics['p']:.5f}, v "
+          f"{ring['v']:.5f} / {metrics['v']:.5f}, dcnt {ring['dcnt']:.0f} (both); updates within "
+          f"0.1 lr {agree / total:.2%}, worst {worst / RING_LR:.3f} lr; params crc32 {s['crc']} "
+          f"on both ranks; ring step {s['step_s']:.2f} s ({s['ring_ms']:.0f} ms in "
+          f"{s['ring_shifts']} shifts, {s['ring_bytes'] / 1e9:.3f} GB sent per rank), "
+          f"all-reduce {s['allreduce_ms']:.0f} ms; peak memory per rank "
+          + ", ".join(f"{st['peak_gb']:.2f}" for st in steps)
+          + f" GB; B1 {launches} in the flash step, 0 on the ring ranks")
+
+
+def ring_cli(tmp):
+    """18(c)'s ranks: 7b's configuration through ``--train`` with
+    ``seq_attention: ring`` on ``{'sp': 2}``, started."""
+    cwd = Path(tmp, "ring_cli")
+    train = dict(TRAIN_ARGS, seq_attention="ring", mesh={"sp": 2},
+                 minimum_episodes=TRANSFORMER_EPISODES, update_episodes=TRANSFORMER_EPISODES,
+                 epochs=2, worker={"num_parallel": 8}, seed=SEED)
+    write_config(cwd, dist_config(free_ports(), train, num_processes=2))
+    return cwd, [start_rank(cwd, "ring", r) for r in (0, 1)], time.perf_counter()
+
+
+def check_ring_cli(cwd, jobs, t0):
+    from handyrl_tpu_torch.parallel.distributed import params_crc32
+    from handyrl_tpu_torch.runtime import checkpoint as ckpt
+
+    done = wait_ranks(jobs, 900)
+    run_s = time.perf_counter() - t0
+    check([rc for rc, *_ in done] == [0, 0], f"18(c): exits {[rc for rc, *_ in done]}\n"
+          + tail(done))
+    ranks = [RANK_LINE.findall(out) for _, out, _, _ in done]
+    check(all(len(r) == 1 for r in ranks), f"18(c): rank lines {ranks}")
+    backends = {r[0][4] for r in ranks}
+    check(len(backends) == 1, f"18(c): backends {backends}")
+    crcs = [CRC_LINE.findall(out) for _, out, _, _ in done]
+    check(all(len(c) == 1 for c in crcs), f"18(c): crc lines {crcs}")
+    (_, crc0, steps0), (_, crc1, steps1) = crcs[0][0], crcs[1][0]
+    saved = ckpt.load_params(str(cwd / "models" / "2.ckpt"))
+    check(crc0 == crc1 == f"{params_crc32(saved):08x}" and steps0 == steps1 and int(steps0) > 0,
+          f"18(c): params crc32 {crc0} at step {steps0} / {crc1} at step {steps1}, the saved "
+          f"epoch 2 {params_crc32(saved):08x}")
+    check(sorted(os.listdir(cwd)) == ["config.yaml", "metrics.jsonl", "models"],
+          f"18(c): the run's directory holds {sorted(os.listdir(cwd))}: only rank 0 writes")
+    check("a member: no actors" in done[1][1] and "its leader" in done[0][1],
+          "18(c): the ranks did not report their sp roles")
+    check_snapshots(str(cwd / "models"), [1, 2])
+    records = read_records(cwd / "metrics.jsonl")
+    check(len(records) == 2, f"18(c): {len(records)} records")
+    launches = [counts["masked_flash_attention"] for _, _, _, counts in done]
+    check(launches == [0, 0], f"18(c): the ring ranks launched B1 {launches} times")
+    print_epochs("ring cli", records)
+    for r in records:
+        if "dist_ring_ms" in r:
+            beside = f", 7b {RATES['7b']:.3f} in this call" if "7b" in RATES else ""
+            print(f"[ring] 18(c) epoch {r['epoch']}: {r['train_steps_per_sec']:.3f} updates/s "
+                  f"while training{beside}; ring {r['dist_ring_ms']:.1f} ms and "
+                  f"{r['dist_ring_bytes'] / 1e9:.3f} GB sent in {r['dist_ring_shifts']} shifts per "
+                  f"step, gradient all-reduce {r['dist_allreduce_ms']:.1f} ms per step, input "
+                  f"wait {r['input_wait_frac']:.1%}")
+    peaks = [counts.get("peak_bytes", 0) / 1e9 for _, _, _, counts in done]
+    print(f"[ring] 18(c): 2 ranks ({backends.pop()}) of --train with seq_attention: ring, mesh "
+          f"{{'sp': 2}}: {steps0} updates each in {run_s:.1f} s; params crc32 {crc0} on both "
+          f"ranks and in models/2.ckpt; only rank 0 wrote; rank 1 ran no actor; B1 0 launches; "
+          f"peak memory per rank {peaks[0]:.2f}, {peaks[1]:.2f} GB")
+
+
+def phase_ring(results):
+    """18: sequence-parallel training over ranks sharing the card (see the
+    docstring's phase 18).  (c)'s ranks run beside (a) and (b)."""
+    import torch
+
+    results.setdefault("masked_flash_attention", {"launches": 0})
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd, cli_jobs, cli_t0 = ring_cli(tmp)
+        try:
+            batch = ring_batch(tmp)
+            ref = ring_reference()
+            for nprocs in RING_SIZES:
+                mode = "step" if nprocs == 2 else "op"
+                jobs = start_ring_ranks(mode, nprocs, tmp)
+                flash = ring_flash_step(results, batch) if mode == "step" else None
+                reports = finish_ring_ranks(f"18(a) sp {nprocs}", jobs, mode, nprocs, tmp, 600)
+                check_ring_op(nprocs, reports, ref, tmp)
+                if flash is not None:
+                    check_ring_step(reports, flash, tmp)
+                del flash
+                torch.cuda.empty_cache()
+        except BaseException:
+            for job in cli_jobs:   # a drain, then the kill at the bound
+                job["proc"].terminate()
+            wait_ranks(cli_jobs, 120)
+            raise
+        check_ring_cli(cwd, cli_jobs, cli_t0)
+        print(f"[ring] NCCL leg: not run ({torch.cuda.device_count()} card)"
+              if torch.cuda.device_count() < 2 else
+              "[ring] NCCL leg: not run (the ranks of this phase share card 0)")
+
+
 def leftovers(shm_before, stream=None):
     """Shared-memory segments and processes of the port alive now: segments
     made since ``shm_before``, this process's children, and CLI processes
@@ -5972,6 +6381,7 @@ PHASES = {
     "16": phase_league_autovec,
     "17ab": lambda results: phase_distributed(results, "ab"),
     "17c": lambda results: phase_distributed(results, "c"),
+    "18": phase_ring,
 }
 
 

@@ -14,13 +14,14 @@ the ``fleet`` block of ``--fleet`` and ``--edge``, the ``flywheel`` block,
 the divergence sentinel with its rollback, the preemption drain,
 ``trace`` and ``profile_dir``, the ``league`` block of ``--league``,
 ``autovec_verify_games``, and a learner of several processes: ``mesh``
-(``dp``), ``distributed.*`` (actor hosts included) and
-``observability.rank_metrics``.
+(``dp``, and ``sp`` under ``seq_attention: ring``), ``distributed.*``
+(actor hosts included) and ``observability.rank_metrics``.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 from typing import Any, Dict
 
 VALID_TARGETS = ("MC", "TD", "UPGO", "VTRACE")
@@ -400,7 +401,7 @@ DEFAULT_WORKER_ARGS: Dict[str, Any] = {
 # it.  The default passes; any other value is refused naming the item.  What
 # is left needs cards of their own: a learner device beside actor devices
 # (the split plane), NCCL across cards, tensor parallel axes
-_OWN_CARDS = "A8 (cards of their own: plane: split, NCCL across cards, mp, ring attention)"
+_OWN_CARDS = "A8 (cards of their own: plane: split, NCCL across cards, mp)"
 NOT_PORTED_KEYS = (
     # the split plane spreads actors and learner over chips of their own
     (("plane",), "fused", _OWN_CARDS),
@@ -494,10 +495,10 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
                 "train_args.device_stage_slots must exceed burn_in_steps + "
                 f"forward_steps = {min_slots}"
             )
-    if train["seq_attention"] not in ("auto", "flash", "einsum"):
+    if train["seq_attention"] not in ("auto", "flash", "einsum", "ring"):
         raise ValueError(
-            f"train_args.seq_attention={train['seq_attention']!r} not one of "
-            "('auto', 'flash', 'einsum'); 'ring' is not ported yet"
+            f"train_args.seq_attention={train['seq_attention']!r} "
+            "not one of ('auto', 'flash', 'einsum', 'ring')"
         )
     if int(train["flash_min_t"]) < 1:
         raise ValueError("train_args.flash_min_t must be >= 1")
@@ -566,11 +567,13 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
     _validate_trace(train["trace"])
     _validate_not_ported_values(train)
     _validate_distributed(train)
+    _validate_ring(train)
     for axis, size in train["mesh"].items():
-        if axis != "dp" and size != 1:
+        if axis not in ("dp", "sp") and size != 1:
             raise ValueError(
                 f"train_args.mesh={train['mesh']!r}: the axis {axis!r} selects a plane that is "
-                f"not ported to handyrl_tpu_torch yet (only 'dp' is): ROADMAP {_OWN_CARDS}"
+                f"not ported to handyrl_tpu_torch yet (only 'dp' and 'sp' are): ROADMAP "
+                f"{_OWN_CARDS}"
             )
     for path, default, item in NOT_PORTED_KEYS:
         value = train
@@ -824,6 +827,46 @@ def _validate_not_ported_values(train: Dict[str, Any]) -> None:
         raise ValueError("train_args.param_refresh_updates must be >= 1")
 
 
+def _validate_ring(train: Dict[str, Any]) -> None:
+    """``seq_attention: ring`` and the ``sp`` axis: the JAX package's
+    checks and words, and the port's own refusals by name."""
+    mesh = train["mesh"]
+    sp = mesh.get("sp", 1)
+    ring = train["seq_attention"] == "ring"
+    if ring and train["remat"] in ("attn", "block", True):
+        raise ValueError(
+            "train_args.remat ladder is unsupported with seq_attention: "
+            "'ring' — the ring already partitions activation memory over "
+            "'sp' (each device holds one T/sp shard); use remat: none or auto"
+        )
+    if ring:
+        if sp != -1 and sp < 2:
+            raise ValueError(
+                "train_args.seq_attention: 'ring' needs an 'sp' mesh axis of "
+                f"size >= 2 (or -1), got mesh {mesh}"
+            )
+        T = train["burn_in_steps"] + train["forward_steps"]
+        if sp > 0 and T % sp:
+            raise ValueError(
+                f"train_args.seq_attention: 'ring' window {T} (burn_in_steps "
+                f"+ forward_steps) must be divisible by mesh sp={sp}"
+            )
+        # each rank's ring runs on its own card, fed by its sp leader's host
+        # pipeline; the device data plane would need the rings per group
+        if train["device_replay"] or train["batch_pipeline"] == "device":
+            raise ValueError(
+                "train_args.seq_attention: 'ring' with device_replay: true or "
+                "batch_pipeline: device is not ported to handyrl_tpu_torch yet (the sp "
+                "leader's host pipeline feeds the group): ROADMAP A8"
+            )
+    elif sp != 1:
+        raise ValueError(
+            f"train_args.mesh={mesh!r}: an 'sp' axis shards the window only under "
+            "seq_attention: 'ring' (the JAX package replicates the step across it); set "
+            "seq_attention: ring or drop the axis: ROADMAP A8"
+        )
+
+
 def _validate_distributed(train: Dict[str, Any]) -> None:
     """``mesh``, ``distributed.*`` and ``observability.rank_metrics``, with
     the JAX package's checks and words."""
@@ -947,12 +990,12 @@ def _validate_distributed(train: Dict[str, Any]) -> None:
                 "device_rollout_games/num_processes lanes on its local "
                 "actor devices"
             )
-        for axis, size in mesh.items():
-            if axis == "dp" and size not in (-1, nprocs):
-                raise ValueError(
-                    f"train_args.mesh={mesh!r} must cover the {nprocs} ranks of "
-                    "distributed.num_processes (one device per rank; -1 fills)"
-                )
+        fixed = math.prod(size for size in mesh.values() if size > 0)
+        if (fixed != nprocs if -1 not in mesh.values() else nprocs % fixed):
+            raise ValueError(
+                f"train_args.mesh={mesh!r} must cover the {nprocs} ranks of "
+                "distributed.num_processes (one device per rank; -1 fills)"
+            )
 
 
 def normalize_args(raw: Dict[str, Any]) -> Dict[str, Any]:

@@ -10,8 +10,11 @@ per-layer key/value cache of the last ``memory_len`` observed steps:
   ring exactly with masks: keys must be observed steps, ages count observed
   steps, keys older than ``memory_len`` observed steps are invisible, and
   self is always visible.  The attention is the masked flash kernel
-  (``use_flash``) or its plain version; ``remat`` picks the block's rung of
-  the activation-checkpoint ladder (``_seq_block``).
+  (``use_flash``), its plain version, or, given ``ring`` (an ``sp``
+  AxisGroup), the masked ring over the group: then the module runs on this
+  rank's T/sp shard of the window, at its global positions; ``remat`` picks
+  the block's rung of the activation-checkpoint ladder (``_seq_block``),
+  'none' under the ring.
 
 Module names follow the Flax parameter tree (``enc1``, ``attn{i}.q`` ...),
 so ``models/convert.py`` maps one onto the other by name.  LayerNorm keeps
@@ -28,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import masked_attention_reference, masked_flash_attention
+from ..ops.ring_attention import global_counts, masked_ring_attention_shard
 from ..utils import tree_leaves
 
 NEG_INF = -1e30
@@ -83,13 +87,18 @@ class CachedSelfAttention(nn.Module):
         out = torch.einsum("bhs,bshd->bhd", attn, v_cache).reshape(B, H * Dh)
         return self.o(out), {"k": k_cache, "v": v_cache}
 
-    def seq_parts(self, burn_in: int = 0, use_flash: bool = False, blk_q: int = 128):
+    def seq_parts(self, burn_in: int = 0, use_flash: bool = False, blk_q: int = 128,
+                  ring=None):
         """Seq mode as two functions over the weights as they are now (under
         ``functional_call``, the substituted ones): ``project(h) -> (q, k, v)``
         and ``attend(q, k, v, key_mask) -> out``.  The remat ladder
         checkpoints ``attend`` with q, k and v as its inputs, so they stay
         stored (the kernel's backward reads them), and its replay in the
-        backward pass computes with the same weights as the forward did."""
+        backward pass computes with the same weights as the forward did.
+
+        ``ring``: (the sp AxisGroup, the shard's first global position, the
+        shard's global observed counts) when ``h`` is one rank's shard of the
+        window; the burn-in mask then reads global positions."""
         H, Dh, S = self.n_heads, self.head_dim, self.memory_len
         wq, bq, wk, bk = self.q.weight, self.q.bias, self.k.weight, self.k.bias
         wv, bv, wo, bo = self.v.weight, self.v.bias, self.o.weight, self.o.bias
@@ -100,7 +109,8 @@ class CachedSelfAttention(nn.Module):
             k = F.linear(h, wk, bk).reshape(B, T, H, Dh)
             v = F.linear(h, wv, bv).reshape(B, T, H, Dh)
             if burn_in > 0:  # no gradients through warm-up keys
-                bmask = (torch.arange(T, device=h.device) < burn_in).to(h.dtype)[None, :, None, None]
+                pos = torch.arange(T, device=h.device) + (ring[1] if ring is not None else 0)
+                bmask = (pos < burn_in).to(h.dtype)[None, :, None, None]
                 k = k.detach() * bmask + k * (1 - bmask)
                 v = v.detach() * bmask + v * (1 - bmask)
             return q, k, v
@@ -108,7 +118,10 @@ class CachedSelfAttention(nn.Module):
         def attend(q, k, v, key_mask):
             B, T = q.shape[:2]
             slopes = alibi_slopes(H, q.device)
-            if use_flash:
+            if ring is not None:
+                group, _offset, counts = ring
+                out = masked_ring_attention_shard(q, k, v, key_mask, counts, slopes, group, S)
+            elif use_flash:
                 out = masked_flash_attention(q, k, v, key_mask, slopes, S, blk_q)
             else:
                 out = masked_attention_reference(q, k, v, key_mask, slopes, S)
@@ -150,7 +163,7 @@ class TransformerNet(nn.Module):
         return getattr(self, f"{name}{i}")
 
     def _seq_block(self, i: int, x, key_mask, burn_in: int, use_flash: bool, blk_q: int,
-                   remat: str):
+                   remat: str, ring=None):
         """One attention+FFN block in seq mode, at rung ``remat`` of the
         ladder (JAX ``TransformerNet`` seq mode):
 
@@ -166,7 +179,7 @@ class TransformerNet(nn.Module):
         every rung, so the rungs compute the same numbers."""
         ln_a, ln_m = self._layer("ln_a", i), self._layer("ln_m", i)
         up, dn = self._layer("mlp_up", i), self._layer("mlp_dn", i)
-        project, attend = self._layer("attn", i).seq_parts(burn_in, use_flash, blk_q)
+        project, attend = self._layer("attn", i).seq_parts(burn_in, use_flash, blk_q, ring)
         wa, ba, wm, bm = ln_a.weight, ln_a.bias, ln_m.weight, ln_m.bias
         wu, bu, wd, bd = up.weight, up.bias, dn.weight, dn.bias
         shape = (x.shape[-1],)
@@ -193,12 +206,21 @@ class TransformerNet(nn.Module):
         raise ValueError(f"remat={remat!r} not one of ('none', 'attn', 'block')")
 
     def forward(self, obs, hidden=None, *, seq: bool = False, key_mask=None, burn_in: int = 0,
-                use_flash: bool = False, blk_q: int = 128, remat: str = "none") -> Dict[str, Any]:
+                use_flash: bool = False, blk_q: int = 128, remat: str = "none",
+                ring=None) -> Dict[str, Any]:
+        """``ring`` (seq mode): the ``sp`` AxisGroup when ``obs`` and
+        ``key_mask`` are this rank's T/sp shard of the window (rank index i
+        holds steps [i * T_loc, (i + 1) * T_loc)); attention then runs over
+        the group's ring, and the remat ladder is off."""
         dtype = self.enc1.weight.dtype
         if seq:
             x = F.relu(self.enc1(flatten_obs(obs, 2, dtype)))
             if key_mask is None:
                 key_mask = torch.ones(x.shape[:2], device=x.device)
+            if ring is not None:
+                if remat != "none":
+                    raise ValueError("the remat ladder is off under the ring (remat='none')")
+                ring = (ring, ring.index * x.shape[1], global_counts(key_mask, ring))
         else:
             if hidden is None:
                 hidden = self.initial_state((tree_leaves(obs)[0].shape[0],), self.enc1.weight.device)
@@ -211,7 +233,7 @@ class TransformerNet(nn.Module):
         new_layers = []
         for i in range(self.n_layers):
             if seq:
-                x = self._seq_block(i, x, key_mask, burn_in, use_flash, blk_q, remat)
+                x = self._seq_block(i, x, key_mask, burn_in, use_flash, blk_q, remat, ring)
                 continue
             h = self._layer("ln_a", i)(x)
             a, cache = self._layer("attn", i).step(h, hidden["layers"][i], slot, count)

@@ -87,16 +87,18 @@ def _unpad(out, D: int):
     return out if out.shape[-1] == D else out[..., :D].contiguous()
 
 
-def _masked_scores(q_c, k, c_q, counts, key_mask, slopes, window, q0, scale):
+def _masked_scores(q_c, k, c_q, counts, key_mask, slopes, window, q0, scale, k0=0):
     """(rows, H, C, T) biased + masked fp32 scores of a query chunk at global
-    position ``q0`` against every key, and the (rows, C, T) validity."""
+    position ``q0`` against keys at global position ``k0``, and the (rows,
+    C, T) validity: the one definition of the seq-mode semantics, shared by
+    the plain version, the recompute backward and the masked ring shard."""
     C, T = q_c.shape[1], k.shape[1]
     # fp32 scores whatever the operand type, as the JAX einsum's
     # preferred_element_type=float32 gives
     s = torch.einsum("bqhd,bkhd->bhqk", q_c.float(), k.float()) * scale
     age = c_q[:, :, None] - counts[:, None, :]
     qpos = q0 + torch.arange(C, device=q_c.device)
-    kpos = torch.arange(T, device=q_c.device)
+    kpos = k0 + torch.arange(T, device=q_c.device)
     causal = qpos[:, None] >= kpos[None, :]
     valid = (key_mask[:, None, :] > 0) & causal[None] & (age >= 0) & (age < window)
     valid = valid | (qpos[:, None] == kpos[None, :])[None]

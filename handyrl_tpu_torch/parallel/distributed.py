@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import datetime
 import json
+import math
 import os
 import socket
 import sys
@@ -59,14 +60,16 @@ class CollectiveError(RuntimeError):
     raises nothing; the collective watchdog bounds that)."""
 
 
-def _collective(call):
-    """Run one collective call; its failure becomes ``CollectiveError``."""
+def _collective(call, name: Optional[str] = None):
+    """Run one collective call; its failure becomes ``CollectiveError``,
+    named after ``name`` when given."""
     try:
         return call()
     except CollectiveError:
         raise
     except Exception as exc:   # gloo and NCCL raise several concrete types
-        raise CollectiveError(f"{type(exc).__name__}: {exc}") from exc
+        where = f"{name}: " if name else ""
+        raise CollectiveError(f"{where}{type(exc).__name__}: {exc}") from exc
 
 
 def _split_address(address: str) -> Tuple[str, int]:
@@ -283,11 +286,14 @@ def collective_device() -> torch.device:
     return torch.device("cpu")
 
 
-def local_batch_size(global_batch_size: int) -> int:
-    """This process's share of a global batch."""
-    n = process_count()
+def local_batch_size(global_batch_size: int, data_shards: Optional[int] = None) -> int:
+    """This process's share of a global batch: one of ``data_shards``
+    (default: every process; under a sequence axis the ranks of one ``sp``
+    group share one shard, so global / dp)."""
+    n = process_count() if data_shards is None else int(data_shards)
     if global_batch_size % n:
-        raise ValueError(f"batch_size {global_batch_size} not divisible by {n} processes")
+        what = "processes" if data_shards is None else "data shards (dp)"
+        raise ValueError(f"batch_size {global_batch_size} not divisible by {n} {what}")
     return global_batch_size // n
 
 
@@ -465,3 +471,228 @@ class DistributedCadence:
         triggers it is computed from the reduced step metrics, the same on
         every rank."""
         return self._agree(int(epoch) if self.is_coordinator else 0, "agree_rollback")
+
+
+# -- a group along one mesh axis: the sequence ring's transport -------------------
+
+_ALIGN = 16   # each tensor of a packed buffer starts on a 16-byte boundary
+
+
+def _layout(specs):
+    """The (offset, dtype, shape) of each (dtype, shape) in a packed buffer,
+    and the buffer's size in bytes."""
+    layout, offset = [], 0
+    for dtype, shape in specs:
+        layout.append((offset, dtype, tuple(shape)))
+        offset += -(-math.prod(shape) * dtype.itemsize // _ALIGN) * _ALIGN
+    return layout, offset
+
+
+def _pack(tensors: Sequence[torch.Tensor]):
+    """The tensors as one flat uint8 buffer on their device, and the layout
+    of each, for ``_unpack``."""
+    layout, size = _layout([(t.dtype, t.shape) for t in tensors])
+    buf = torch.empty(size, dtype=torch.uint8, device=tensors[0].device)
+    for t, (off, _dtype, _shape) in zip(tensors, layout):
+        flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        buf[off:off + flat.numel()].copy_(flat)
+    return buf, layout
+
+
+def _unpack(buf: torch.Tensor, layout) -> List[torch.Tensor]:
+    """Views of ``buf`` as the tensors ``_pack`` laid out."""
+    return [buf[off:off + math.prod(shape) * dtype.itemsize].view(dtype).view(shape)
+            for off, dtype, shape in layout]
+
+
+def _pinned(staging: Dict[Any, torch.Tensor], key, like: torch.Tensor) -> torch.Tensor:
+    buf = staging.get(key)
+    if buf is None or buf.numel() != like.numel():
+        buf = staging[key] = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+    return buf
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], group,
+               staging: Optional[Dict[Any, torch.Tensor]] = None) -> List[torch.Tensor]:
+    """Send ``tensors`` to the next rank of ``group`` and return the previous
+    rank's (the same shapes and dtypes): JAX's ``ppermute`` by one step
+    around an axis.  Every rank of the group calls it at once.  The tensors
+    travel as one flat buffer each way.
+
+    Under NCCL (a card per rank) the buffers go card to card through
+    ``batch_isend_irecv``.  Under gloo, host tensors go as they are, and
+    card tensors (ranks that share a card) are staged explicitly through
+    pinned host buffers (``staging``, reused by size): one wait for the
+    card per shift, as ``BucketAllReduce`` stages its bucket.  A lost peer
+    raises ``CollectiveError``."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (me + 1) % n)
+    prv = dist.get_global_rank(group, (me - 1) % n)
+    buf, layout = _pack(tensors)
+    recv = torch.empty_like(buf)
+    if buf.device.type == "cuda" and backend() == "nccl":
+        ops = [dist.P2POp(dist.isend, buf, nxt, group), dist.P2POp(dist.irecv, recv, prv, group)]
+        _collective(lambda: [w.wait() for w in dist.batch_isend_irecv(ops)], "ring_shift")
+        return _unpack(recv, layout)
+    if buf.device.type == "cuda":
+        staging = {} if staging is None else staging
+        send_h, recv_h = _pinned(staging, "send", buf), _pinned(staging, "recv", buf)
+        send_h.copy_(buf, non_blocking=True)
+        # the card's copy must land before gloo reads it; the previous
+        # shift's copy out of recv_h is on this stream too, so it is done
+        # before gloo writes into recv_h again
+        torch.cuda.current_stream(buf.device).synchronize()
+        _exchange(send_h, recv_h, nxt, prv, group)
+        recv.copy_(recv_h, non_blocking=True)
+        return _unpack(recv, layout)
+    _exchange(buf, recv, nxt, prv, group)
+    return _unpack(recv, layout)
+
+
+def _exchange(send: torch.Tensor, recv: torch.Tensor, nxt: int, prv: int, group) -> None:
+    """gloo: ``send`` to global rank ``nxt`` while ``recv`` fills from
+    ``prv``; both posted before either is waited on."""
+    def call():
+        works = [dist.isend(send, nxt, group=group), dist.irecv(recv, prv, group=group)]
+        for work in works:
+            work.wait()
+    _collective(call, "ring_shift")
+
+
+def _tree_items(tree, prefix=()):
+    """(path, leaf) pairs of a nested dict, keys in sorted order."""
+    if isinstance(tree, dict):
+        for key in sorted(tree, key=repr):
+            yield from _tree_items(tree[key], prefix + (key,))
+    else:
+        yield prefix, tree
+
+
+def _tree_build(items):
+    out: Dict[Any, Any] = {}
+    for path, leaf in items:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
+
+
+class AxisGroup:
+    """This rank's group along one mesh axis (``Mesh.group``): the
+    ``torch.distributed`` group, its global ranks in axis order, this rank's
+    ``index`` on the axis, the axis ``size`` and this rank's device.  Along
+    ``sp`` it is the sequence ring: ``shift`` (timed, its bytes counted),
+    ``all_gather`` and the differentiable ``gather`` of a sharded output,
+    and the leader's batch (``broadcast_batch``)."""
+
+    def __init__(self, group, ranks: Sequence[int], axis: str = "sp", device="cpu"):
+        self.group = group
+        self.device = torch.device(device)   # where a member's broadcast batch lands
+        self.ranks = [int(r) for r in ranks]
+        self.axis = axis
+        self.size = len(self.ranks)
+        self.index = self.ranks.index(process_index())
+        self.leader = self.ranks[0]          # the group's index 0
+        self.is_leader = self.index == 0
+        self.shifts = 0
+        self.shift_bytes = 0
+        self._seconds = 0.0
+        self._events: List[Tuple[Any, Any]] = []
+        self._staging: Dict[Any, torch.Tensor] = {}
+
+    def __repr__(self) -> str:
+        return f"AxisGroup({self.axis!r}, ranks={self.ranks}, index={self.index})"
+
+    def shift(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """``ring_shift`` over this group, timed (host clock; CUDA events
+        under NCCL) and its bytes counted for ``stats``."""
+        from ..utils.trace import trace_span
+
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        self.shifts += 1
+        self.shift_bytes += nbytes
+        with trace_span("collective.ring_shift", plane="learner", nbytes=nbytes):
+            if tensors[0].device.type == "cuda" and backend() == "nccl":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = ring_shift(tensors, self.group, self._staging)
+                end.record()
+                self._events.append((start, end))
+                return out
+            t0 = time.perf_counter()
+            out = ring_shift(tensors, self.group, self._staging)
+            self._seconds += time.perf_counter() - t0
+            return out
+
+    def stats(self) -> Dict[str, float]:
+        """Cumulative (shifts, bytes sent, seconds) of ``shift``."""
+        for start, end in self._events:
+            end.synchronize()
+            self._seconds += start.elapsed_time(end) / 1e3
+        self._events = []
+        return {"shifts": self.shifts, "bytes": self.shift_bytes, "seconds": self._seconds}
+
+    def all_gather(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Every rank's ``x`` (one shape on all), in axis order, on ``x``'s
+        device; under gloo a card tensor goes through the host."""
+        dev = x.device
+        host = x.detach().contiguous()
+        if dev.type == "cuda" and backend() != "nccl":
+            host = host.cpu()
+        parts = [torch.empty_like(host) for _ in range(self.size)]
+        _collective(lambda: dist.all_gather(parts, host, group=self.group), "all_gather")
+        return [p.to(dev) for p in parts]
+
+    def gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The group's shards of ``x`` concatenated along ``dim`` (axis
+        order), differentiable: the backward returns this rank's own slice
+        of the incoming gradient and sums nothing, since every rank of the
+        group computes the same loss on the gathered tensor (a summing
+        backward would scale each gradient by the group's size)."""
+        return _GatherShards.apply(x, self, dim)
+
+    def broadcast_batch(self, batch):
+        """The leader's batch (a nested dict of tensors or arrays, or None
+        when it is stopping) on every rank of the group, a member's on its
+        ``device``; members pass None.  The layout goes first (a small
+        pickled object), then one flat buffer."""
+        spec: List[Any] = [None]
+        leaves: List[torch.Tensor] = []
+        if self.is_leader and batch is not None:
+            items = [(path, torch.as_tensor(leaf)) for path, leaf in _tree_items(batch)]
+            leaves = [leaf for _, leaf in items]
+            spec = [[(path, leaf.dtype, tuple(leaf.shape)) for path, leaf in items]]
+        _collective(lambda: dist.broadcast_object_list(spec, src=self.leader, group=self.group),
+                    "broadcast_batch")
+        if spec[0] is None:
+            return None
+        if self.is_leader:
+            buf, layout = _pack(leaves)
+            dev = buf.device
+        else:
+            layout, size = _layout([(dtype, shape) for _path, dtype, shape in spec[0]])
+            dev = self.device
+            buf = torch.empty(size, dtype=torch.uint8, device=dev)
+        wire = buf.cpu() if dev.type == "cuda" and backend() != "nccl" else buf
+        _collective(lambda: dist.broadcast(wire, src=self.leader, group=self.group),
+                    "broadcast_batch")
+        if self.is_leader:
+            return batch
+        buf = wire.to(dev)
+        return _tree_build(zip((path for path, _, _ in spec[0]), _unpack(buf, layout)))
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: AxisGroup, dim: int):
+        ctx.group, ctx.dim = group, dim
+        return torch.cat(group.all_gather(x), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.group, ctx.dim
+        n = g.shape[dim] // group.size
+        return g.narrow(dim, group.index * n, n), None, None

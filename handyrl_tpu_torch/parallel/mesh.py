@@ -3,9 +3,15 @@
 Counterpart of ``handyrl_tpu/parallel/mesh.py``.  A JAX mesh names every
 device of every process; the port's learner runs one process per rank and
 one device per rank, so its mesh is the list of the ranks' devices laid out
-by axis.  Only ``dp`` (data parallel: the batch splits over the ranks, the
-params are replicated) is acted on; ``split_mesh``'s partition is here with
-the JAX package's checks and words, and nothing wires it yet (ROADMAP A8).
+by axis, row-major in the spec's order as JAX's ``make_mesh`` reshapes its
+devices: under ``{'dp': 2, 'sp': 2}`` rank r sits at ``(r // 2, r % 2)``.
+Two axes are acted on: ``dp`` (data parallel: the batch splits over the
+ranks, the params are replicated) and ``sp`` (sequence parallel: each rank
+of an ``sp`` group holds one T/sp shard of every window, ops/ring_attention.py).
+``Mesh.group(axis)`` gives this rank's ``AxisGroup`` along an axis, once
+``build_groups`` has made one ``torch.distributed`` group per group of
+ranks of every axis.  ``split_mesh``'s partition is here with the JAX
+package's checks and words, and nothing wires it yet (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -35,10 +41,66 @@ class Mesh:
         self.axis_names = tuple(self.shape)
         if math.prod(self.shape.values()) != len(self.devices):
             raise ValueError(f"mesh {self.shape} does not hold {len(self.devices)} devices")
+        self._groups: Optional[Dict[str, object]] = None
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    def coords(self, index: int) -> Dict[str, int]:
+        """The position of ``devices[index]`` on each axis, row-major in the
+        spec's order (the last axis varies fastest)."""
+        out = {}
+        for axis in reversed(self.axis_names):
+            index, out[axis] = divmod(index, self.shape[axis])
+        return {axis: out[axis] for axis in self.axis_names}
+
+    def axis_groups(self, axis: str) -> List[List[int]]:
+        """The groups of device indices along ``axis``: one per position on
+        the other axes, in row-major order, each ordered by its position on
+        ``axis``."""
+        groups: Dict[tuple, List[int]] = {}
+        for index in range(self.size):
+            c = self.coords(index)
+            groups.setdefault(tuple(v for a, v in c.items() if a != axis), []).append(index)
+        return [groups[key] for key in sorted(groups)]
+
+    def build_groups(self) -> None:
+        """One ``torch.distributed`` group per group of every axis of size
+        > 1.  ``new_group`` is a collective of every rank of the world, so
+        every rank calls this, at the same point of its run, and the groups
+        are made in one order on all of them."""
+        import torch.distributed as dist
+
+        from .distributed import AxisGroup, process_index
+
+        if self._groups is not None:
+            return
+        me = process_index()
+        ranks = [d.rank if isinstance(d, RankDevice) else i for i, d in enumerate(self.devices)]
+        mine = self.devices[ranks.index(me)] if me in ranks else "cpu"
+        device = mine.device if isinstance(mine, RankDevice) else str(mine)
+        found: Dict[str, object] = {}
+        for axis in self.axis_names:
+            if self.shape[axis] < 2:
+                continue
+            for members in self.axis_groups(axis):
+                group_ranks = [ranks[i] for i in members]
+                pg = dist.new_group(group_ranks)
+                if me in group_ranks:
+                    found[axis] = AxisGroup(pg, group_ranks, axis, device)
+        self._groups = found
+
+    def group(self, axis: str):
+        """This rank's ``AxisGroup`` along ``axis``; raises when the mesh
+        has no such axis of size >= 2.  The first call builds the groups
+        (``build_groups``: a collective, so every rank must reach it)."""
+        if self._groups is None:
+            self.build_groups()
+        if axis not in self._groups:
+            raise ValueError(f"mesh {self.shape} has no {axis!r} axis of size >= 2 holding "
+                             "this rank")
+        return self._groups[axis]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, {self.devices})"

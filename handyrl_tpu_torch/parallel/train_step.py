@@ -16,7 +16,15 @@ to fp32 before the masking, since the 1e32 action mask is not
 bf16-representable; a recurrent state stays fp32.  On the card, convolutions
 run in TF32 (PyTorch's default, ``torch.backends.cudnn.allow_tf32``) and
 matmuls in fp32, so an fp32 conv net's step there is TF32 in its convs.
-The ring-attention branch is not ported yet.
+
+``seq_attention: ring`` trains sequence-parallel over the mesh's ``sp``
+axis (one rank per shard, ``TrainContext`` builds the groups): every rank
+of an ``sp`` group holds the group's whole batch, runs the net on its own
+T/sp shard of the window through the masked ring (ops/ring_attention.py),
+and gathers the heads' outputs along T, so that the targets and the loss
+see the whole window; the gather's backward keeps this rank's slice.  The
+bucket below then sums each rank's disjoint token part of the gradient,
+and the step's metrics count each group once (its leader's).
 
 Under a process group of several ranks (parallel/distributed.py) each rank
 takes its shard of the global batch, and the step sums the ranks'
@@ -98,7 +106,7 @@ def _cast_floats(tree, dtype):
 
 
 def resolve_seq_attention(args: Dict[str, Any], T: int) -> str:
-    """'flash' or 'einsum' for a window of length ``T``.
+    """'flash', 'einsum' or 'ring' for a window of length ``T``.
 
     ``auto`` picks the masked flash kernel at T >= ``flash_min_t`` and the
     exact einsum below it, on the card as on the CPU (where 'flash' runs
@@ -107,8 +115,8 @@ def resolve_seq_attention(args: Dict[str, Any], T: int) -> str:
     mode = args.get("seq_attention", "auto")
     if mode == "auto":
         return "flash" if T >= int(args.get("flash_min_t", 128)) else "einsum"
-    if mode not in ("flash", "einsum"):
-        raise ValueError(f"seq_attention={mode!r} is not ported yet")
+    if mode not in ("flash", "einsum", "ring"):
+        raise ValueError(f"seq_attention={mode!r} not one of ('auto', 'flash', 'einsum', 'ring')")
     return mode
 
 
@@ -117,7 +125,11 @@ def resolve_seq_remat(args: Dict[str, Any]) -> str:
 
     Named rungs pass through; booleans collapse to 'block' (True) and
     'none' (False); ``auto`` is 'none', as the JAX package resolves it on
-    every backend but a TPU (where it depends on the window length)."""
+    every backend but a TPU (where it depends on the window length).  Under
+    ``seq_attention: ring`` it is always 'none', as in JAX: each rank holds
+    only its shard's activations."""
+    if args.get("seq_attention") == "ring":
+        return "none"
     v = args.get("remat", "auto")
     if v in ("none", "attn", "block"):
         return v
@@ -190,12 +202,15 @@ def forward_prediction(module, params, batch: Dict[str, Any], args: Dict[str, An
         to_bp = lambda x: x.movedim(2, 1).reshape((B * P1, T) + tuple(x.shape[3:]))  # noqa: E731
         obs_bp = tree_map(to_bp, obs)                       # (B*P, T, ...)
         km = to_bp(omask)[..., 0]                           # (B*P, T)
+        mode = resolve_seq_attention(args, T)
         kwargs = dict(
-            seq=True, key_mask=km, burn_in=burn_in,
-            use_flash=resolve_seq_attention(args, T) == "flash",
+            seq=True, key_mask=km, burn_in=burn_in, use_flash=mode == "flash",
             blk_q=int(args.get("blk_q", 128)), remat=resolve_seq_remat(args),
         )
-        outs = _apply(module, params, (obs_bp, None), kwargs)
+        if mode == "ring":
+            outs = _seq_shard_forward(module, params, obs_bp, kwargs, args.get("_seq_group"))
+        else:
+            outs = _apply(module, params, (obs_bp, None), kwargs)
         outputs = {
             k: v.reshape((B, P1, T) + tuple(v.shape[2:])).movedim(1, 2)[:, burn_in:]
             for k, v in outs.items()
@@ -218,6 +233,26 @@ def forward_prediction(module, params, batch: Dict[str, Any], args: Dict[str, An
         else:
             masked[k] = v * omask
     return masked
+
+
+def _seq_shard_forward(module, params, obs_bp, kwargs, group):
+    """The seq branch on this rank's T-shard of the (rows, T) window: the
+    observations and the key mask sliced at the shard, the net run over the
+    sp group's ring, the heads' outputs gathered back to the whole T in one
+    collective (the backward keeps this rank's slice)."""
+    if group is None:
+        raise ValueError("seq_attention='ring' needs the sp group that TrainContext builds "
+                         "(args['_seq_group']); there is none here")
+    km = kwargs["key_mask"]
+    t = km.shape[1] // group.size
+    t0 = group.index * t
+    shard = tree_map(lambda x: x[:, t0:t0 + t], obs_bp)
+    outs = _apply(module, params, (shard, None),
+                  dict(kwargs, key_mask=km[:, t0:t0 + t].contiguous(), ring=group))
+    keys = [k for k, v in outs.items() if k != "hidden" and v is not None]
+    widths = [outs[k].shape[-1] for k in keys]
+    whole = group.gather(torch.cat([outs[k] for k in keys], dim=-1), dim=1)
+    return dict(zip(keys, torch.split(whole, widths, dim=-1)))
 
 
 def _rnn_forward(module, params, obs, omask, burn_in: int, args: Dict[str, Any]):
@@ -285,12 +320,22 @@ def trim_burn_in(batch: Dict[str, Any], burn_in: int) -> Dict[str, Any]:
 
 
 class TrainContext:
-    """Owns the module on its device, the optimizer and the train step."""
+    """Owns the module on its device, the optimizer and the train step.
 
-    def __init__(self, module, args: Dict[str, Any], device=None):
+    ``mesh`` (parallel/mesh.py; default: ``args['mesh']`` over the group's
+    ranks) matters under ``seq_attention: ring``: the context checks it as
+    the JAX package does and builds its process groups (a collective: every
+    rank constructs its context at the same point), and the step runs on
+    this rank's ``sp`` group (``seq_group``)."""
+
+    def __init__(self, module, args: Dict[str, Any], device=None, mesh=None):
         self.device = resolve_device(device)
         self.module = module.to(self.device)
         self.args = args
+        self.mesh = mesh
+        self.seq_group = None
+        if args.get("seq_attention") == "ring":
+            self._setup_ring(args)
         recurrent = module.initial_state((1, 1)) is not None
         # a simultaneous-move batch holds its one target player's own
         # observations, so its hidden carry is well-defined without the flag
@@ -312,6 +357,37 @@ class TrainContext:
         from .distributed import BucketAllReduce, process_count
 
         self.grad_reduce = BucketAllReduce() if process_count() > 1 else None
+
+    def _setup_ring(self, args: Dict[str, Any]) -> None:
+        """JAX's construction-time checks of the ring, in its words, then
+        the mesh's groups: ``seq_group`` is this rank's ``sp`` group."""
+        from .mesh import make_mesh
+
+        if self.mesh is None:
+            self.mesh = make_mesh(args.get("mesh"))
+        sp = self.mesh.shape.get("sp", 1)
+        if sp < 2:
+            raise ValueError(
+                "seq_attention='ring' needs a mesh with an 'sp' axis of "
+                f"size >= 2 (got {dict(self.mesh.shape)}); set train_args.mesh "
+                "accordingly, e.g. {'dp': 2, 'sp': 4}"
+            )
+        T = args["burn_in_steps"] + args["forward_steps"]
+        if T % sp:
+            raise ValueError(
+                f"seq_attention='ring': window length {T} (burn_in_steps "
+                f"+ forward_steps) must be divisible by the 'sp' axis "
+                f"size {sp}"
+            )
+        if args.get("remat") in ("attn", "block", True):
+            raise ValueError(
+                "remat ladder is unsupported with seq_attention='ring': "
+                "the ring already partitions activation memory over "
+                "'sp' — set remat: none/auto"
+            )
+        self.mesh.build_groups()
+        self.seq_group = self.mesh.group("sp")
+        self.args = dict(args, _seq_group=self.seq_group)
 
     def load_optimizer_state(self, state_dict: Dict[str, Any]) -> None:
         """Adam's saved state into this context's fused Adam; a state saved
@@ -414,6 +490,10 @@ class TrainContext:
         zero = torch.zeros((), device=self.device)
         values = torch.stack([losses.get(k, zero).detach().float() for k in LOSS_KEYS]
                              + [dcnt.float()])
+        if self.seq_group is not None and not self.seq_group.is_leader:
+            # every rank of an sp group computed the same loss on the same
+            # window: the bucket's sum counts it once, the leader's
+            values = torch.zeros_like(values)
         if self.grad_reduce is not None:
             # the global batch's gradient and metrics: summed over the ranks
             # in one bucket, before the clip and the sentinel read them

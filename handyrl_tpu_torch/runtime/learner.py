@@ -72,7 +72,12 @@ survivor exits 75 (``HANDYRL_FAULT_KILL_PROCESS_AT_EPOCH`` and
 ``distributed.actor_hosts`` > 0 the coordinator serves the plane gateway
 (runtime/plane.py): actor hosts' record blocks land in its rings, and
 each boundary's params are published to them, versioned by step count.
-The split plane (``plane: split``) is not ported (ROADMAP A8).
+Under ``seq_attention: ring`` (a mesh with an ``sp`` axis) only the
+leader of each ``sp`` group (its index 0) runs actors, the store and the
+batch pipeline; the other ranks of the group start no actors and train on
+the leader's broadcast batches, on their own shards of the window.  The
+cadence, the health plane and the watchdog stay over every rank.  The
+split plane (``plane: split``) is not ported (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -138,6 +143,19 @@ class Learner:
         self._dist_nprocs = process_count()
         self._dist_rank = process_index() if self._dist_nprocs > 1 else 0
         self._dist_follower = self._dist_nprocs > 1 and not is_coordinator()
+        # the ranks' mesh; under seq_attention: ring the ranks of an sp
+        # group past its leader (sp index 0) start no actors and keep no
+        # store: their batches are the leader's (runtime/trainer.py)
+        self.mesh = None
+        self._sp_member = False
+        self._data_shards = self._dist_nprocs
+        if self._dist_nprocs > 1:
+            from ..parallel.mesh import make_mesh
+
+            self.mesh = make_mesh(self.args.get("mesh"))
+            if self.args.get("seq_attention") == "ring":
+                self._sp_member = self.mesh.coords(self._dist_rank).get("sp", 0) > 0
+                self._data_shards = self._dist_nprocs // self.mesh.shape.get("sp", 1)
         # each rank's actors play other games; the model's init stays the
         # base seed's on every rank, so the params start identical
         random.seed(self.args["seed"] + 1009 * self._dist_rank)
@@ -146,6 +164,13 @@ class Learner:
         self._health = None
         self._collective_watchdog = None
         self._host_faulted = False
+        # the epoch counter, the checkpoint files and the fault flag: the
+        # main loop's boundary and a host fault's drain (on a health,
+        # watchdog or trainer thread) may meet, and the manifest is a
+        # read-modify-write; once the fault's drain has begun no boundary
+        # saves, so the drain stays the newest verified epoch
+        self._ckpt_lock = threading.RLock()
+        self._drain_saved = False
         self._plane_gateway = None
         self._rank_metrics = bool((self.args.get("observability") or {}).get("rank_metrics", True))
         if trace.configure(self.args["trace"], rank=self._dist_rank):
@@ -208,7 +233,7 @@ class Learner:
             self.env.reset()
             self.args["_obs_quant"] = obs_quant_spec(
                 self.env, obs=self.env.observation(self.env.players()[0]))
-        self.trainer = Trainer(self.args, self.module, self.device)
+        self.trainer = Trainer(self.args, self.module, self.device, mesh=self.mesh)
         self.trainer.device_replay = self._replay
         self._setup_distributed()
         # the configured plane; an shm pipeline may still fall back to
@@ -278,10 +303,9 @@ class Learner:
             return
         from ..parallel.distributed import DistributedCadence, backend
         from ..parallel.health import CollectiveWatchdog, HostHealthPlane
-        from ..parallel.mesh import make_mesh
 
         dist_args = dict(self.args.get("distributed") or {})
-        mesh = make_mesh(self.args.get("mesh"))
+        mesh = self.mesh
         self.trainer.cadence = DistributedCadence(mesh)
         timeout = float(dist_args.get("collective_timeout") or 0.0)
         if timeout > 0:
@@ -303,6 +327,12 @@ class Learner:
                  self.dist_backend, mesh.shape,
                  "on" if (self._health and self._health.enabled) else "off",
                  f"{timeout:.0f}s" if timeout > 0 else "off"), flush=True)
+        seq = self.trainer.ctx.seq_group
+        if seq is not None:
+            print("distributed learner: process %d in sp group %s at index %d (%s)"
+                  % (self._dist_rank, seq.ranks, seq.index,
+                     "its leader: actors, store and batches" if seq.is_leader
+                     else "a member: no actors, the leader's batches"), flush=True)
 
     def _setup_gateway(self) -> None:
         """``distributed.actor_hosts`` > 0: the coordinator serves the plane
@@ -331,8 +361,10 @@ class Learner:
     def _setup_device_planes(self) -> None:
         """The rollout and the evaluator of the device twin, each
         with a copy of the module on this learner's device."""
-        # each rank runs its share of the lanes
-        self._device_games = int(self.args["device_rollout_games"]) // self._dist_nprocs
+        # each data shard's rank runs its share of the lanes (none on an sp
+        # group's members: they make no episodes)
+        self._device_games = (0 if self._sp_member else
+                              int(self.args["device_rollout_games"]) // self._data_shards)
         self._device_roll = None
         self._replay = None
         self._device_eval = None
@@ -381,7 +413,7 @@ class Learner:
 
                 self._device_roll = make_device_rollout(venv, self.module, self.args,
                                                         self._device_games, device=self.device)
-        n_eval = int(self.args["device_eval_games"])
+        n_eval = 0 if self._sp_member else int(self.args["device_eval_games"])
         if n_eval > 0:
             venv = self._vector_env("device_eval_games")
             opp_list = self.args["eval"].get("opponent") or ["random"]
@@ -613,7 +645,8 @@ class Learner:
         old ones, and serve it to the actors; returns the seconds the save
         and the publish took."""
         print("updated model(%d)" % steps)
-        self.model_epoch += 1
+        with self._ckpt_lock:
+            self.model_epoch += 1
         self._dist_fault_hooks()
         save_params = params
         if self._fault_poison_epoch is not None and self.model_epoch == self._fault_poison_epoch:
@@ -624,12 +657,14 @@ class Learner:
                   "NEGATED params (training params stay clean)", flush=True)
             save_params = {k: -v if v.is_floating_point() else v for k, v in params.items()}
         t0 = time.perf_counter()
-        if not self._dist_follower:   # one rank owns the checkpoint files
-            with trace_span("checkpoint.save", plane="learner", epoch=self.model_epoch):
-                save_epoch_snapshot(self.model_dir, self.model_epoch, save_params,
-                                    self.trainer.save_payload(self.model_epoch), steps)
-            gc_snapshots(self.model_dir, int(self.args["keep_checkpoints"]),
-                         pin=self._gc_pin_set())
+        # one rank owns the checkpoint files
+        with self._ckpt_lock:
+            if not self._dist_follower and not self._host_faulted:
+                with trace_span("checkpoint.save", plane="learner", epoch=self.model_epoch):
+                    save_epoch_snapshot(self.model_dir, self.model_epoch, save_params,
+                                        self.trainer.save_payload(self.model_epoch), steps)
+                gc_snapshots(self.model_dir, int(self.args["keep_checkpoints"]),
+                             pin=self._gc_pin_set())
         t1 = time.perf_counter()
         self.model_server.publish(self.model_epoch, params)
         if self._plane_gateway is not None and steps > self._plane_gateway.version:
@@ -777,6 +812,8 @@ class Learner:
                 try:
                     req, data, fut = self._requests.get(timeout=0.3)
                 except queue.Empty:
+                    if self._dist_follower:   # an sp member has no worker to wake it
+                        self._follower_boundary()
                     continue
                 reply = self._serve_request(req, data)
                 if reply is _DEFERRED:
@@ -887,15 +924,21 @@ class Learner:
     def _write_drain_checkpoint(self) -> None:
         """The drain's final save, through the same atomic, manifest-recorded
         path as every boundary, so ``restart_epoch: -1`` resumes it.  The
-        coordinator's alone under several ranks."""
+        coordinator's alone under several ranks, and written once."""
         if self._dist_follower:
             return
-        self.model_epoch += 1
-        params, payload, steps = self.trainer.drain_payload(self.model_epoch)
-        with trace_span("checkpoint.save", plane="learner", epoch=self.model_epoch):
-            save_epoch_snapshot(self.model_dir, self.model_epoch, params, payload, steps)
-        gc_snapshots(self.model_dir, int(self.args["keep_checkpoints"]), pin=self._gc_pin_set())
-        print(f"[handyrl_tpu_torch] drain checkpoint: epoch {self.model_epoch} at step {steps} "
+        with self._ckpt_lock:
+            if self._drain_saved:
+                return
+            self._drain_saved = True
+            self.model_epoch += 1
+            epoch = self.model_epoch
+            params, payload, steps = self.trainer.drain_payload(epoch)
+            with trace_span("checkpoint.save", plane="learner", epoch=epoch):
+                save_epoch_snapshot(self.model_dir, epoch, params, payload, steps)
+            gc_snapshots(self.model_dir, int(self.args["keep_checkpoints"]),
+                         pin=self._gc_pin_set())
+        print(f"[handyrl_tpu_torch] drain checkpoint: epoch {epoch} at step {steps} "
               "(manifest-verified; resume with restart_epoch: -1)", file=sys.stderr, flush=True)
 
     # -- the device rollout thread and its watchdog --------------------------
@@ -1111,7 +1154,8 @@ class Learner:
                                                     name="trainer")
             self._trainer_thread.start()
             try:
-                self.worker.run()
+                if not self._sp_member:
+                    self.worker.run()
             except BaseException:
                 self.trainer.stop()  # the batch pipeline's processes and segment go with it
                 raise
@@ -1240,9 +1284,10 @@ class Learner:
         ``restart_epoch: -1``."""
         from ..parallel.health import announce_fault
 
-        if self._host_faulted:
-            return
-        self._host_faulted = True
+        with self._ckpt_lock:   # a boundary's save in flight lands first
+            if self._host_faulted:
+                return
+            self._host_faulted = True
         announce_fault(reason, kind, EXIT_RESUMABLE)
         try:
             if not self._dist_follower:

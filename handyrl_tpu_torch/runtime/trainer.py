@@ -46,7 +46,13 @@ per boundary (``agree_stop``), so every rank takes the same steps; each
 step's gradient bucket is summed over the ranks (parallel/train_step.py),
 on this process's share of the batch (``local_batch_size``).  The
 collective watchdog (parallel/health.py) is armed around every collective
-once the first step is done; ``HANDYRL_FAULT_WEDGE_PROCESS`` freezes the
+once the first step is done.  Under ``seq_attention: ring`` the ranks of
+one ``sp`` group share a data shard (global batch / dp): the group's leader
+assembles it from its own store and pipeline, and every batch is broadcast
+to the others, which keep no pipeline of their own
+(``SequenceGroupPipeline``); each epoch records the ring's
+``dist_ring_ms`` and ``dist_ring_bytes`` per step.
+``HANDYRL_FAULT_WEDGE_PROCESS`` freezes the
 thread before its next one.  A sentinel rollback is agreed too: the
 coordinator's manifest verdict goes out through ``agree_rollback_epoch``
 and its params through ``broadcast_params``, so every rank installs the
@@ -68,7 +74,7 @@ import torch
 
 from ..parallel import TrainContext
 from ..parallel.distributed import (
-    CMD_DRAIN, CMD_END, CollectiveError, local_batch_size, process_index,
+    CMD_DRAIN, CMD_END, CollectiveError, local_batch_size, process_count, process_index,
 )
 from ..parallel.train_step import LOSS_KEYS, make_optimizer
 from ..utils import tree_map
@@ -96,6 +102,36 @@ SENTINEL_EVENT_KEYS = ("sentinel_skipped_steps", "sentinel_spike_steps", "sentin
 def host_copy(tree):
     """A copy of a (nested) state dict with every tensor detached on the CPU."""
     return tree_map(lambda x: x.detach().to("cpu", copy=True) if torch.is_tensor(x) else x, tree)
+
+
+class SequenceGroupPipeline:
+    """The batch plane of a sequence-parallel group: every batch of the
+    leader's pipeline (``inner``) is broadcast over the ``sp`` group, and a
+    member, which has no pipeline (``inner`` None), takes the leader's.
+    Every rank calls ``batch()`` at the same step of the cadence; a leader
+    that is stopping sends None, and its members stop with it."""
+
+    def __init__(self, inner, group):
+        self.inner, self.group = inner, group
+        self.mode = inner.mode if inner is not None else "sp-member"
+
+    def start(self) -> None:
+        if self.inner is not None:
+            self.inner.start()
+
+    def batch(self):
+        return self.group.broadcast_batch(self.inner.batch() if self.inner is not None else None)
+
+    def stop(self) -> None:
+        if self.inner is not None:
+            self.inner.stop()
+
+    def stats(self) -> Dict[str, Any]:
+        if self.inner is not None:
+            return self.inner.stats()
+        zero = {key: 0.0 for key in PIPE_STAT_KEYS + PIPE_EVENT_KEYS
+                + ("batches", "gets", "device_queue_depth_sum")}
+        return dict(zero, mode=self.mode)
 
 
 def make_pipeline(args: Dict[str, Any], store: EpisodeStore, ctx: TrainContext,
@@ -273,20 +309,29 @@ class Trainer:
     takes ``n`` single steps synchronously, from batches drawn on the
     calling thread."""
 
-    def __init__(self, args: Dict[str, Any], module, device=None):
+    def __init__(self, args: Dict[str, Any], module, device=None, mesh=None):
         self.args = args
-        self.ctx = TrainContext(module, args, device)
+        self.ctx = TrainContext(module, args, device, mesh)
         self.store = EpisodeStore(args["maximum_episodes"])
         self.stop_event = threading.Event()
         self.fused = max(1, int(args.get("fused_steps", 1)))
         # this process's share of the global batch: the pipelines assemble
         # it (a forked shm batcher reads it from its args, never from the
-        # process group), and the gradients are summed over the ranks
-        self.local_batch = local_batch_size(int(args["batch_size"]))
-        self.batcher = make_pipeline(dict(args, batch_size=self.local_batch), self.store,
-                                     self.ctx, self.stop_event)
+        # process group), and the gradients are summed over the ranks; the
+        # ranks of an sp group share one share, which its leader assembles
+        seq = self.ctx.seq_group
+        self.local_batch = local_batch_size(
+            int(args["batch_size"]), None if seq is None else process_count() // seq.size)
+        if seq is not None and not seq.is_leader:
+            self.batcher = SequenceGroupPipeline(None, seq)
+        else:
+            self.batcher = make_pipeline(dict(args, batch_size=self.local_batch), self.store,
+                                         self.ctx, self.stop_event)
+            if seq is not None:
+                self.batcher = SequenceGroupPipeline(self.batcher, seq)
         self._pipe_stats0: Dict[str, Any] = {}
         self._reduce_stats0 = {"calls": 0, "seconds": 0.0}
+        self._ring_stats0 = {"shifts": 0, "bytes": 0, "seconds": 0.0}
         # the run's first batch wait is the pipeline's warm-up, reported
         # apart from the steady-state input_wait_frac
         self._warmup_wait_pending = True
@@ -561,6 +606,14 @@ class Trainer:
                 self.stats.update(dist_allreduce_ms=round(seconds / calls * 1e3, 4),
                                   dist_allreduce_bytes=cur["bucket_bytes"],
                                   dist_allreduce_calls=calls)
+        seq = self.ctx.seq_group
+        if seq is not None and updates > 0:   # the ring's shifts, per step this epoch
+            cur, prev = seq.stats(), self._ring_stats0
+            self._ring_stats0 = cur
+            self.stats.update(
+                dist_ring_ms=round((cur["seconds"] - prev["seconds"]) / updates * 1e3, 4),
+                dist_ring_bytes=int((cur["bytes"] - prev["bytes"]) // updates),
+                dist_ring_shifts=int((cur["shifts"] - prev["shifts"]) // updates))
         # skipped steps added nothing to data_cnt, so they leave the divisor
         applied = updates - skipped
         if applied > 0:
@@ -739,7 +792,11 @@ class Trainer:
 
     def _warmed_up(self) -> bool:
         """``minimum_episodes`` in the store, or under device_replay (the
-        store bypassed) ingested into the rings."""
+        store bypassed) ingested into the rings.  A member of an sp group
+        has no store: its leader's warm-up holds the cadence back."""
+        seq = self.ctx.seq_group
+        if seq is not None and not seq.is_leader:
+            return True
         if self.device_replay is not None:
             return self.device_replay.counters["episodes"] >= self.args["minimum_episodes"]
         return len(self.store) >= self.args["minimum_episodes"]

@@ -24,7 +24,9 @@ same Chrome trace as the JAX package's::
   (an actor host of rank R ``trace.rank{1000+R}.jsonl``).  Their spans:
   ``cadence.agree_step``, ``cadence.agree_stop``, ``cadence.agree_rollback``
   (each the whole rendezvous: under skew, the wait for the slowest rank),
-  ``collective.all_reduce`` (the gradient bucket), ``dispatch.wait`` /
+  ``collective.all_reduce`` (the gradient bucket),
+  ``collective.ring_shift`` (one shift of the sequence ring, its bytes),
+  ``dispatch.wait`` /
   ``dispatch.run`` (parallel/mesh.py), ``health.heartbeat``, and the
   gateway's ``plane.param_publish``, ``plane.record_xfer`` and
   ``plane.param_fetch``.

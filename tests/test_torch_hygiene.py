@@ -58,7 +58,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "runtime/device_eval.py", "runtime/device_replay.py", "runtime/device_batch.py",
         "league/league.py", "league/learner.py", "envs/autovec.py",
         "utils/sanitizers.py", "parallel/mesh.py", "parallel/distributed.py",
-        "parallel/health.py", "runtime/plane.py", "runtime/actor_host.py"} <= checked
+        "parallel/health.py", "runtime/plane.py", "runtime/actor_host.py",
+        "ops/ring_attention.py", "ops/flash_attention.py", "parallel/train_step.py",
+        "models/transformer.py"} <= checked
     offenders = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN) for p in files}
     assert not {k: v for k, v in offenders.items() if v}
 

@@ -392,14 +392,25 @@ def test_distributed_keys_act_and_are_checked_as_in_jax(key, train_args, bad, ma
     assert all(tuple(key.split(".")) != p for p, _, _ in NOT_PORTED_KEYS)
 
 
-@pytest.mark.parametrize("mesh", [{"dp": 2, "mp": 2}, {"dp": -1, "sp": 4}])
-def test_mesh_axes_but_dp_are_refused_by_name(mesh):
-    """Tensor and sequence parallel axes need cards of their own: refused
-    naming the ROADMAP item; a size-1 axis beside dp passes."""
+@pytest.mark.parametrize("mesh,extra,match", [
+    ({"dp": 2, "mp": 2}, {}, "the axis 'mp' selects a plane that is not ported"),
+    ({"sp": 2, "mp": 2}, {"seq_attention": "ring", "forward_steps": 16},
+     "the axis 'mp' selects a plane that is not ported"),
+    ({"dp": -1, "sp": 4}, {}, "an 'sp' axis shards the window only under seq_attention: 'ring'"),
+])
+def test_mesh_axes_but_dp_are_refused_by_name(mesh, extra, match):
+    """Tensor parallel axes need cards of their own, and an ``sp`` axis
+    shards nothing without the ring (the JAX package replicates the step
+    across it): both refused naming the ROADMAP item.  A size-1 axis beside
+    dp passes, and so does ``sp`` under ``seq_attention: ring``."""
     env = {"env": "TicTacToe"}
-    with pytest.raises(ValueError, match="ROADMAP A8"):
-        normalize_args({"env_args": env, "train_args": {"mesh": mesh}})
+    with pytest.raises(ValueError, match="ROADMAP A8") as raised:
+        normalize_args({"env_args": env, "train_args": dict(extra, mesh=mesh)})
+    assert match in str(raised.value)
     assert normalize_args({"env_args": env, "train_args": {"mesh": {"dp": -1, "mp": 1}}})
+    ring = normalize_args({"env_args": env, "train_args": {
+        "mesh": {"dp": -1, "sp": 4}, "seq_attention": "ring", "forward_steps": 16}})
+    assert ring["train_args"]["mesh"] == {"dp": -1, "sp": 4}
 
 
 @pytest.mark.parametrize("train_args,match", [
