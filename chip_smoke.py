@@ -92,7 +92,7 @@ Phases, each of which fails the run when it fails:
    and noise, ties taken first by argmax/argmin and the rule-based twin on
    the card, every rollout tensor on the card; (c) HungryGeese through
    ``--train`` with ``device_rollout_games: 256`` and ``device_eval_games:
-   64`` against rulebase, 2 epochs (64 + 128 episodes): updates/s,
+   64`` against rulebase, 2 epochs (64 + 64 episodes): updates/s,
    the pipeline's stages, episodes/s from the device
    and from host workers, ``device_mean_episode_len``, the device-rulebase
    win rate, ``input_wait_frac``; every epoch on the fused plane with its
@@ -246,7 +246,7 @@ Phases, each of which fails the run when it fails:
    ``HANDYRL_FAULT_KILL_PROCESS_AT_EPOCH=1:1``: the coordinator
    drain-saves a verified checkpoint and exits 75 within heartbeat_timeout
    plus the drain deadline, a relaunch resumes that epoch on both ranks and
-   ends 0 (minimum and update episodes cut to 50 and 25); (c) a learner of
+   ends 0 (minimum and update episodes cut to 24 and 12); (c) a learner of
    12(c)'s transformer (``device_replay``, 32
    lanes, ``actor_hosts: 1``) fed by one ``distributed.role: actor``
    process at 32 lanes: records in its rings, the param versions the host
@@ -275,6 +275,24 @@ Phases, each of which fails the run when it fails:
    ring path; the NCCL leg needs a card per rank ("not run (1 card)").
    (c) runs beside (a) and (b).  Alone: ``python3 -c "import chip_smoke
    as cs; cs.phase_ring({})"``.
+19. the split device plane, each learner run as a user runs it
+   (``main(["--train"])`` in a process of its own): (a) 17(c)'s learner
+   (12(c)'s transformer from the rings, 32 lanes, 2 epochs) with ``plane:
+   split``, ``actor_chips: 1`` and ``param_refresh_updates: 2``, its actor
+   member sharing the card on a stream of its own: exit 0, every epoch
+   record says ``plane: "split"``, the actor member busy and bytes crossing
+   the planes in some epoch, more than one refresh, B1 n_layers times per
+   update, the rollout's launches all on the actor member's stream and B1's
+   (the train step's) all on the learner member's; updates/s while
+   training, the refresh's bytes and device ms, the records' bytes/s, the
+   lag, peak memory; (b) the same with ``plane: fused``, in turn, its
+   updates/s beside (a)'s; (c), beside (a)'s start,
+   tests/test_sentinel.py:525-560's ParallelTicTacToe learner (3 epochs)
+   under split with
+   ``HANDYRL_FAULT_WEDGE_ROLLOUT=2`` and ``plane_max_restarts: 0``: it
+   degrades to fused, ends 0, and its last record says ``plane: "fused"``
+   and ``plane_watchdog_degraded: 1``.  Alone: ``python3 -c "import
+   chip_smoke as cs; cs.phase_split_plane({})"``.
 
 Every learner phase (7a, 7b, 8a, 8b, 9a, 9b, 11c, 11d, 16(a)'s CLI, 16(c), 16(d); 12(e)'s shm
 runs) runs on the port's default
@@ -284,8 +302,8 @@ batcher died or fell back; it prints the pipeline's stage seconds and the
 put's ms per batch.  The script fails if a shared-memory segment or a
 process of the port outlives it.
 
-Phases 4, 5-6, 7b, 9b, 12(c), 15(b)(i), 16(d), 17(a), 17(c) and 18(b)'s
-flash reference are the paths through the port's kernels.  Every phase after 3 starts with every launch
+Phases 4, 5-6, 7b, 9b, 12(c), 15(b)(i), 16(d), 17(a), 17(c), 18(b)'s
+flash reference and 19(a)-(b) are the paths through the port's kernels.  Every phase after 3 starts with every launch
 count at 0, and the counts are read at its end (8b, 9a, 9c, 11c, 12(d)'s
 CLI, 13(b)'s server and 14's replicas, fleet and CLI learners run in
 processes of their own and launch neither kernel; 17's ranks and learner,
@@ -293,12 +311,13 @@ processes of their own too, write their counts to a file each, which the
 phase adds).
 
 Phases 1-3 run alone.  After them the phases run in three streams at once
-(``STREAMS``): 4, 5-6, 7b, 16, 14(d), 9(a)+(c), 17(a)-(b) (side by
-side) and 18 in this process; 7a, 8, 14(a)-(c), 15(c)-(d) and 10 in one child process of this
-script (``--stream b``); 11, 12, 13, 15(a)-(b), 17(c) and 9b in another
-(``--stream c``).  The kernels line's launches are 7b's, 16(d)'s,
-17(a)'s ranks' and 18(b)'s flash step's here plus those the streams report
-when they end (9b, 12(c), 15(b)(i), 17(c)'s learner).  A stream's output
+(``STREAMS``): 4, 5-6, 7b, 16, 9(a)+(c), 17(a)-(b) (side by side), 18
+and 19 in this process; 7a, 8, 14(a)-(c), 15(c)-(d), 10 and 14(d) in one
+child process of this script (``--stream b``); 11, 12, 13, 15(a)-(b),
+17(c) and 9b in another (``--stream c``).  The kernels line's launches are
+7b's, 16(d)'s, 17(a)'s ranks', 18(b)'s flash step's and 19's learners'
+here plus those the streams report when they end (9b, 12(c), 15(b)(i),
+17(c)'s learner).  A stream's output
 is printed whole once it has ended; a stream that fails fails the run,
 and a failure kills the streams still running.  Each phase's lap line
 gives its seconds and the CPU seconds its stream's processes spent on
@@ -367,8 +386,8 @@ RATES = {}               # updates/s while training, by phase (7b's, printed bes
 # and 9c plays 9a's checkpoint.  9, 14 and 15 are split into legs
 # (``PHASES``) so that the streams take about as long as each other.
 STREAMS = {
-    "main": ("4", "6", "7b", "16", "14d", "9ac", "17ab", "18"),
-    "b": ("7a", "8", "14abc", "15cd", "10"),
+    "main": ("4", "6", "7b", "16", "9ac", "17ab", "18", "19"),
+    "b": ("7a", "8", "14abc", "15cd", "10", "14d"),
     "c": ("11", "12", "13", "15ab", "17c", "9b"),
 }
 STREAM_ENV = "CHIP_SMOKE_STREAM"   # the stream a process (and all it starts) belongs to
@@ -1639,6 +1658,8 @@ PUT_REPEATS = 20         # copies of one slot timed in 10(b), the median kept
 KILL_EPISODES = 50       # minimum_episodes and update_episodes of 10(d)
 # minimum_episodes and update_episodes of 10(c)'s 8a and 7a runs
 TURN_EPISODES = {"8a": (4, 4), "7a": (16, 16)}
+# 10(c)'s runs in order: one of each pipeline (depth cut to fit the time limit)
+ASSEMBLY_TURNS = ("thread", "shm")
 
 
 def random_episodes(env_args, gen_args, n, seed):
@@ -1890,11 +1911,11 @@ def turn_run(config, pipeline, tmp, epochs=2, episodes=TURN_EPISODES):
 
 def assembly_turns():
     """10(c): 8a's and 7a's learners under the threaded and the shm pipeline,
-    in turns (thread, shm, shm, thread); the second epoch of each run."""
+    in turns (thread, shm); the second epoch of each run."""
     with tempfile.TemporaryDirectory() as tmp:
         for config in ("8a", "7a"):
             runs = []
-            for pipeline in ("thread", "shm", "shm", "thread"):
+            for pipeline in ASSEMBLY_TURNS:
                 r, _, run_s = turn_run(config, pipeline, tmp)
                 if pipeline == "shm":
                     check_shm(f"turns {config}", [r])
@@ -2030,7 +2051,7 @@ REPLAY_EPISODES = 32     # episodes per env replayed through the host env in 11(
 # 11(c): 8b's HungryGeese configuration with device self-play and evaluation
 DEVICE_GEESE = {
     "turn_based_training": False, "observation": False, "epochs": 2,
-    "minimum_episodes": 64, "update_episodes": 128,
+    "minimum_episodes": 64, "update_episodes": 64,
     "device_rollout_games": 256, "device_eval_games": 64,
     "eval": {"opponent": ["rulebase"]}, "seed": SEED,
 }
@@ -2521,8 +2542,9 @@ DATA_LR = 1e-5           # bench.py's lr for these loops
 DATA_TRANSFORMER = (32, 1024, 16)
 # (d): 11(c)'s and 11(d)'s learners with device_replay: true
 DATA_GEESE_CLI = dict(DEVICE_GEESE, device_replay=True, device_rollout_games=128)
-# (e): 8b's and 8a's learners, one epoch each, device and shm in turns
-DATA_TURNS = ("device", "shm", "shm", "device")
+# (e): 8b's and 8a's learners, one epoch each, device and shm in turns, one
+# run of each (depth cut to fit the time limit)
+DATA_TURNS = ("device", "shm")
 # (e)'s minimum_episodes and update_episodes: a one-epoch run trains on them
 DATA_TURN_EPISODES = {"8b": (64, 64), "8a": (8, 16)}
 
@@ -5607,7 +5629,7 @@ DIST_HEARTBEAT = 1.0      # 17: the health plane's heartbeat interval, seconds
 DIST_HEARTBEAT_TIMEOUT = 30.0
 DIST_DRAIN_S = 60.0       # 17(b): the learners' drain_deadline_seconds (the default)
 DIST_ACTOR_EPOCHS = 3     # 17(c): the gateway-fed learner's epochs
-DIST_LOST_EPISODES = (50, 25)  # 17(b): minimum_episodes and update_episodes (config.yaml: 400, 200)
+DIST_LOST_EPISODES = (24, 12)  # 17(b): minimum_episodes and update_episodes (config.yaml: 400, 200)
 # intra-op threads of each rank and actor host, as torchrun sets them for
 # several processes on one host (8 cores shared with the other streams)
 DIST_THREADS = "2"
@@ -5627,6 +5649,8 @@ sys.exit(code)
 """
 RANK_LINE = re.compile(r"distributed learner: process (\d+)/(\d+) \((\w+)\) on (\S+), backend (\w+)")
 CRC_LINE = re.compile(r"distributed learner: process (\d+) params crc32 ([0-9a-f]{8}) at step (\d+)")
+MODULE_LINE = re.compile(r"distributed learner: process (\d+) module hashes to ([0-9a-f]{8}) at step "
+                         r"(\d+)")
 POLL_LINE = re.compile(r"actor host \d+: params -> version (\d+) \((\d+) bytes in ([\d.]+) s, "
                        r"lag (\d+) updates\)")
 
@@ -5649,12 +5673,12 @@ def free_ports():
     check(False, "no three free ports in a row")
 
 
-def start_rank(cwd, tag, rank=0, env=None):
-    """``RANK_CHILD`` in ``cwd`` with ``PROCESS_ID=rank``, its output and its
-    launch counts in files beside ``cwd``."""
+def start_rank(cwd, tag, rank=0, env=None, script=RANK_CHILD):
+    """``script`` (``RANK_CHILD``) in ``cwd`` with ``PROCESS_ID=rank``, its
+    output and its launch counts in files beside ``cwd``."""
     base = Path(str(cwd) + f".{tag}{rank}")
     out, err = open(f"{base}.out", "w"), open(f"{base}.err", "w")
-    proc = subprocess.Popen([sys.executable, "-c", RANK_CHILD], cwd=cwd, stdout=out, stderr=err,
+    proc = subprocess.Popen([sys.executable, "-c", script], cwd=cwd, stdout=out, stderr=err,
                             env=dict(cli_env(), PROCESS_ID=str(rank), PYTHONUNBUFFERED="1",
                                      OMP_NUM_THREADS=DIST_THREADS,
                                      CHIP_SMOKE_LAUNCHES=f"{base}.json", **(env or {})))
@@ -5726,9 +5750,13 @@ def dist_ranks(results, tmp, leg):
     check(all(len(c) == 1 for c in crcs), f"17(a) {leg}: crc lines {crcs}")
     (_, crc0, steps0), (_, crc1, steps1) = crcs[0][0], crcs[1][0]
     saved = ckpt.load_params(str(cwd / "models" / "2.ckpt"))
-    check(crc0 == crc1 == f"{params_crc32(saved):08x}" and steps0 == steps1,
+    # each rank's module on the card against its host snapshot: tells a
+    # divergence of the trained params from a host copy that changed later
+    modules = [MODULE_LINE.findall(out) for _, out, _, _ in done]
+    check(crc0 == crc1 == f"{params_crc32(saved):08x}" and steps0 == steps1
+          and [m[0][1:] for m in modules if m] == [(crc0, steps0), (crc1, steps1)],
           f"17(a) {leg}: params crc32 {crc0} at step {steps0} / {crc1} at step {steps1}, the "
-          f"saved epoch 2 {params_crc32(saved):08x}")
+          f"saved epoch 2 {params_crc32(saved):08x}; the modules' {modules}\n" + tail(done))
     check(sorted(os.listdir(cwd)) == ["config.yaml", "metrics.jsonl", "models"],
           f"17(a) {leg}: the run's directory holds {sorted(os.listdir(cwd))}: only rank 0 writes")
     check_snapshots(str(cwd / "models"), [1, 2])
@@ -5819,11 +5847,13 @@ def dist_actor_host(results, tmp):
     learner = start_rank(learner_dir, "learner")
     actor = start_rank(actor_dir, "actor")
     metrics = learner_dir / "metrics.jsonl"
-    # the host is killed once it has polled a param version (the learner's
-    # first boundary published, records already in the rings)
+    # the host is killed once it has polled a param version (the trainer
+    # publishes every param_refresh_updates updates) and the learner has
+    # written its first epoch's record (records already in the rings)
     deadline = time.perf_counter() + 600
     while time.perf_counter() < deadline and learner["proc"].poll() is None:
-        if POLL_LINE.search(Path(f"{actor['base']}.out").read_text(errors="replace")):
+        if (POLL_LINE.search(Path(f"{actor['base']}.out").read_text(errors="replace"))
+                and metrics.exists() and metrics.read_text().count("\n") >= 1):
             break
         time.sleep(0.5)
     check(actor["proc"].poll() is None, "17(c): the actor host ended before its SIGKILL\n"
@@ -6369,6 +6399,182 @@ def _phase_8(results):
     phase_geese_cli(results)   # in processes of its own
 
 
+# 19: the split device plane (plane: split)
+SPLIT_REFRESH = 2         # 19(a)'s param_refresh_updates
+SPLIT_EPOCHS = 2          # 19(a)/(b)'s epochs (17(c)'s 3, cut to fit the time limit)
+# 19's learners as a user runs them (main(["--train"]) in a directory holding
+# config.yaml), their kernels' launches (by stream too), their trainer's
+# updates, their wall seconds and their peak memory written to
+# CHIP_SMOKE_LAUNCHES when main() returns
+SPLIT_CHILD = r"""
+import json, os, sys, time
+import torch
+from handyrl_tpu_torch.main import main
+from handyrl_tpu_torch.ops.flash_attention import FLASH, MASKED_FLASH
+from handyrl_tpu_torch.runtime import learner
+steps = []
+run = learner.Learner.run
+def counted(self):
+    try:
+        return run(self)
+    finally:
+        steps.append(self.trainer.steps)
+learner.Learner.run = counted
+t0 = time.perf_counter()
+code = main(["--train"])
+with open(os.environ["CHIP_SMOKE_LAUNCHES"], "w") as f:
+    json.dump({"masked_flash_attention": MASKED_FLASH.launches,
+               "flash_attention": FLASH.launches,
+               "stream_launches": {str(k): v for k, v in MASKED_FLASH.stream_launches.items()},
+               "steps": steps[-1] if steps else None, "wall_s": time.perf_counter() - t0,
+               "peak_bytes": torch.cuda.max_memory_allocated()}, f)
+sys.exit(code)
+"""
+SPLIT_START = re.compile(r"device planes: split — learner \{.*?\} on (\S+) \(stream (0x[0-9a-f]+)"
+                         r".*?actor \{'dp': (\d+)\} on \['(\S+) \(stream (0x[0-9a-f]+)")
+SPLIT_END = re.compile(r"device planes: rollout launches by stream (\{.*?\}); param refreshes "
+                       r"(\d+) of (\d+) bytes, ([\d.]+|n/a) ms per copy; records (\d+) bytes in "
+                       r"(\d+) transfers")
+# 19(c): tests/test_sentinel.py:525-560's learner (ParallelTicTacToe, its
+# streaming twin, device replay) on one process, its rollout wedged; 3
+# epochs (110 episodes) need more than the 2 blocks played before the wedge
+# (8 lanes x 16 steps make at most ~43 games a block); a 10 s stall bound,
+# as the other streams load the host (a 1 s bound tripped on the healthy
+# fused plane after the degrade)
+SPLIT_WEDGE = {
+    "turn_based_training": False, "observation": False, "batch_size": 8, "forward_steps": 4,
+    "burn_in_steps": 0, "device_rollout_games": 8, "device_replay": True,
+    "device_replay_slots": 64, "device_replay_k_steps": 16, "minimum_episodes": 20,
+    "update_episodes": 30, "maximum_episodes": 400, "epochs": 3, "eval_rate": 0.0,
+    "worker": {"num_parallel": 1}, "plane": "split", "actor_chips": 1,
+    "param_refresh_updates": 2, "plane_stall_timeout": 10.0, "plane_max_restarts": 0,
+}
+
+
+def split_config(plane):
+    """17(c)'s learner (12(c)'s transformer from the rings, 2 epochs) under
+    ``plane``, one actor member sharing the card on its own stream."""
+    lanes, slots, finished = DATA_TRANSFORMER
+    return {"env_args": {"env": "Geister", "net": "transformer", "net_args": NET_ARGS},
+            "train_args": dict(TRAIN_ARGS, seq_attention="flash", minimum_episodes=finished,
+                               update_episodes=finished, epochs=SPLIT_EPOCHS, seed=SEED,
+                               device_rollout_games=lanes, device_replay=True,
+                               device_replay_slots=slots, device_replay_k_steps=32,
+                               worker={"num_parallel": 1}, plane=plane, actor_chips=1,
+                               param_refresh_updates=SPLIT_REFRESH)}
+
+
+def split_learner(results, tmp, plane):
+    """One of 19(a)/(b): the learner's exit 0, one record per epoch, B1
+    n_layers times per update; returns its records, output and counts."""
+    cwd = Path(tmp, plane)
+    write_config(cwd, split_config(plane))
+    ((rc, out, err, counts),) = wait_ranks([start_rank(cwd, plane, script=SPLIT_CHILD)], 900)
+    tag = "19(a)" if plane == "split" else "19(b)"
+    check(rc == 0 and counts is not None and counts["steps"],
+          f"{tag}: the learner exited {rc}\n" + tail([(rc, out, err, counts)]))
+    records = read_records(cwd / "metrics.jsonl")
+    check(len(records) == SPLIT_EPOCHS and all("loss" in r for r in records[1:]),
+          f"{tag}: {len(records)} records")
+    check(all(r["plane"] == plane for r in records),
+          f"{tag}: the records' planes {[r['plane'] for r in records]}, expected {plane!r}")
+    per_step = launches_per_step(TRAIN_ARGS)
+    check(counts["masked_flash_attention"] == per_step * counts["steps"],
+          f"{tag}: B1 launched {counts['masked_flash_attention']} times in {counts['steps']} "
+          f"updates, expected {per_step} per update")
+    results["masked_flash_attention"]["launches"] += counts["masked_flash_attention"]
+    print_epochs(f"split {tag}", records)
+    return records, out, counts
+
+
+def split_streams(out, counts):
+    """19(a): the rollout's launches all on the actor member's stream, B1's
+    (the train step's) all on the learner member's, and the two apart;
+    returns the end line's fields."""
+    start, end = SPLIT_START.search(out), SPLIT_END.search(out)
+    check(start and end, "19(a): the learner printed no device planes lines")
+    learner_dev, learner_s, actors, actor_dev, actor_s = start.groups()
+    learner_s, actor_s = int(learner_s, 16), int(actor_s, 16)
+    rollout = {int(k, 16): n for k, n in json.loads(end.group(1).replace("'", '"')).items()}
+    b1 = {int(k): n for k, n in counts["stream_launches"].items()}
+    check(actors == "1" and learner_dev == actor_dev == "cuda:0" and learner_s != actor_s,
+          f"19(a): members {start.groups()}: one actor member on the learner's card, on a "
+          "stream of its own")
+    check(set(rollout) == {actor_s} and sum(rollout.values()) > 0,
+          f"19(a): rollout launches by stream {rollout}, expected all on {actor_s:#x}")
+    check(set(b1) == {learner_s}, f"19(a): B1 launches by stream {b1}, expected all on the "
+          f"learner's {learner_s:#x}")
+    print(f"[split] 19(a) members on {learner_dev}: learner stream {learner_s:#x}, actor stream "
+          f"{actor_s:#x}; rollout launches by stream {{{actor_s:#x}: {rollout[actor_s]}}}, B1 "
+          f"(the train step) by stream {{{learner_s:#x}: {b1[learner_s]}}}")
+    return end.groups()
+
+
+def start_wedge(tmp):
+    """19(c): a split run whose rollout wedges after two blocks, with no
+    restart budget, started beside (a)."""
+    cwd = Path(tmp, "wedge")
+    write_config(cwd, {"env_args": {"env": "ParallelTicTacToe"}, "train_args": SPLIT_WEDGE})
+    return cwd, start_rank(cwd, "wedge", script=SPLIT_CHILD,
+                           env={"HANDYRL_FAULT_WEDGE_ROLLOUT": "2"})
+
+
+def finish_wedge(cwd, job):
+    """19(c): the run degraded to fused and ended 0."""
+    ((rc, out, err, counts),) = wait_ranks([job], 600)
+    check(rc == 0, f"19(c): the learner exited {rc}\n" + tail([(rc, out, err, counts)]))
+    records = read_records(cwd / "metrics.jsonl")
+    last = records[-1]
+    keys = ("epoch", "steps", "episodes", "plane", "plane_watchdog_stalls",
+            "plane_watchdog_restarts", "plane_watchdog_degraded")
+    check(last["plane"] == "fused" and last["plane_watchdog_degraded"] == 1
+          and last["plane_watchdog_stalls"] >= 1 and last["steps"] > 0,
+          f"19(c): the records {[{k: r.get(k) for k in keys} for r in records]}\n{err[-3000:]}")
+    check("degrading split -> fused" in err, "19(c): the watchdog never said it degraded")
+    print(f"[split] 19(c) ParallelTicTacToe wedged after 2 blocks, plane_max_restarts 0: "
+          f"degraded split -> fused (stalls {last['plane_watchdog_stalls']}), ended 0 after "
+          f"{counts['wall_s']:.1f} s of main() at step {last['steps']}; the last record's plane "
+          f"{last['plane']!r}, plane_watchdog_degraded {last['plane_watchdog_degraded']}")
+
+
+def phase_split_plane(results):
+    """19: the split device plane (see the docstring's phase 19): (a) split
+    and (b) fused in turns, (c) beside (a)'s start."""
+    results.setdefault("masked_flash_attention", {"launches": 0})
+    with tempfile.TemporaryDirectory() as tmp:
+        wedge = start_wedge(tmp)
+        try:
+            split, out, counts = split_learner(results, tmp, "split")
+        except BaseException:
+            wait_ranks([wedge[1]], 60)
+            raise
+        rollout, refreshes, nbytes, copy_ms, rec_bytes, transfers = split_streams(out, counts)
+        check(any(r.get("plane_actor_busy_frac", 0) > 0 for r in split)
+              and any(r.get("plane_xfer_bytes_per_sec", 0) > 0 for r in split),
+              "19(a): no epoch with the actor member busy and bytes crossing the planes")
+        check(split[-1].get("plane_param_refreshes", 0) > 1 and int(refreshes) > 1,
+              f"19(a): {split[-1].get('plane_param_refreshes')} refreshes in the last record")
+        fused, _, fcounts = split_learner(results, tmp, "fused")
+        rates = {name: [r["train_steps_per_sec"] for r in rs if "loss" in r]
+                 for name, rs in (("split", split), ("fused", fused))}
+        lags = [r["plane_param_lag_mean"] for r in split if "plane_param_lag_mean" in r]
+        print(f"[split] updates/s while training by epoch: 19(a) split "
+              f"{', '.join(f'{x:.3f}' for x in rates['split'])}, 19(b) fused in turn "
+              f"{', '.join(f'{x:.3f}' for x in rates['fused'])}; {counts['steps']} and "
+              f"{fcounts['steps']} updates")
+        print(f"[split] 19(a) {refreshes} param refreshes every {SPLIT_REFRESH} updates, "
+              f"{int(nbytes) / 1e6:.1f} MB each, {copy_ms} ms per copy on the learner's stream; "
+              f"records {int(rec_bytes) / 1e6:.1f} MB in {transfers} transfers "
+              f"({int(rec_bytes) / max(int(transfers), 1) / 1e6:.3f} MB a block), "
+              f"{int(rec_bytes) / counts['wall_s'] / 1e6:.3f} MB/s over the learner's "
+              f"{counts['wall_s']:.1f} s; plane_xfer_bytes_per_sec by epoch "
+              f"{[r.get('plane_xfer_bytes_per_sec') for r in split]}; plane_actor_busy_frac "
+              f"{[r.get('plane_actor_busy_frac') for r in split]}; param lag mean {lags} "
+              f"updates; peak memory {counts['peak_bytes'] / 2**30:.2f} GB split, "
+              f"{fcounts['peak_bytes'] / 2**30:.2f} GB fused")
+        finish_wedge(*wedge)
+
+
 PHASES = {
     "4": phase_flash_op, "6": _phase_6, "7a": phase_learner_cli, "7b": phase_learner,
     "8": _phase_8, "9ac": lambda results: phase_remote(results, "ac"),
@@ -6382,6 +6588,7 @@ PHASES = {
     "17ab": lambda results: phase_distributed(results, "ab"),
     "17c": lambda results: phase_distributed(results, "c"),
     "18": phase_ring,
+    "19": phase_split_plane,
 }
 
 

@@ -3,19 +3,22 @@
 The subset of ``handyrl_tpu/config.py`` that the ported modules use, with
 the same names, defaults and checks, so one config.yaml (``env_args``,
 ``train_args``, ``worker_args``) configures both packages.  Every other key
-of the JAX package's defaults is listed in ``NOT_PORTED_KEYS`` with its JAX
-default and the ROADMAP item that ports it: the default passes, any other
-value is refused by name rather than quietly run on the plain loop.  Keys
-that neither package knows pass through untouched.  Every default is the
+of the JAX package's defaults is ported; a key that is not would be listed
+in ``NOT_PORTED_KEYS`` with its JAX default and the ROADMAP item that ports
+it (the default passes, any other value is refused by name rather than
+quietly run on the plain loop).  Keys that neither package knows pass
+through untouched.  Every default is the
 JAX package's, ``batch_pipeline: shm`` included.  Ported and acted on:
 on-device self-play and evaluation, the device data plane, the
 ``serving`` block of ``--serve`` (int8 weights included), ``obs_int8``,
 the ``fleet`` block of ``--fleet`` and ``--edge``, the ``flywheel`` block,
 the divergence sentinel with its rollback, the preemption drain,
 ``trace`` and ``profile_dir``, the ``league`` block of ``--league``,
-``autovec_verify_games``, and a learner of several processes: ``mesh``
+``autovec_verify_games``, a learner of several processes: ``mesh``
 (``dp``, and ``sp`` under ``seq_attention: ring``), ``distributed.*``
-(actor hosts included) and ``observability.rank_metrics``.
+(actor hosts included) and ``observability.rank_metrics``, and the split
+device plane: ``plane``, ``actor_chips``, ``param_refresh_updates`` and
+``plane_param_lag_bound``.
 """
 
 from __future__ import annotations
@@ -163,6 +166,22 @@ DEFAULT_TRAIN_ARGS: Dict[str, Any] = {
     # restarted up to plane_max_restarts times
     "plane_stall_timeout": 120.0,
     "plane_max_restarts": 2,
+    # > 0: the watchdog also treats actor params more than this many
+    # updates behind the learner as unhealthy (plane: split)
+    "plane_param_lag_bound": 0,
+    # the device planes: 'fused' self-plays and trains on the rank's device
+    # and stream; 'split' runs self-play on actor members of its own
+    # (parallel/mesh.py split_mesh: the trailing distributed.local_device_ids
+    # of a rank that names more cards than one, else streams of their own
+    # on the rank's card) while the learner trains, params going out every
+    # param_refresh_updates updates and records coming in (runtime/plane.py);
+    # needs device_rollout_games > 0 and a streaming twin
+    "plane": "fused",
+    # actor members per rank under plane: split
+    "actor_chips": 1,
+    # learner updates between publishes of the params to the actor members
+    # (plane: split) and to the plane gateway's actor hosts
+    "param_refresh_updates": 8,
     # the SIGTERM drain: a learner stops, writes a verified checkpoint within
     # this many seconds and exits 75 (resume with restart_epoch: -1); --serve
     # pushes a draining notice to every peer, waits this long for its
@@ -398,18 +417,11 @@ DEFAULT_WORKER_ARGS: Dict[str, Any] = {
 
 # keys of the JAX package's defaults that the port does not act on: the
 # key's path in train_args, its JAX default, and the ROADMAP item that ports
-# it.  The default passes; any other value is refused naming the item.  What
-# is left needs cards of their own: a learner device beside actor devices
-# (the split plane), NCCL across cards, tensor parallel axes
-_OWN_CARDS = "A8 (cards of their own: plane: split, NCCL across cards, mp)"
-NOT_PORTED_KEYS = (
-    # the split plane spreads actors and learner over chips of their own
-    (("plane",), "fused", _OWN_CARDS),
-    # acts only under plane: split
-    (("plane_param_lag_bound",), 0, _OWN_CARDS),
-    (("actor_chips",), 1, _OWN_CARDS),
-    (("param_refresh_updates",), 8, _OWN_CARDS),
-)
+# it.  The default passes; any other value is refused naming the item.
+# Every key is acted on now; what is left of A8 are mesh axes (tensor
+# parallel) and NCCL across cards
+_OWN_CARDS = "A8 (cards of their own: NCCL across cards, mp)"
+NOT_PORTED_KEYS: tuple = ()
 
 
 def effective_shm_slots(train: Dict[str, Any]) -> int:
@@ -565,7 +577,7 @@ def validate_args(args: Dict[str, Any]) -> Dict[str, Any]:
     _validate_flywheel(train["flywheel"])
     _validate_fleet(train["fleet"])
     _validate_trace(train["trace"])
-    _validate_not_ported_values(train)
+    _validate_plane(train)
     _validate_distributed(train)
     _validate_ring(train)
     for axis, size in train["mesh"].items():
@@ -810,21 +822,26 @@ def _validate_league(league: Dict[str, Any]) -> None:
         )
 
 
-def _validate_not_ported_values(train: Dict[str, Any]) -> None:
-    """The JAX package's checks of keys the port refuses anyway: a value
-    both would refuse gets the JAX package's words."""
-    defaults = {path: default for path, default, _ in NOT_PORTED_KEYS}
-
-    def get(*path):
-        value = train
-        for key in path:
-            value = value.get(key, defaults[path]) if isinstance(value, dict) else defaults[path]
-        return value
-
-    if int(get("actor_chips")) < 1:
+def _validate_plane(train: Dict[str, Any]) -> None:
+    """The device planes' keys, with the JAX package's checks and words; the
+    learner checks the twin (streaming, ``observe_mask``) and the lanes
+    against ``actor_chips`` at startup, as the JAX learner does."""
+    if train["plane_param_lag_bound"] < 0:
+        raise ValueError("train_args.plane_param_lag_bound must be >= 0 (0 = off)")
+    if train["plane"] not in ("fused", "split"):
+        raise ValueError(
+            f"train_args.plane={train['plane']!r} not one of ('fused', 'split')"
+        )
+    if int(train["actor_chips"]) < 1:
         raise ValueError("train_args.actor_chips must be >= 1")
-    if int(get("param_refresh_updates")) < 1:
+    if int(train["param_refresh_updates"]) < 1:
         raise ValueError("train_args.param_refresh_updates must be >= 1")
+    if train["plane"] == "split" and train["device_rollout_games"] <= 0:
+        raise ValueError(
+            "train_args.plane: split needs device_rollout_games > 0 (the "
+            "actor plane generates with the on-device streaming rollout; "
+            "host actors don't occupy a device plane)"
+        )
 
 
 def _validate_ring(train: Dict[str, Any]) -> None:

@@ -21,8 +21,10 @@ subclasses the Learner and changes three seams:
   against GC.  ``league_*`` keys land in metrics.jsonl.
 
 Run it with ``python -m handyrl_tpu_torch.main --league``.  The router's
-engines live on the learner's device: on one card there is no actor mesh
-to place them on.
+engines live on the learner's device, or under ``plane: split`` on the
+actor members (their streams and locks), beside the self-play and never
+contending with the learner member, as the JAX league places them on the
+actor mesh.
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ class LeagueModelServer(LocalModelServer):
     snapshot is served by the latest engine, counted: the router's
     substitutions fold into ``substituted_snapshots``."""
 
-    def __init__(self, module, env, args: Dict[str, Any], device=None):
+    def __init__(self, module, env, args: Dict[str, Any], device=None, opponent_devices=None):
         super().__init__(module, env, args, device)
         serving_cfg = dict(args.get("serving", {}) or {})
         # rollout jobs are throughput work: never shed, no SLO; a match
@@ -89,8 +91,11 @@ class LeagueModelServer(LocalModelServer):
         )
         env.reset()
         template_obs = env.observation(env.players()[0])
+        # the frozen opponents' engines: on the learner's device, or on the
+        # split plane's actor members
         self._router = ModelRouter(module, template_obs, serving_cfg,
-                                   model_dir=self.model_dir, devices=[self.device])
+                                   model_dir=self.model_dir,
+                                   devices=list(opponent_devices or [self.device]))
 
     @property
     def module(self):
@@ -178,7 +183,10 @@ class LeagueLearner(Learner):
     # -- the seams into the learner ----------------------------------------------
 
     def _make_model_server(self, args: Dict[str, Any]):
-        return LeagueModelServer(self.module, make_env(args["env_args"]), self.args, self.device)
+        # plane: split: the opponents' engines go on the actor members,
+        # beside the self-play and off the learner member
+        return LeagueModelServer(self.module, make_env(args["env_args"]), self.args, self.device,
+                                 opponent_devices=self._actor_members)
 
     def _gc_pinned(self):
         return self.league.frozen_epochs()

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -40,7 +40,9 @@ class CudaKernel:
     Several entry points of one source share its library.
 
     ``launches`` counts calls of the C entry point that reached the card;
-    the wrapper that launches the kernel adds to it, and nothing else does.
+    the wrapper that launches the kernel adds to it (``count``), and
+    nothing else does.  ``stream_launches`` splits the count by the CUDA
+    stream (its ``cudaStream_t`` as an int) each launch was enqueued on.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
@@ -48,10 +50,17 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.stream_launches: Dict[int, int] = {}
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
         self._fn: Optional[ctypes._CFuncPtr] = None
         self._lock = threading.Lock()
+
+    def count(self, stream: int) -> None:
+        """One launch that reached the card, on ``stream``."""
+        with self._lock:
+            self.launches += 1
+            self.stream_launches[stream] = self.stream_launches.get(stream, 0) + 1
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]

@@ -172,15 +172,15 @@ def masked_flash_kernel(q, k, v, key_mask, slopes, window: int = 1 << 30):
     counts = torch.cumsum(key_mask, dim=1)
     out = torch.empty_like(q)
     s_row, s_t, s_h, _ = q.stride()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), counts.data_ptr(),
         slopes.data_ptr(), out.data_ptr(), rows, T, H, Dp, s_row, s_t, s_h,
-        float(window), 1.0 / D ** 0.5, _KERNEL_DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        float(window), 1.0 / D ** 0.5, _KERNEL_DTYPES[q.dtype], stream,
     )
     if rc != 0:
         raise RuntimeError(f"masked_flash_forward launch failed with CUDA error {rc}")
-    MASKED_FLASH.launches += 1
+    MASKED_FLASH.count(stream)
     return _unpad(out, D)
 
 
@@ -195,14 +195,14 @@ def flash_kernel(q, k, v, causal: bool = True):
     fn = FLASH.fn()
     out = torch.empty_like(q)
     s_b, s_t, s_h, _ = q.stride()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H, Dp, s_b, s_t, s_h,
-        1.0 / D ** 0.5, int(bool(causal)), _KERNEL_DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        1.0 / D ** 0.5, int(bool(causal)), _KERNEL_DTYPES[q.dtype], stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_forward launch failed with CUDA error {rc}")
-    FLASH.launches += 1
+    FLASH.count(stream)
     return _unpad(out, D)
 
 

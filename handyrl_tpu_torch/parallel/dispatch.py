@@ -1,11 +1,14 @@
-"""Per-device dispatch locks for the serving plane.
+"""Per-member dispatch locks: the serving plane's and the device planes'.
 
 Counterpart of ``dispatch_serialized`` in ``handyrl_tpu/parallel/mesh.py``,
-for one process and its devices only (the mesh itself is ROADMAP A8).  One
-lock per ``torch.device``: engines on different devices enqueue at the same
-time, engines sharing a device take turns.  The lock covers the enqueue of
-a batch, which returns as soon as the work is queued on the device; the
-copy of the outputs to the host happens after it is released.
+for one process and its devices.  One lock per plane member: a
+``torch.device`` is its own member, and a ``PlaneMember``
+(parallel/mesh.py) names its own key, so two members sharing one card (the
+learner on the rank's stream, an actor on a stream of its own) enqueue at
+the same time, as disjoint JAX meshes do, while engines sharing a member
+take turns.  The lock covers the enqueue of a batch, which returns as soon
+as the work is queued on the device; the copy of the outputs to the host
+happens after it is released.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ _REGISTRY_LOCK = threading.Lock()
 
 
 def _key(device) -> str:
+    key = getattr(device, "lock_key", None)
+    if key is not None:
+        return key
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -29,8 +35,9 @@ def _key(device) -> str:
 
 
 def locks_for(devices: Iterable) -> List[threading.Lock]:
-    """The locks of ``devices``, in one order for every caller (sorted by
-    name), so a call that takes several never deadlocks with another."""
+    """The locks of ``devices`` (devices or plane members), in one order
+    for every caller (sorted by key), so a call that takes several never
+    deadlocks with another."""
     keys = sorted({_key(d) for d in devices})
     with _REGISTRY_LOCK:
         return [_DEVICE_LOCKS.setdefault(k, threading.Lock()) for k in keys]
@@ -38,7 +45,8 @@ def locks_for(devices: Iterable) -> List[threading.Lock]:
 
 def dispatch_serialized(call: Callable[[], T], devices: Iterable) -> T:
     """Run ``call`` (which enqueues work on ``devices`` and returns without
-    waiting for it) holding the dispatch lock of each of those devices."""
+    waiting for it) holding the dispatch lock of each of those devices or
+    plane members."""
     locks = locks_for(devices)
     held = []
     try:

@@ -10,15 +10,29 @@ ranks, the params are replicated) and ``sp`` (sequence parallel: each rank
 of an ``sp`` group holds one T/sp shard of every window, ops/ring_attention.py).
 ``Mesh.group(axis)`` gives this rank's ``AxisGroup`` along an axis, once
 ``build_groups`` has made one ``torch.distributed`` group per group of
-ranks of every axis.  ``split_mesh``'s partition is here with the JAX
-package's checks and words, and nothing wires it yet (ROADMAP A8).
+ranks of every axis.
+
+``split_mesh`` carves the planes of ``plane: split``.  Over a device list
+it is the JAX package's carve (the learner keeps the prefix, the actors
+take the trailing ``actor_chips``).  A learner (``plane_members``) carves
+per rank, as the JAX package carves per host: the rank keeps its own
+device as its learner member and adds ``actor_chips`` actor members local
+to its process, on the trailing cards of ``distributed.local_device_ids``
+when that names more cards than the learner's one, else on the rank's own
+card.  Each actor member on a card makes a CUDA stream of its own (the
+learner member keeps the card's default stream), and each member has a
+dispatch lock of its own, so members sharing a card run concurrently.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, TypeVar
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, TypeVar
 
+import torch
+
+from ..utils import resolve_device
 from ..utils.trace import trace_span
 from . import dispatch
 
@@ -29,6 +43,51 @@ class RankDevice(NamedTuple):
     """One member of the mesh: a rank and the device it placed itself on."""
     rank: int
     device: str
+
+
+class PlaneMember:
+    """One member of a device plane of this process: a device, its role
+    (``learner`` or ``actor``) and index, and the CUDA stream its work is
+    enqueued on.  The learner member's stream is its card's default stream
+    (the trainer, the rings and the boundary run there); an actor member
+    makes a stream of its own on its card, and raises when it cannot.  On
+    the CPU a member has no stream.  ``lock_key`` names its dispatch lock:
+    the learner member's is its device's, an actor member's its own."""
+
+    def __init__(self, device, role: str = "learner", index: int = 0, rank: int = 0):
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.role = role
+        self.index = int(index)
+        self.rank = int(rank)
+        self.stream = None
+        if device.type == "cuda":
+            self.stream = (torch.cuda.default_stream(device) if role == "learner"
+                           else torch.cuda.Stream(device))
+
+    @property
+    def lock_key(self) -> str:
+        return str(self.device) if self.role == "learner" else f"{self.device}/{self.role}{self.index}"
+
+    @property
+    def stream_handle(self) -> Optional[int]:
+        """The stream's ``cudaStream_t`` as an int (0: the default stream)."""
+        return None if self.stream is None else int(self.stream.cuda_stream)
+
+    def stream_context(self):
+        """Make this member's stream the calling thread's current one."""
+        return contextlib.nullcontext() if self.stream is None else torch.cuda.stream(self.stream)
+
+    def describe(self) -> str:
+        if self.stream is None:
+            return str(self.device)
+        own = "the card's default" if self.role == "learner" else "its own"
+        return f"{self.device} (stream {self.stream_handle:#x}, {own})"
+
+    def __repr__(self) -> str:
+        return f"PlaneMember({self.role}{self.index}, rank {self.rank}, {self.describe()})"
 
 
 class Mesh:
@@ -46,6 +105,14 @@ class Mesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    def local_members(self) -> List[PlaneMember]:
+        """The plane members of this mesh (``split_mesh``'s per-rank carve)
+        that this process dispatches to."""
+        from .distributed import process_index
+
+        me = process_index()
+        return [d for d in self.devices if isinstance(d, PlaneMember) and d.rank == me]
 
     def coords(self, index: int) -> Dict[str, int]:
         """The position of ``devices[index]`` on each axis, row-major in the
@@ -151,18 +218,64 @@ def make_mesh(spec: Optional[Dict[str, int]] = None, devices: Optional[Sequence]
     return Mesh(devices, dict(zip(spec, sizes)))
 
 
-def split_mesh(spec: Optional[Dict[str, int]] = None, actor_chips: int = 1,
-               devices: Optional[Sequence] = None):
-    """Partition a device list into disjoint (learner_mesh, actor_mesh):
-    the learner keeps the prefix (device 0, the coordinator's, stays a
-    learner device) laid out by ``spec``, the actors take the trailing
-    ``actor_chips`` devices as a flat ``{'dp': actor_chips}`` mesh.  The
-    JAX package's checks and words; ``plane: split`` that would use it is
-    still refused (ROADMAP A8)."""
+def plane_members(device, actor_chips: int = 1, local_device_ids: Optional[Sequence] = None,
+                  rank: int = 0) -> Tuple[PlaneMember, List[PlaneMember]]:
+    """This rank's members under ``plane: split``: (learner, actors).  The
+    learner member is ``device``; the ``actor_chips`` actor members take the
+    trailing ids of ``local_device_ids`` when it names more cards than one
+    (the JAX package's per-host carve: ``actor_chips`` is per host), else
+    they share ``device``, each on a stream of its own."""
     actor_chips = int(actor_chips)
     if actor_chips < 1:
         raise ValueError(f"actor_chips must be >= 1, got {actor_chips}")
-    devices = list(devices if devices is not None else rank_devices())
+    learner = PlaneMember(device, "learner", 0, rank)
+    ids = [int(i) for i in (local_device_ids or ())]
+    if len(ids) > 1:
+        if actor_chips >= len(ids):
+            raise ValueError(
+                f"plane: split needs at least one learner device PER HOST: "
+                f"actor_chips {actor_chips} of {len(ids)} local devices "
+                "leaves none (actor_chips is per host in a multi-process run)"
+            )
+        cards = [torch.device("cuda", i) for i in ids[len(ids) - actor_chips:]]
+    else:
+        cards = [learner.device] * actor_chips
+    return learner, [PlaneMember(d, "actor", i, rank) for i, d in enumerate(cards)]
+
+
+def split_mesh(spec: Optional[Dict[str, int]] = None, actor_chips: int = 1,
+               devices: Optional[Sequence] = None, device=None,
+               local_device_ids: Optional[Sequence] = None):
+    """Partition devices into disjoint (learner_mesh, actor_mesh).  A
+    member of this rank's planes is a ``PlaneMember`` (``local_members``).
+
+    Over a device list (``devices``): the learner keeps the prefix (device
+    0, the coordinator's, stays a learner device) laid out by ``spec``, the
+    actors take the trailing ``actor_chips`` devices as a flat ``{'dp':
+    actor_chips}`` mesh; the JAX package's checks and words.  With
+    ``devices`` None the carve is per rank (``plane_members``): the
+    learner mesh is every rank's device laid out by ``spec``
+    (``make_mesh``), and the actor mesh is this rank's ``actor_chips``
+    actor members of ``device`` (the card unless it names another device),
+    local to its process."""
+    actor_chips = int(actor_chips)
+    if actor_chips < 1:
+        raise ValueError(f"actor_chips must be >= 1, got {actor_chips}")
+    if devices is None:
+        from .distributed import is_initialized, process_index
+
+        rank = process_index()
+        member, actors = plane_members(resolve_device(device), actor_chips, local_device_ids,
+                                       rank)
+        if is_initialized():
+            # this rank's entry is its learner member: its stream, its lock
+            base = make_mesh(spec)
+            learner = Mesh([member if isinstance(d, RankDevice) and d.rank == rank else d
+                            for d in base.devices], base.shape)
+        else:
+            learner = Mesh([member], {"dp": 1})
+        return learner, Mesh(actors, {"dp": actor_chips})
+    devices = list(devices)
     if actor_chips >= len(devices):
         raise ValueError(
             f"plane: split needs at least one learner device: actor_chips "
@@ -196,7 +309,10 @@ def _local(devices) -> List[str]:
     me = process_index()
     out = []
     for d in devices:
-        if isinstance(d, RankDevice):
+        if isinstance(d, PlaneMember):
+            if d.rank == me:
+                out.append(d)     # its own lock, not its device's
+        elif isinstance(d, RankDevice):
             if d.rank == me:
                 out.append(d.device)
         else:
@@ -206,8 +322,8 @@ def _local(devices) -> List[str]:
 
 def dispatch_serialized(call: Callable[[], T], devices=None) -> T:
     """Run ``call`` holding the dispatch lock of each of this process's
-    devices among ``devices`` (a ``Mesh``, a list of devices or mesh
-    members, or None for this rank's collective device): the per-device
+    devices among ``devices`` (a ``Mesh``, a list of devices, mesh members
+    or plane members, or None for this rank's collective device): the per-device
     locks of ``parallel/dispatch.py``, no second registry.  Two threads of
     one rank that enqueue collectives on one device take turns, so every
     rank issues its collectives in one order."""

@@ -37,8 +37,9 @@ included; burn-in rows are real earlier steps and the train step warms the
 hidden state from zeros over them: ``_sample_batch_turn``).
 
 Threads.  The rollout thread (or the stage's feeder) ingests while the
-trainer samples, both on the card's default stream, so enqueue order is
-execution order.  One lock per replay is held around the enqueue of each
+trainer samples, both on the learner's stream (the card's default stream;
+under ``plane: split`` the rollout thread switches to it for the ingest),
+so enqueue order is execution order.  One lock per replay is held around the enqueue of each
 ingest's ring writes and of each sample's gathers: a sample can then never
 read a window that an ingest has half written.  The rings are written in
 place (JAX donates them instead), so every batch leaf is a fresh tensor
@@ -479,12 +480,15 @@ class DeviceReplay:
             "outcome_sq_sum": (outcome ** 2 * donef).sum(),
         }
 
-    def ingest(self, records, source: str = "local") -> HostRecord:
+    def ingest(self, records, source: str = "local", stats=None) -> HostRecord:
         """Fold a (K, B, ...) record batch (one rollout launch, a chunk of
         host-born episodes as numpy, or an actor host's records received by
         the plane gateway, runtime/plane.py) into the rings.  Returns the block's
         stats on their way to the host (``.numpy()`` waits for them).
         Host-born records cross to the card before the lock is taken.
+        ``stats``: the block's stats made already, where its records were
+        (the split plane's actor member, on its own stream: their read then
+        never waits on this stream's queue).
 
         A lane holds one stream of games: a block from another ``source``
         than the last one first restarts every lane (``_restart_lanes``),
@@ -497,7 +501,8 @@ class DeviceReplay:
                 self._restart_lanes()
             self._source = source
             self._write(records)
-            stats = HostRecord(self._stats(records))
+            if stats is None:
+                stats = HostRecord(self._stats(records))
             self._pending = stats
         return stats
 
@@ -522,7 +527,7 @@ class DeviceReplay:
             self.counters["outcome_sq_sum"] += float(host["outcome_sq_sum"])
         return host
 
-    def ingest_counted(self, records, defer: bool = False, source: str = "local"):
+    def ingest_counted(self, records, defer: bool = False, source: str = "local", stats=None):
         """``ingest`` and the host read of its stats, added to ``counters``.
 
         ``defer=True`` reads the stats of ingest N only after ingest N+1 has
@@ -530,7 +535,7 @@ class DeviceReplay:
         it returns the PREVIOUS ingest's stats (None on the first call), and
         ``flush_counted`` reads the tail.  The totals are the same either
         way."""
-        stats = self.ingest(records, source)
+        stats = self.ingest(records, source, stats)
         if not defer:
             return self._account(stats)
         self._stats_fifo.append(stats)

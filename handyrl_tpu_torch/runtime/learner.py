@@ -76,12 +76,29 @@ Under ``seq_attention: ring`` (a mesh with an ``sp`` axis) only the
 leader of each ``sp`` group (its index 0) runs actors, the store and the
 batch pipeline; the other ranks of the group start no actors and train on
 the leader's broadcast batches, on their own shards of the window.  The
-cadence, the health plane and the watchdog stay over every rank.  The
-split plane (``plane: split``) is not ported (ROADMAP A8).
+cadence, the health plane and the watchdog stay over every rank.
+
+Under ``plane: split`` self-play leaves the learner's stream: each rank
+carves ``actor_chips`` actor members (parallel/mesh.py ``split_mesh``:
+the trailing cards of ``distributed.local_device_ids``, else streams of
+their own on the rank's card), each playing its share of the lanes with a
+copy of the module on its own stream, while the trainer goes on on the
+learner member.  The trainer publishes its params to the actor members
+every ``param_refresh_updates`` updates (runtime/plane.py
+``PlaneParamCache``; with actor hosts through the gateway, whose inner the
+cache is); each block's records cross to the learner member
+(``RecordTransfer``) and into the rings there, under the rings' lock and
+on the learner's stream.  The epoch records carry the actor members' busy
+and idle shares, the mean param lag and the bytes/s crossing the planes.
+The watchdog also fires on params more than ``plane_param_lag_bound``
+updates behind, and once its restart budget is spent it degrades the
+split to fused: the rollout is rebuilt on the learner's device and
+training never stops.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
@@ -102,6 +119,7 @@ from ..models import init_variables
 from ..utils import resolve_device, trace
 from ..utils.trace import trace_span
 from . import batch, codec, faults
+from ..parallel.dispatch import dispatch_serialized
 from .checkpoint import (
     gc_snapshots,
     latest_verified_epoch,
@@ -115,6 +133,22 @@ from .worker import LocalModelServer, LocalWorkerPool
 
 # a job request answered later (see Learner._eval_budget_spent)
 _DEFERRED = object()
+
+
+class _SummedStats:
+    """The ingest stats of several actor members' blocks, read as one
+    block's (``HostRecord``'s surface)."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def wait(self) -> None:
+        for part in self.parts:
+            part.wait()
+
+    def numpy(self):
+        hosts = [part.numpy() for part in self.parts]
+        return {key: sum(h[key] for h in hosts) for key in hosts[0]}
 
 # the exit status after a preemption drain: a verified resume point is on
 # disk and the run wants a relaunch with restart_epoch: -1 (EX_TEMPFAIL)
@@ -335,10 +369,19 @@ class Learner:
                      else "a member: no actors, the leader's batches"), flush=True)
 
     def _setup_gateway(self) -> None:
-        """``distributed.actor_hosts`` > 0: the coordinator serves the plane
-        gateway (followers never do: the hosts dial the one port derived
-        from the coordinator's), publishing its initial params at version
-        ``steps``.  The gateway's records land in the device rings."""
+        """The trainer's publish seam: the split plane's cache, or the plane
+        gateway with the cache as its inner, and the initial params
+        published there at version ``steps`` (a resumed run's versions stay
+        monotone).  ``distributed.actor_hosts`` > 0: the coordinator serves
+        the gateway (followers never do: the hosts dial the one port derived
+        from the coordinator's); its records land in the device rings."""
+        self._make_gateway()
+        self.trainer.param_cache = self._plane_gateway or self._param_cache
+        if self.trainer.param_cache is not None:
+            self.trainer.param_cache.publish(self.trainer.ctx.module.state_dict(),
+                                             self.trainer.steps)
+
+    def _make_gateway(self) -> None:
         dist_args = dict(self.args.get("distributed") or {})
         if int(dist_args.get("actor_hosts") or 0) <= 0 or self._dist_follower:
             return
@@ -348,8 +391,40 @@ class Learner:
                 "actor-host record batches land in the device replay rings")
         from .plane import PlaneGateway
 
-        self._plane_gateway = PlaneGateway(dist_args, on_records=self._gateway_on_records)
-        self._plane_gateway.publish(self.trainer.state_host["params"], self.trainer.steps)
+        self._plane_gateway = PlaneGateway(dist_args, on_records=self._gateway_on_records,
+                                           inner=self._param_cache)
+
+    def _carve_planes(self) -> None:
+        """``plane: split``: this rank's learner member and its actor members
+        (parallel/mesh.py ``split_mesh``, carved per rank), printed as the
+        JAX learner prints its planes."""
+        from ..parallel.mesh import split_mesh
+
+        dist_args = self.args.get("distributed") or {}
+        learner, actor = split_mesh(self.args.get("mesh"), int(self.args["actor_chips"]),
+                                    device=self.device,
+                                    local_device_ids=dist_args.get("local_device_ids"))
+        self._learner_member = learner.local_members()[0]
+        self._actor_members = actor.local_members()
+        print("device planes: split — learner %s on %s, actor {'dp': %d} on %s (param refresh "
+              "every %d updates)"
+              % (dict(learner.shape), self._learner_member.describe(), actor.size,
+                 [m.describe() for m in self._actor_members],
+                 int(self.args["param_refresh_updates"])), flush=True)
+
+    def _make_rollout(self, venv, lanes: int, device):
+        """A rollout of ``lanes`` lanes on ``device``: streaming blocks of
+        ``device_replay_k_steps`` steps for the rings, else the twin's
+        rollout of episodes."""
+        if self._replay is not None:
+            from .device_rollout import StreamingDeviceRollout
+
+            return StreamingDeviceRollout(venv, self.module, self.args, n_lanes=lanes,
+                                          k_steps=self.args["device_replay_k_steps"],
+                                          device=device)
+        from .device_rollout import make_device_rollout
+
+        return make_device_rollout(venv, self.module, self.args, lanes, device=device)
 
     def _vector_env(self, key: str):
         vector_env = getattr(self.env, "vector_env", None)
@@ -359,26 +434,45 @@ class Learner:
         return vector_env()
 
     def _setup_device_planes(self) -> None:
-        """The rollout and the evaluator of the device twin, each
-        with a copy of the module on this learner's device."""
+        """The rollout and the evaluator of the device twin, each with a
+        copy of the module.  Fused, the rollout runs on this learner's
+        device; under ``plane: split`` one rollout per actor member, each
+        with its share of the lanes on its member's device and stream."""
         # each data shard's rank runs its share of the lanes (none on an sp
         # group's members: they make no episodes)
         self._device_games = (0 if self._sp_member else
                               int(self.args["device_rollout_games"]) // self._data_shards)
         self._device_roll = None
+        self._actor_rolls = None       # split: [(actor member, its rollout)]
         self._replay = None
         self._device_eval = None
         self._rollout_thread: Optional[threading.Thread] = None
         self._rollout_gen = 0
         self._rollout_progress_t = time.monotonic()
         self._rollout_dispatched = False
-        self._watchdog_events = {"plane_watchdog_stalls": 0, "plane_watchdog_restarts": 0}
+        self._watchdog_events = {"plane_watchdog_stalls": 0, "plane_watchdog_restarts": 0,
+                                 "plane_watchdog_degraded": 0}
         self._fault_wedge = faults.wedge_rollout()
-        # the epoch records' plane: "none" once the watchdog has given up
-        self._plane = "fused"
+        # the epoch records' plane: "split" until a degrade, "fused", or
+        # "none" once the watchdog has given up
+        self._plane = self.args["plane"]
+        self._learner_member = None
+        self._actor_members = None
+        self._param_cache = None       # versioned params for the actor members
+        self._record_xfer = None       # actor -> learner record transfer
+        self._plane_stats = None
+        self._plane_stats0: Dict[str, float] = {}
+        # rollout launches by the stream they were enqueued on (cudaStream_t)
+        self._rollout_streams: Dict[int, int] = {}
         # device episodes and their game steps this epoch
         self._device_epoch_eps = 0
         self._device_epoch_steps = 0
+        if self._plane == "split":
+            if self._device_games <= 0:
+                raise ValueError(
+                    "plane: split needs device_rollout_games > 0 (the actor plane generates "
+                    "with the on-device streaming rollout)")
+            self._carve_planes()
         if self._device_games > 0:
             venv = self._vector_env("device_rollout_games")
             n_verify = int(self.args["autovec_verify_games"])
@@ -389,6 +483,18 @@ class Learner:
                 venv.verify(n_verify, int(self.args["seed"]), device=self.device)
                 print(f"autovec twin verified: {venv.__name__} parity over {n_verify} "
                       "random games")
+            actors = self._actor_members
+            if actors is not None:
+                if not hasattr(venv, "record"):
+                    raise ValueError(
+                        "plane: split needs a STREAMING vector env (record/reset_done/step "
+                        "hooks) — the episodic driver runs on the default device, not the "
+                        f"actor mesh; {venv.__name__} lacks them")
+                if self._device_games % len(actors):
+                    raise ValueError(
+                        f"device_rollout_games {self._device_games} not divisible by "
+                        f"actor_chips {len(actors)} (plane: split shards the lanes over the "
+                        "actor mesh)")
             if self.args["observation"] and not hasattr(venv, "observe_mask"):
                 raise ValueError(
                     "device_rollout_games with observation: true requires a vector env that "
@@ -400,19 +506,23 @@ class Learner:
                 # sampled batches; DeviceReplay checks the env, the net and
                 # the window mode here, at startup
                 from .device_replay import DeviceReplay
-                from .device_rollout import StreamingDeviceRollout
 
                 self._replay = DeviceReplay(venv, self.module, self.args, self._device_games,
                                             slots=self.args["device_replay_slots"],
                                             device=self.device)
-                self._device_roll = StreamingDeviceRollout(
-                    venv, self.module, self.args, n_lanes=self._device_games,
-                    k_steps=self.args["device_replay_k_steps"], device=self.device)
-            else:
-                from .device_rollout import make_device_rollout
+            if actors is not None:
+                from .plane import PlaneParamCache, PlaneStats, RecordTransfer
 
-                self._device_roll = make_device_rollout(venv, self.module, self.args,
-                                                        self._device_games, device=self.device)
+                lanes = self._device_games // len(actors)
+                self._actor_rolls = [(m, self._make_rollout(venv, lanes, m.device))
+                                     for m in actors]
+                self._device_roll = self._actor_rolls[0][1]
+                self._param_cache = PlaneParamCache(actors)
+                self._plane_stats = PlaneStats()
+                if self._replay is not None:
+                    self._record_xfer = RecordTransfer(self._learner_member)
+            else:
+                self._device_roll = self._make_rollout(venv, self._device_games, self.device)
         n_eval = 0 if self._sp_member else int(self.args["device_eval_games"])
         if n_eval > 0:
             venv = self._vector_env("device_eval_games")
@@ -576,6 +686,7 @@ class Learner:
         if self._device_games > 0:  # the plane and the watchdog's cumulative events
             record["plane"] = self._plane
             record.update(self._watchdog_events)
+        self._plane_record(record, now)
         if self.model_server.substituted_snapshots:
             record["serve_snapshot_substituted"] = self.model_server.substituted_snapshots
         self._dist_record(record, steps)
@@ -592,6 +703,51 @@ class Learner:
         self._flywheel_epoch(record)
         self._epoch_hook(record)
         self._write_metrics(record)
+
+    def _print_planes(self) -> None:
+        """The run's split plane: where the rollout's blocks were enqueued
+        (by ``cudaStream_t``), the params' refreshes (bytes each, device
+        time of a copy) and the records that crossed."""
+        cache = self.trainer.param_cache
+        inner = getattr(cache, "inner", cache) if cache is not None else None
+        xfer = self._record_xfer
+        refreshes = ("none (degraded)" if inner is None else
+                     "%d of %d bytes, %s ms per copy" % (
+                         inner.refreshes, inner.bytes_transferred // max(inner.refreshes, 1),
+                         "n/a" if inner.copy_ms() is None else f"{inner.copy_ms():.3f}"))
+        print("device planes: rollout launches by stream %s; param refreshes %s; records %s"
+              % ({f"{h:#x}": n for h, n in sorted(self._rollout_streams.items())}, refreshes,
+                 "n/a" if xfer is None else
+                 f"{xfer.bytes_transferred} bytes in {xfer.transfers} transfers"), flush=True)
+
+    def _plane_record(self, record: Dict[str, Any], now: float) -> None:
+        """The planes' health this epoch, from cumulative counters diffed
+        against the last record's: the actor members' busy and idle shares
+        of the epoch, the mean param lag at launch, and the bytes/s crossing
+        between the planes (params out, records in; the gateway's count
+        folds in its inner cache's).  Local refs: a degrade on the watchdog's
+        thread nulls the attributes."""
+        stats, cache = self._plane_stats, self._param_cache
+        xfer, gateway = self._record_xfer, self._plane_gateway
+        if gateway is None and (stats is None or cache is None):
+            return
+        snap = stats.snapshot() if stats is not None else {}
+        snap["xfer_bytes"] = ((gateway.bytes_transferred if gateway is not None
+                               else cache.bytes_transferred)
+                              + (xfer.bytes_transferred if xfer is not None else 0))
+        prev, dt = self._plane_stats0, max(now - self._epoch_t0, 1e-6)
+
+        def diff(key):
+            return snap.get(key, 0.0) - prev.get(key, 0.0)
+
+        if stats is not None:
+            record["plane_actor_busy_frac"] = round(diff("actor_busy_s") / dt, 4)
+            record["plane_actor_idle_frac"] = round(diff("actor_idle_s") / dt, 4)
+        record["plane_xfer_bytes_per_sec"] = round(diff("xfer_bytes") / dt, 1)
+        if diff("actor_dispatches"):
+            record["plane_param_lag_mean"] = round(
+                diff("param_lag_sum") / diff("actor_dispatches"), 2)
+        self._plane_stats0 = snap
 
     # -- the seams a subclass overrides (league/learner.py) -------------------
 
@@ -666,10 +822,9 @@ class Learner:
                 gc_snapshots(self.model_dir, int(self.args["keep_checkpoints"]),
                              pin=self._gc_pin_set())
         t1 = time.perf_counter()
+        # the actor members and hosts get the trainer's params at its own
+        # cadence (param_refresh_updates), not here
         self.model_server.publish(self.model_epoch, params)
-        if self._plane_gateway is not None and steps > self._plane_gateway.version:
-            # a reference: the gateway packs it at the first poll, off this thread
-            self._plane_gateway.publish(params, steps)
         return t1 - t0, time.perf_counter() - t1
 
     def _repair_metrics_tail(self, path: str) -> None:
@@ -967,12 +1122,16 @@ class Learner:
         self._rollout_progress_t = time.monotonic()
 
     def _watchdog_loop(self) -> None:
-        """Restart a rollout thread that died, or made no progress for
-        plane_stall_timeout seconds, up to plane_max_restarts times; past
-        that, give up on device generation loudly: the host actors go on,
-        and every later epoch record says ``plane: "none"``."""
+        """Restart a rollout thread that died, made no progress for
+        plane_stall_timeout seconds, or (plane: split) whose params lag the
+        learner by more than plane_param_lag_bound updates, up to
+        plane_max_restarts times; past that a split plane degrades to fused
+        (``_degrade_to_fused``), and a fused one gives up on device
+        generation loudly: the host actors go on, and every later epoch
+        record says ``plane: "none"``."""
         timeout = float(self.args["plane_stall_timeout"])
         max_restarts = int(self.args["plane_max_restarts"])
+        lag_bound = int(self.args.get("plane_param_lag_bound", 0))
         restarts = 0
         tick = max(0.05, min(1.0, timeout / 4.0))
         while not self.shutdown_flag:
@@ -983,44 +1142,99 @@ class Learner:
             dead = not thread.is_alive()
             stall_s = time.monotonic() - self._rollout_progress_t
             stalled = stall_s > timeout and self._rollout_dispatched
-            if not (dead or stalled):
+            cache = self._param_cache
+            lag = cache.lag(self.trainer.steps) if (lag_bound > 0 and cache is not None) else 0
+            lagged = lag > lag_bound > 0
+            if not (dead or stalled or lagged):
                 continue
             reason = ("thread died" if dead
-                      else f"no progress for {stall_s:.1f}s (> plane_stall_timeout)")
+                      else f"no progress for {stall_s:.1f}s (> plane_stall_timeout)" if stalled
+                      else f"param lag {lag} > plane_param_lag_bound {lag_bound}")
             self._watchdog_events["plane_watchdog_stalls"] += 1
             print(f"[handyrl_tpu_torch] plane watchdog: rollout plane unhealthy ({reason})",
                   file=sys.stderr)
-            if restarts >= max_restarts:
+            if restarts < max_restarts:
+                restarts += 1
+                self._watchdog_events["plane_watchdog_restarts"] += 1
+                print(f"[handyrl_tpu_torch] plane watchdog: restarting rollout thread "
+                      f"({restarts}/{max_restarts})", file=sys.stderr)
+                self._start_rollout_thread()
+            elif self._plane == "split":
+                self._degrade_to_fused()
+            else:
                 print("[handyrl_tpu_torch] plane watchdog: restart budget exhausted; giving up on "
                       "the rollout thread (host actors keep generating)", file=sys.stderr)
                 self._plane = "none"
                 return
-            restarts += 1
-            self._watchdog_events["plane_watchdog_restarts"] += 1
-            print(f"[handyrl_tpu_torch] plane watchdog: restarting rollout thread "
-                  f"({restarts}/{max_restarts})", file=sys.stderr)
-            self._start_rollout_thread()
+
+    def _degrade_to_fused(self) -> None:
+        """Split -> fused: the live generation is superseded first, the
+        cross-plane flows stop (the gateway keeps publishing to actor hosts,
+        without its inner cache), the rollout is rebuilt on the learner's
+        device and restarted there.  Training never stops: the learner
+        member never depended on the actor members."""
+        self._rollout_gen += 1
+        print("[handyrl_tpu_torch] plane watchdog: restart budget exhausted; degrading split -> "
+              "fused (rollouts move to the learner's device; cross-plane param/record flows "
+              "stop)", file=sys.stderr)
+        gateway = self._plane_gateway
+        if gateway is not None:
+            gateway.inner = None
+            self.trainer.param_cache = gateway
+        else:
+            self.trainer.param_cache = None
+        venv = self._device_roll.venv
+        self._param_cache = None
+        self._record_xfer = None
+        self._plane_stats = None
+        self._actor_rolls = None
+        self._actor_members = None
+        self._plane = "fused"
+        self._watchdog_events["plane_watchdog_degraded"] = 1
+        try:
+            self._device_roll = self._make_rollout(venv, self._device_games, self.device)
+        except Exception:
+            import traceback
+
+            traceback.print_exc()
+            print("[handyrl_tpu_torch] plane watchdog: the rollout's rebuild on the learner's "
+                  "device failed (above); device generation stops (training goes on)",
+                  file=sys.stderr)
+            return
+        self._start_rollout_thread()
 
     def _device_rollout_loop(self, gen: int) -> None:
         """Generate device self-play blocks up to each epoch boundary.
         ``gen`` is the thread's generation token; a restarted generation
-        draws another stream than the one it replaces."""
-        rng = torch.Generator(device=self.device).manual_seed(
-            self.args["seed"] + 0x5EED + 0x1009 * (gen - 1) + 1009 * self._dist_rank)
-        roll = self._device_roll
+        draws another stream than the one it replaces.  The rollouts (the
+        actor members' under split) are taken at entry, each with a stream
+        of draws on its device; the first actor member's stream is this
+        thread's current one from here on (it is per thread)."""
+        rolls = self._actor_rolls or [(None, self._device_roll)]
+        seed = self.args["seed"] + 0x5EED + 0x1009 * (gen - 1) + 1009 * self._dist_rank
+        rngs = [torch.Generator(device=roll.device).manual_seed(seed + 0x51D * i)
+                for i, (_, roll) in enumerate(rolls)]
+        replay = self._replay
+        member = rolls[0][0]
         try:
             # grad mode is per thread
-            with torch.inference_mode():
-                if self._replay is not None:
-                    self._device_replay_inner(roll, rng, gen)
+            with torch.inference_mode(), (member.stream_context() if member is not None
+                                          else contextlib.nullcontext()):
+                for m, _ in rolls:
+                    if m is not None and m.stream is not None:
+                        # after the module copies and whatever else is queued
+                        m.stream.wait_stream(torch.cuda.default_stream(m.device))
+                if replay is not None:
+                    self._device_replay_inner(rolls, rngs, gen)
                 else:
-                    self._device_rollout_inner(roll, rng, gen)
+                    self._device_rollout_inner(rolls, rngs, gen)
         finally:
             if self._rollout_gen == gen:  # a superseded thread's successor owns them
-                if self._replay is not None:
-                    self._replay.drain()
-                elif hasattr(roll, "drain"):
-                    roll.drain()
+                if replay is not None:
+                    replay.drain()
+                for _, roll in rolls:
+                    if hasattr(roll, "drain"):
+                        roll.drain()
 
     def _maybe_wedge(self, gen: int, blocks: int) -> bool:
         """HANDYRL_FAULT_WEDGE_ROLLOUT: after N blocks this generation stops
@@ -1035,8 +1249,32 @@ class Learner:
             time.sleep(0.05)   # no beat: the watchdog must notice
         return True
 
-    def _device_rollout_inner(self, roll, rng: torch.Generator, gen: int) -> None:
-        loaded = None
+    def _actor_params(self, rolls):
+        """(model id, version, params per rollout) for the next launch: under
+        plane: split each actor member's newest landed copy of the cache,
+        counting the launch and its lag in updates; else the model server's
+        epoch snapshot (its version: the epoch)."""
+        cache = self._param_cache     # local refs: a concurrent degrade
+        stats = self._plane_stats     # nulls the attributes
+        if cache is None or rolls[0][0] is None:
+            epoch, params = self.model_server.latest_snapshot()
+            return epoch, [epoch] * len(rolls), [params] * len(rolls)
+        got = [cache.latest(member) for member, _ in rolls]
+        versions = [v for v, _ in got]
+        if stats is not None:
+            stats.bump(actor_dispatches=1,
+                       param_lag_sum=max(0, self.trainer.steps - min(versions)))
+        return self.model_epoch, versions, [p for _, p in got]
+
+    def _count_launch(self, device) -> None:
+        """One rollout launch on the calling thread's current stream."""
+        if device.type == "cuda":
+            handle = int(torch.cuda.current_stream(device).cuda_stream)
+            self._rollout_streams[handle] = self._rollout_streams.get(handle, 0) + 1
+
+    def _device_rollout_inner(self, rolls, rngs, gen: int) -> None:
+        stats = self._plane_stats
+        loaded = [None] * len(rolls)
         blocks = 0
         while self._rollout_live(gen):
             if self._maybe_wedge(gen, blocks):
@@ -1045,13 +1283,23 @@ class Learner:
                 # backpressure: the epoch's budget is met; let the trainer run
                 time.sleep(0.02)
                 self._rollout_beat()
+                if stats is not None:
+                    stats.bump(actor_idle_s=0.02)
                 continue
-            epoch, params = self.model_server.latest_snapshot()
-            episodes = roll.generate(params if epoch != loaded else None, rng)
-            loaded = epoch
+            epoch, versions, params = self._actor_params(rolls)
+            t_busy = time.perf_counter()
+            episodes = []
+            for i, (member, roll) in enumerate(rolls):
+                with member.stream_context() if member is not None else contextlib.nullcontext():
+                    episodes += roll.generate(params[i] if versions[i] != loaded[i] else None,
+                                              rngs[i])
+                    self._count_launch(roll.device)
+                loaded[i] = versions[i]
             blocks += 1
             self._rollout_dispatched = True
             self._rollout_beat()
+            if stats is not None:
+                stats.bump(actor_busy_s=time.perf_counter() - t_busy)
             for ep in episodes:
                 ep["args"]["model_id"] = {p: epoch for p in ep["players"]}
             if not self._rollout_live(gen):
@@ -1061,14 +1309,50 @@ class Learner:
             if not self._submit(("device_episodes", episodes), gen):
                 return
 
-    def _device_replay_inner(self, roll, rng: torch.Generator, gen: int) -> None:
+    def _launch_actors(self, rolls, rngs, params, versions, loaded):
+        """One block on every actor member, each enqueued on its own stream
+        under its own dispatch lock; returns the records on the learner
+        member (the members' lanes in order) and the block's ingest stats,
+        made on the actors' streams, so no read of them waits on the
+        learner's queue."""
+        from .device_replay import DeviceReplay
+        from .device_rollout import HostRecord
+
+        parts, stats = [], []
+        for i, (member, roll) in enumerate(rolls):
+            with member.stream_context():
+                records = dispatch_serialized(
+                    lambda i=i, roll=roll: roll.launch(
+                        params[i] if versions[i] != loaded[i] else None, rngs[i]),
+                    [member])
+                loaded[i] = versions[i]
+                self._count_launch(member.device)
+                block = HostRecord(DeviceReplay._stats(records))
+            parts.append(self._record_xfer(records, block.event))
+            stats.append(block)
+        if len(parts) == 1:
+            return parts[0], stats[0]
+        with self._learner_member.stream_context():
+            records = {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
+        return records, _SummedStats(stats)
+
+    def _device_replay_inner(self, rolls, rngs, gen: int) -> None:
         """Streaming rollout -> ring ingest on the card; only the ingests'
         counters reach the host, one ingest late (``ingest_counted(defer=
         True)``), and go to the server loop for the books.  ``epoch_fifo``
         holds the model epoch of each ingest in flight, so the counters that
-        come back are booked under the params that played them."""
+        come back are booked under the params that played them.  Under
+        plane: split the blocks run on the actor members and cross to the
+        learner member, and the ingest runs on the learner's stream, under
+        its lock and the rings' (the rings' contract with the train step
+        stays one stream's); the split is resolved at entry, so a restart
+        after a degrade runs fused."""
         replay = self._replay
-        loaded = None
+        split = rolls[0][0] is not None
+        plane_stats = self._plane_stats    # entry refs: a degrade nulls them
+        learner = self._learner_member
+        roll = rolls[0][1]
+        loaded = [None] * len(rolls)
         pending_steps = 0   # game steps of ingests that finished no episode
         epoch_fifo: deque = deque()
         blocks = 0
@@ -1083,15 +1367,30 @@ class Learner:
                     # feeds the rings (one source at a time); let the trainer run
                     time.sleep(0.02)
                     self._rollout_beat()
+                    if split:
+                        plane_stats.bump(actor_idle_s=0.02)
                     continue
-                epoch, params = self.model_server.latest_snapshot()
-                records = roll.launch(params if epoch != loaded else None, rng)
-                loaded = epoch
-                epoch_fifo.append(epoch)
-                stats = replay.ingest_counted(records, defer=True)
+                epoch, versions, params = self._actor_params(rolls)
+                t_busy = time.perf_counter()
+                if split:
+                    records, block = self._launch_actors(rolls, rngs, params, versions, loaded)
+                    epoch_fifo.append(epoch)
+                    with learner.stream_context():
+                        stats = dispatch_serialized(
+                            lambda: replay.ingest_counted(records, defer=True, stats=block),
+                            [learner])
+                else:
+                    records = roll.launch(params[0] if versions[0] != loaded[0] else None,
+                                          rngs[0])
+                    loaded[0] = versions[0]
+                    self._count_launch(roll.device)
+                    epoch_fifo.append(epoch)
+                    stats = replay.ingest_counted(records, defer=True)
                 blocks += 1
                 self._rollout_dispatched = True
                 self._rollout_beat()
+                if split:
+                    plane_stats.bump(actor_busy_s=time.perf_counter() - t_busy)
                 if not self._rollout_live(gen):
                     return
                 if stats is None:
@@ -1188,6 +1487,8 @@ class Learner:
                 self._health.stop()
             self._restore_signal_handlers()
             trace.shutdown()   # the ring's tail; nothing when tracing is off
+        if self.args["plane"] == "split":
+            self._print_planes()
         from ..parallel.distributed import is_initialized, params_crc32
 
         if is_initialized():
@@ -1196,6 +1497,11 @@ class Learner:
             print("distributed learner: process %d params crc32 %08x at step %d"
                   % (self._dist_rank, params_crc32(self.trainer.state_host["params"]),
                      self.trainer.state_host["steps"]), flush=True)
+            # and that of the module itself, on its device: equal to the
+            # snapshot's, or the host copy changed after it was taken
+            print("distributed learner: process %d module hashes to %08x at step %d"
+                  % (self._dist_rank, params_crc32(self.trainer.ctx.module.state_dict()),
+                     self.trainer.steps), flush=True)
         return EXIT_RESUMABLE if self._drain_requested else 0
 
     # -- several processes: the follower's boundary, faults, the gateway -------

@@ -1,18 +1,27 @@
 """The actor/learner planes: versioned params out, self-play records in.
 
-Counterpart of ``handyrl_tpu/runtime/plane.py``.  Two flows cross between
-the actor side and the learner side:
+Counterpart of ``handyrl_tpu/runtime/plane.py``.  Under ``plane: split``
+self-play runs on actor members of its own (parallel/mesh.py
+``split_mesh``: streams of their own on the rank's card, or cards of their
+own) while the learner member trains, and two flows cross between them:
 
 * params, learner -> actors: ``PlaneParamCache`` holds a versioned copy on
-  an actor device; ``lag`` says how many learner updates behind it is;
+  the actor members' devices, published by the trainer every
+  ``param_refresh_updates`` updates; ``lag`` says how many learner updates
+  behind it is;
 * records, actors -> learner: ``RecordTransfer`` moves a rollout's (K, B,
-  ...) record batch onto the learner's device, where ``DeviceReplay``'s
-  rings take it.
+  ...) record batch onto the learner member, where ``DeviceReplay``'s rings
+  take it.
 
-Both count their bytes.  The split plane that would run them between two
-cards of one process (``plane: split``) is still refused (ROADMAP A8, it
-needs a learner card beside the actor cards); they are here for the
-gateway's ``inner``.
+Both count their bytes.  The learner's params change in place at every
+step (JAX's arrays never do), so a publish copies them on the learner's own
+stream, after the step that made them and before the next one writes them,
+and marks the copy with an event; the actor reads a copy only once its
+event has completed, so neither stream ever waits on the other.  A record
+batch crosses once its block is complete (the rollout thread waits, the
+learner's stream does not), as a copy enqueued on the learner's stream.  A
+tensor read on one stream and freed by another thread is handed over with
+``record_stream``.
 
 **Actor hosts** (the JAX package's pod-slice rung 2): ``PlaneGateway`` is
 the learner's TCP server and ``PlaneClient`` the actor host's side.  Params
@@ -32,17 +41,20 @@ and the client leaves cleanly, while a dead socket is the loud path.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import socket
 import sys
 import threading
 import time
+from collections import deque
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh, PlaneMember
 from ..utils.trace import trace_span
 
 
@@ -60,61 +72,160 @@ def _tree_bytes(tree) -> int:
 
 
 def _tree_to(tree, device: torch.device):
+    """A copy of ``tree`` on ``device``, enqueued on the calling thread's
+    current stream."""
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     if not torch.is_tensor(tree):
         tree = torch.from_numpy(np.ascontiguousarray(tree))
-    return tree.to(device, copy=True)
+    return tree.detach().to(device, copy=True)
+
+
+def _ready_event(device: torch.device, timing: bool = False):
+    """An event behind the calling thread's work on ``device`` (None on
+    the CPU, where work is done when it returns)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event(enable_timing=timing)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _members(where):
+    """A Mesh, a list of plane members or devices, or one -> a list."""
+    if isinstance(where, Mesh):
+        where = where.devices
+    if not isinstance(where, (list, tuple)):
+        where = [where]
+    return list(where)
+
+
+def _device_of(member) -> torch.device:
+    return member.device if isinstance(member, PlaneMember) else torch.device(member)
 
 
 class PlaneParamCache:
-    """A versioned copy of the learner's params on an actor device.  The
-    learner's thread publishes between steps; the actor's thread reads
-    ``latest()``.  Versions are learner step counts and only advance."""
+    """A versioned copy of the learner's params for the actor members (one
+    copy per distinct device among them).  The trainer's thread publishes
+    between steps; an actor's thread reads ``latest(member)``, which hands
+    out the newest copy whose copy has completed (waiting only for the
+    first), readable on the member's stream.  Versions are learner step
+    counts and only advance; ``version`` and ``lag`` follow the newest
+    publish, as the JAX cache's do."""
 
-    def __init__(self, device):
-        self.device = torch.device(device)
+    def __init__(self, actors):
+        self.members = _members(actors)
+        self.devices = list(dict.fromkeys(_device_of(m) for m in self.members))
+        self.device = self.devices[0]
         self._lock = threading.Lock()
-        self._params = None
+        self._pending = None   # (version, {device: params}, {device: event})
+        self._ready = None     # the newest copy an actor may read
         self.version = -1
         self.refreshes = 0
         self.bytes_transferred = 0
+        # (start, ready) events of the newest copies on a card, for copy_ms
+        self._timed: deque = deque(maxlen=64)
 
     def publish(self, params, version: int) -> None:
+        """Copy ``params`` to the actor devices on this thread's current
+        stream (the learner's: the copy sits between the step that made
+        the params and the one that next writes them) and stamp it
+        ``version``.  A copy not yet read is replaced outright."""
         version = int(version)
         with self._lock:
             if version <= self.version:
                 raise ValueError(f"param version must advance monotonically: "
                                  f"{version} <= {self.version}")
-            fresh = _tree_to(params, self.device)
-            self._params = fresh
+            start = _ready_event(self.device, timing=True)
+            copies = {d: _tree_to(params, d) for d in self.devices}
+            events = {d: _ready_event(d, timing=d == self.device) for d in self.devices}
+            if start is not None:
+                self._timed.append((start, events[self.device]))
+            self._pending = (version, copies, events)
             self.version = version
             self.refreshes += 1
-            self.bytes_transferred += _tree_bytes(fresh)
+            # the JAX cache counts a replicated copy once
+            self.bytes_transferred += _tree_bytes(copies[self.device])
 
-    def latest(self) -> Tuple[int, Any]:
-        """(version, params on the actor device) of the newest publish."""
+    def newest(self):
+        """(version, params on the first actor device, its event) of the
+        newest publish, read or not."""
         with self._lock:
-            if self._params is None:
+            entry = self._pending or self._ready
+        if entry is None:
+            raise RuntimeError("PlaneParamCache.newest() before first publish")
+        version, copies, events = entry
+        return version, copies[self.device], events[self.device]
+
+    def latest(self, member=None) -> Tuple[int, Any]:
+        """(version, params on ``member``'s device) of the newest copy that
+        has landed; ``member``'s stream (or the calling thread's current
+        one) is ordered after the copy, and the allocator keeps the copy's
+        memory until that stream is past its reads."""
+        with self._lock:
+            pending = self._pending
+            if pending is not None:
+                events = [e for e in pending[2].values() if e is not None]
+                if self._ready is None:
+                    for e in events:   # the first publish: wait for it
+                        e.synchronize()
+                if self._ready is None or all(e.query() for e in events):
+                    self._ready, self._pending = pending, None
+            if self._ready is None:
                 raise RuntimeError("PlaneParamCache.latest() before first publish")
-            return self.version, self._params
+            version, copies, events = self._ready
+        device = _device_of(member) if member is not None else self.device
+        params, event = copies[device], events[device]
+        if event is not None:
+            stream = getattr(member, "stream", None) or torch.cuda.current_stream(device)
+            stream.wait_event(event)
+            for t in _leaves(params):
+                t.record_stream(stream)
+        return version, params
 
     def lag(self, learner_steps: int) -> int:
-        """How many learner updates behind the actor's params are."""
+        """How many learner updates behind the newest publish is."""
         return max(0, int(learner_steps) - self.version) if self.refreshes else 0
+
+    def copy_ms(self) -> Optional[float]:
+        """The mean device time of the newest copies to the first actor
+        device (waits for them; None on the CPU)."""
+        with self._lock:
+            timed = list(self._timed)
+        if not timed:
+            return None
+        times = []
+        for start, ready in timed:
+            ready.synchronize()
+            times.append(start.elapsed_time(ready))
+        return sum(times) / len(times)
 
 
 class RecordTransfer:
-    """Actor -> learner: a record batch moved onto the learner's device,
-    with byte accounting."""
+    """Actor -> learner: a record batch moved onto the learner member, with
+    byte accounting.  ``ready`` (an event behind the block on the actor's
+    stream) is waited for on the host, by the rollout thread alone; the
+    copy is then enqueued on the learner member's stream (on the same card
+    an ordered copy, across cards a real one), which thus never waits on
+    the actor's, and the source stays allocated until the copy has read
+    it."""
 
-    def __init__(self, learner_device):
-        self.device = torch.device(learner_device)
+    def __init__(self, learner):
+        self.member = learner if isinstance(learner, PlaneMember) else None
+        self.device = _device_of(learner)
         self.transfers = 0
         self.bytes_transferred = 0
 
-    def __call__(self, records: Dict[str, Any]) -> Dict[str, Any]:
-        moved = _tree_to(records, self.device)
+    def __call__(self, records: Dict[str, Any], ready=None) -> Dict[str, Any]:
+        if ready is not None:
+            ready.synchronize()
+        stream = None if self.member is None else self.member.stream
+        with (torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()):
+            moved = _tree_to(records, self.device)
+            if stream is not None:
+                for t in _leaves(records):
+                    if torch.is_tensor(t) and t.is_cuda:
+                        t.record_stream(stream)
         self.transfers += 1
         self.bytes_transferred += _tree_bytes(moved)
         return moved
@@ -141,6 +252,16 @@ class PlaneStats:
     def snapshot(self) -> Dict[str, float]:
         with self._lock:
             return dict(self._c)
+
+
+def _snapshot(params):
+    """(a copy of ``params``, an event behind it): the trainer's params
+    change in place at its next step, so the gateway keeps a copy, made on
+    the publishing thread's current stream."""
+    copy = _tree_to(params, next(
+        (t.device for t in _leaves(params) if torch.is_tensor(t)), torch.device("cpu")))
+    device = next((t.device for t in _leaves(copy)), torch.device("cpu"))
+    return copy, _ready_event(device)
 
 
 # -- actor hosts: the TCP transport ------------------------------------------
@@ -227,11 +348,12 @@ def _recv_msg(rfile) -> Tuple[Optional[Dict[str, Any]], bytes, int]:
 class PlaneGateway:
     """The learner's side: versioned params out, records in.
 
-    The trainer publishes through ``publish(params, version)``, the
-    surface of ``PlaneParamCache`` (to which it delegates when ``inner``
-    is set): the publish keeps a reference under the lock and returns; the
-    serialization happens on a serving thread at the first poll of that
-    version.  ``on_records`` receives each decoded record tree on a
+    The trainer publishes through ``publish(params, version)`` every
+    ``param_refresh_updates`` updates, the surface of ``PlaneParamCache``
+    (to which it delegates when ``inner`` is set, under ``plane: split``):
+    the publish keeps a copy (the inner cache's, else its own, made on the
+    publishing thread's stream) and returns; the serialization happens on a
+    serving thread at the first poll of that version.  ``on_records`` receives each decoded record tree on a
     serving thread.  An actor host that disconnects after its hello counts
     in ``actor_host_losses`` and the run goes on; after ``begin_stop`` or
     ``stop`` every request is answered "stop", and the hosts leave 0.
@@ -244,7 +366,8 @@ class PlaneGateway:
         self.on_records = on_records
         self.inner = inner
         self._lock = threading.Lock()
-        self._params = None          # newest published tree (a reference)
+        self._params = None          # newest published tree (a copy)
+        self._ready = None           # the event behind that copy (on a card)
         self._packed: Optional[Tuple[int, bytes]] = None  # (version, npz), made lazily
         self.version = -1
         self.refreshes = 0
@@ -271,15 +394,21 @@ class PlaneGateway:
 
     def publish(self, params, version: int) -> None:
         version = int(version)
-        if self.inner is not None:
+        inner = self.inner
+        if inner is not None:
             # the local copy first: it holds the monotonicity check, and a
-            # raise leaves the gateway untouched
-            self.inner.publish(params, version)
+            # raise leaves the gateway untouched; its copy is the snapshot
+            inner.publish(params, version)
+            _v, snap, ready = inner.newest()
+        else:
+            snap, ready = None, None
         with self._lock:
-            if self.inner is None and version <= self.version:
-                raise ValueError(f"param version must advance monotonically: "
-                                 f"{version} <= {self.version}")
-            self._params = params
+            if inner is None:
+                if version <= self.version:
+                    raise ValueError(f"param version must advance monotonically: "
+                                     f"{version} <= {self.version}")
+                snap, ready = _snapshot(params)
+            self._params, self._ready = snap, ready
             self.version = version
             self.refreshes += 1
             self._packed = None      # serialized at the next poll
@@ -313,8 +442,10 @@ class PlaneGateway:
         with self._lock:
             if self._packed is not None and self._packed[0] == self.version:
                 return self._packed
-            version, params = self.version, self._params
+            version, params, ready = self.version, self._params, self._ready
         with trace_span("plane.param_publish", plane="plane", version=version):
+            if ready is not None:
+                ready.synchronize()
             payload = _pack_tree(params)
         with self._lock:
             if self._packed is None or self._packed[0] < version:

@@ -360,6 +360,12 @@ class Trainer:
         # under device_replay: true; the epoch loop then samples, assembles
         # and steps from its rings, and the batch pipeline is never started
         self.device_replay = None
+        # the publish seam (runtime/plane.py), set by the learner: the split
+        # plane's PlaneParamCache, or the plane gateway (with the cache as
+        # its inner); every param_refresh_updates updates the loop publishes
+        # the params there, versioned by step count
+        self.param_cache = None
+        self.param_refresh = max(1, int(args.get("param_refresh_updates", 8)))
         self._rank = process_index()
         self._replay_gen = torch.Generator(device=self.ctx.device).manual_seed(
             (int(args.get("seed", 0)) ^ 0x7EA1) + 1009 * self._rank)
@@ -505,6 +511,7 @@ class Trainer:
                 self._collective_dispatched = True
                 updates += k
                 self.steps += k
+                self._maybe_publish_params()
                 self._maybe_fault_sigterm()
         if history:
             self._finish_epoch(history, updates, time.perf_counter() - t_epoch, wait_s,
@@ -520,6 +527,16 @@ class Trainer:
             if self.steps < start + count and self.steps + k > start:
                 return float("nan")
         return lr
+
+    def _maybe_publish_params(self) -> None:
+        """Publish the params to ``param_cache`` once ``param_refresh_updates``
+        updates have passed since its last version (the JAX trainer's
+        cadence).  On this thread, between steps: the copy is enqueued on
+        its stream after the step that made the params and before the next
+        one writes them in place."""
+        cache = self.param_cache
+        if cache is not None and self.steps - cache.version >= self.param_refresh:
+            cache.publish(self.ctx.module.state_dict(), self.steps)
 
     def _maybe_fault_sigterm(self) -> None:
         """HANDYRL_FAULT_SIGTERM_AT_STEP: a preemption in mid-epoch."""
@@ -564,6 +581,7 @@ class Trainer:
                 self._disarm()
             self._collective_dispatched = True
             self.steps += self.fused
+            self._maybe_publish_params()
             self._maybe_fault_sigterm()
             if on_cpu:
                 time.sleep(0.02)
@@ -596,6 +614,11 @@ class Trainer:
             self.stats.update(self.sentinel_events)   # cumulative
         if warmup_wait_s:
             self.stats["input_wait_warmup_s"] = round(warmup_wait_s, 4)
+        cache = self.param_cache
+        if cache is not None:
+            # the actors' staleness at the boundary, and the refreshes so far
+            self.stats["plane_param_lag"] = cache.lag(self.steps)
+            self.stats["plane_param_refreshes"] = cache.refreshes
         reduce = self.ctx.grad_reduce
         if reduce is not None:   # the gradient bucket's collective, this epoch
             cur = reduce.stats()

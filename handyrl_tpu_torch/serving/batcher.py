@@ -31,6 +31,7 @@ stragglers.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -42,6 +43,7 @@ import torch
 
 from ..models.inference import fetch_outputs
 from ..parallel.dispatch import dispatch_serialized
+from ..parallel.mesh import PlaneMember
 from ..runtime.inference_engine import EngineStopped, next_bucket, stack_padded
 from ..utils import tree_map
 from ..utils.trace import trace_event
@@ -160,10 +162,17 @@ class ContinuousBatcher:
         template_obs=None,
     ):
         self.model = model
-        self._devices = [torch.device(d) for d in devices]
+        # a plane member (parallel/mesh.py, the league's opponents on the
+        # split plane's actor members): its device, its stream, its lock
+        self._member = devices[0] if isinstance(devices[0], PlaneMember) else None
+        self._devices = [d.device if isinstance(d, PlaneMember) else torch.device(d)
+                         for d in devices]
         if self.model.device != self._devices[0]:
             self.model.module.to(self._devices[0])
             self.model.device = self._devices[0]
+        if self._member is not None and self._member.stream is not None:
+            # the member's stream reads the module after its copy landed
+            self._member.stream.wait_stream(torch.cuda.current_stream(self._devices[0]))
         self.max_batch = max(1, int(max_batch))
         self.max_wait = float(max_wait_ms) / 1000.0
         self.slo_s = float(slo_ms) / 1000.0
@@ -393,11 +402,15 @@ class ContinuousBatcher:
     def _run(self, obs_list, hid_list, bucket: int) -> Dict[str, Any]:
         """Stack, enqueue under the device lock, fetch outside it."""
         model = self.model
-        obs_batch, hidden_batch = stack_padded(obs_list, hid_list, bucket, self._hidden_template)
-        device_out = dispatch_serialized(
-            lambda: model.inference_batch_async(obs_batch, hidden_batch), self._devices
-        )
-        return fetch_outputs(device_out)
+        member = self._member
+        with member.stream_context() if member is not None else contextlib.nullcontext():
+            obs_batch, hidden_batch = stack_padded(obs_list, hid_list, bucket,
+                                                   self._hidden_template)
+            device_out = dispatch_serialized(
+                lambda: model.inference_batch_async(obs_batch, hidden_batch),
+                [member] if member is not None else self._devices
+            )
+            return fetch_outputs(device_out)
 
     def _execute(self, requests: List[_Request]) -> None:
         n = len(requests)

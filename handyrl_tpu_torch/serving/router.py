@@ -40,6 +40,7 @@ import torch
 from ..agents import mean_pool_outputs
 from ..models.inference import RandomModel, build_inference_model, module_skeleton
 from ..runtime.checkpoint import latest_verified_epoch, load_verified_params
+from ..parallel.mesh import PlaneMember
 from ..utils import resolve_device
 from .batcher import BadRequest, ContinuousBatcher, ServeError, percentiles_ms
 
@@ -159,8 +160,11 @@ class ModelRouter:
         # measured fp32-vs-int8 output deviation in last_calibration
         self.calibration_source = None
         self.last_calibration: Optional[Dict[str, float]] = None
-        self._devices: List[torch.device] = (
-            [resolve_device(d) for d in devices] if devices is not None else [resolve_device()]
+        # devices, or plane members (parallel/mesh.py): the league's frozen
+        # opponents on the split plane's actor members
+        self._devices: List = (
+            [d if isinstance(d, PlaneMember) else resolve_device(d) for d in devices]
+            if devices is not None else [resolve_device()]
         )
         self._spawned = 0
         self._lock = threading.Lock()
@@ -197,7 +201,9 @@ class ModelRouter:
         with self._lock:
             device = self._devices[self._spawned % len(self._devices)]
             self._spawned += 1
-        model = build_inference_model(self.module, params, self.weight_dtype, device)
+        model = build_inference_model(self.module, params, self.weight_dtype,
+                                      device.device if isinstance(device, PlaneMember)
+                                      else device)
         return ContinuousBatcher(
             model, [device], template_obs=self._template_obs, **self._engine_cfg
         ).start()

@@ -16,6 +16,8 @@ Exact comparisons throughout: frames are bytes.  Every socket binds port 0
 or is a socketpair, and every wait has a deadline of a few seconds.
 """
 
+import copy
+import functools
 import random
 import socket
 import threading
@@ -56,7 +58,25 @@ def _train_args(name):
 
 def _generated(name, seed=0):
     """An episode and an evaluation result of ``name`` played by its own
-    net on the CPU (the DRC's hidden state stays in torch tensors)."""
+    net on the CPU (the DRC's hidden state stays in torch tensors).  Each
+    (name, seed) is played once per module; every caller gets a copy."""
+    return copy.deepcopy(_played(name, seed))
+
+
+@functools.lru_cache(maxsize=None)
+def _played(name, seed):
+    # two intra-op threads: a worker of a parallel run shares the cores with
+    # the others, and oversubscribed threads slowed one Geister game tens of
+    # times over
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        return _play(name, seed)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _play(name, seed):
     args = _train_args(name)
     env = make_env(args["env"])
     model = InferenceModel(init_variables(env.net(), seed), "cpu")

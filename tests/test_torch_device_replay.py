@@ -139,9 +139,16 @@ def _replays(env_name, chunks, args, venv):
 
 @pytest.fixture(scope="module", params=sorted(SETUPS))
 def data(request):
+    # made before the function fixture _few_threads, so it limits the
+    # threads itself: a worker of a parallel run shares the cores
     env_name = request.param
-    chunks, episodes, args, venv = _records(env_name)
-    jreplay, replay, stats = _replays(env_name, chunks, args, venv)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        chunks, episodes, args, venv = _records(env_name)
+        jreplay, replay, stats = _replays(env_name, chunks, args, venv)
+    finally:
+        torch.set_num_threads(threads)
     return {"env": env_name, "chunks": chunks, "episodes": episodes, "args": args,
             "venv": venv, "jreplay": jreplay, "replay": replay, "stats": stats}
 

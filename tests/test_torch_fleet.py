@@ -118,6 +118,15 @@ def test_router_failover_is_bounded_and_survivors_serve(tmp_path):
     fleet = _fleet([s1.bound_port, s2.bound_port], replica_stall_s=2.0, stats_poll_s=5.0)
     client = ServingClient("127.0.0.1", fleet.bound_port)
     try:
+        # the router serves once one replica is warm; the spread below is
+        # decided by the polled load scores, so wait until both replicas are
+        # admitted with equal scores (the pick then takes them in turn)
+        deadline = time.monotonic() + TIMEOUT
+        while time.monotonic() < deadline:
+            live = fleet._live(stateful=True)
+            if len(live) == 2 and live[0].load == live[1].load:
+                break
+            time.sleep(0.05)
         sids = [client.open_session() for _ in range(2)]
         for sid in sids:
             assert client.infer(obs, sid=sid, timeout=TIMEOUT)["sid"] == sid

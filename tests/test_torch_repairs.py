@@ -6,8 +6,10 @@
 * C2: the episode store shrinks under memory pressure exactly as the JAX
   store does on the same inputs (psutil's reading patched to 99%).
 * C3: a config key that selects a plane the port lacks is refused on any
-  value but its default, naming the ROADMAP item; ``blk_k`` is checked as
-  the JAX package checks it.
+  value but its default, naming the ROADMAP item (a mesh axis other than
+  ``dp`` and ``sp``; the split plane's keys are ported and checked as the
+  JAX package checks them); ``blk_k`` is checked as the JAX package
+  checks it.
 * C4: every key path of the JAX package's ``DEFAULT_TRAIN_ARGS`` is in the
   port's defaults or refused by name in ``NOT_PORTED_KEYS``; a value both
   packages check is refused by both, in the same words.  The keys of a
@@ -100,10 +102,9 @@ def _value(path, value):
     return out
 
 
-# a value other than the JAX default, by dotted key path
-NON_DEFAULT = {
-    "plane": "split", "plane_param_lag_bound": 5, "actor_chips": 2, "param_refresh_updates": 5,
-}
+# a value other than the JAX default of each key in NOT_PORTED_KEYS, by
+# dotted key path (every key is ported: none left)
+NON_DEFAULT = {}
 
 # the key paths of the int8 rung and the flywheel, ported and acted on: a
 # value other than the default that both packages accept, and one the JAX
@@ -186,14 +187,41 @@ def test_league_and_autovec_keys_act_and_are_checked_as_in_jax(key):
     assert all(path != p for p, _, _ in NOT_PORTED_KEYS)
 
 
-@pytest.mark.parametrize("path,default,item", NOT_PORTED_KEYS,
-                         ids=[".".join(p) for p, _, _ in NOT_PORTED_KEYS])
-def test_keys_of_planes_not_ported_are_refused(path, default, item):
-    env = {"env": "TicTacToe"}
-    normalize_args({"env_args": env, "train_args": _value(path, default)})  # the default passes
-    bad = NON_DEFAULT[".".join(path)]
-    with pytest.raises(ValueError, match=f"ROADMAP {item.split()[0]}"):
-        normalize_args({"env_args": env, "train_args": _value(path, bad)})
+SPLIT = {"plane": "split", "device_rollout_games": 16}
+# the split plane's keys: a config that sets the key, one both packages
+# refuse, and the refusal's words
+SPLIT_PLANE_KEYS = [
+    ("plane", SPLIT, {"plane": "split"}, "plane: split needs device_rollout_games > 0"),
+    ("actor_chips", dict(SPLIT, actor_chips=2), dict(SPLIT, actor_chips=0),
+     "actor_chips must be >= 1"),
+    ("param_refresh_updates", dict(SPLIT, param_refresh_updates=2),
+     dict(SPLIT, param_refresh_updates=0), "param_refresh_updates must be >= 1"),
+    ("plane_param_lag_bound", dict(SPLIT, plane_param_lag_bound=4),
+     dict(SPLIT, plane_param_lag_bound=-1), r"plane_param_lag_bound must be >= 0 \(0 = off\)"),
+]
+SPLIT_PLANE_NAMES = ("plane", "actor_chips", "param_refresh_updates", "plane_param_lag_bound",
+                     "device_rollout_games")
+
+
+@pytest.mark.parametrize("key,train_args,bad,match", SPLIT_PLANE_KEYS,
+                         ids=[k for k, _, _, _ in SPLIT_PLANE_KEYS])
+def test_split_plane_keys_pass_both_packages_alike(key, train_args, bad, match):
+    """The split plane is ported: both packages' normalize_args take the
+    key, with the same result for it and for every other key of the plane,
+    and both refuse the same misconfiguration with the same words; the key
+    is not in NOT_PORTED_KEYS."""
+    from handyrl_tpu.config import normalize_args as jax_normalize_args
+
+    raw = {"env_args": {"env": "HungryGeese"}, "train_args": train_args}
+    port, jax_args = normalize_args(raw)["train_args"], jax_normalize_args(raw)["train_args"]
+    for name in SPLIT_PLANE_NAMES:
+        assert port[name] == jax_args[name], name
+    assert port[key] == train_args[key]
+    bad = {"env_args": {"env": "HungryGeese"}, "train_args": bad}
+    for normalize in (normalize_args, jax_normalize_args):
+        with pytest.raises(ValueError, match=match):
+            normalize(bad)
+    assert all(path != (key,) for path, _, _ in NOT_PORTED_KEYS)
 
 
 REPLAY = {"device_replay": True, "device_rollout_games": 8}
